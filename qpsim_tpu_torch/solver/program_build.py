@@ -1,0 +1,200 @@
+"""Engine program: diffusion backend, collision dispatch and segment runners.
+
+Carried over from ``qpsim_tpu.solver.program_build`` (single-device part).
+The JAX package compiles each segment into one program; here a segment is
+a Python loop over steps that launches the kernels eagerly (PyTorch has
+no retrace cost, so nothing is cached across runs).  Each step's Pauli
+statistics stay on the device as one small tensor; a segment returns them
+stacked, for the runner to move to the host once.
+
+Dispatch (mirrors ``program_build.py:120-161`` and
+``diffusion_backends.py:604-618`` of the JAX package):
+
+* collisions — ``collision_backend='auto'`` runs the CUDA kernel wrapper,
+  which launches the kernel for CUDA tensors and runs the plain version
+  for CPU tensors; ``'kernel'`` does the same but raises on the CPU;
+  ``'plain'`` runs the plain PyTorch version everywhere.
+* diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
+* generation (constant, pulse) — the dt·g plane is fused into the
+  collision substep that opens each step, as the TPU kernel's
+  ``gen_input`` does; every collision step here takes that plane.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops.collisions import build_collision_plan_arrays, collision_step_plain
+from ..ops.collisions_cuda import MAX_KERNEL_BINS, build_kernel_tables, collision_step
+from ..ops.diffusion import build_directional_stencils, fold_diffusion
+from ..ops.dos import diffusion_coefficient_of_energy, dynes_density_of_states
+from ..ops.generation import build_generation_program, numpy_dtype
+from ..ops.kernels import recombination_kernel_base, scattering_kernel_base
+from ..ops.phonon_map import PhononFrequencyMap, build_phonon_frequency_map
+from .diffusion_backends import choose_backend
+from .pauli import make_pauli_stats_fn
+
+__all__ = ["EngineProgram", "build_engine_program"]
+
+
+@dataclass
+class EngineProgram:
+    pmap: PhononFrequencyMap
+    #: (seg_dt, length) -> run(q, ph, t_start) -> (q, ph, stats, gen_flags):
+    #: stats a (length, 4) float64 device tensor of Pauli statistics,
+    #: gen_flags a (length, 2) bool array (non-finite, negative dt·g)
+    segment_runner: Callable
+    pauli_stats: Callable[[torch.Tensor], torch.Tensor]
+
+
+def build_engine_program(
+    *,
+    mask,
+    edges,
+    edge_conditions,
+    dx,
+    device: torch.device,
+    dtype: torch.dtype,
+    gap,
+    E_bins,
+    dE,
+    num_energy_bins,
+    diffusion_coefficient,
+    enable_diffusion,
+    diffusion_backend,
+    enable_recombination,
+    enable_scattering,
+    dynes_gamma,
+    tau_s_eff,
+    tau_r_eff,
+    T_c,
+    freeze_phonon_dynamics,
+    collision_backend,
+    pixel_chunk,
+    external_generation,
+    pauli_density_floor,
+    strang_mode,
+) -> EngineProgram:
+    ny, nx = mask.shape
+    collisions_on = bool(enable_recombination or enable_scattering)
+    if collision_backend not in ("auto", "kernel", "plain"):
+        raise ValueError(
+            f"Unknown collision backend: {collision_backend!r} (use 'auto', 'kernel' or 'plain')"
+        )
+    use_kernel = collisions_on and collision_backend != "plain"
+    if use_kernel and collision_backend == "kernel" and device.type != "cuda":
+        raise ValueError("collision_backend='kernel' needs a CUDA device")
+    if use_kernel and device.type == "cuda" and num_energy_bins > MAX_KERNEL_BINS:
+        raise NotImplementedError(
+            f"{num_energy_bins} energy bins: the collision kernel holds at most "
+            f"{MAX_KERNEL_BINS}; the blocked kernel for more bins (K5) is not ported "
+            "yet (ROADMAP.md, queue 2, K5)."
+        )
+
+    # --- diffusion backend -------------------------------------------------
+    backend = None
+    if enable_diffusion:
+        x_st, y_st = build_directional_stencils(mask, edges, edge_conditions, dx)
+        D_E = diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
+        op = fold_diffusion(x_st, y_st, mask, dx, D_E)
+        backend = choose_backend(op, device, dtype, diffusion_backend)
+
+    # --- collision data ------------------------------------------------------
+    pmap = build_phonon_frequency_map(E_bins)
+    rho = dynes_density_of_states(E_bins, gap, dynes_gamma)
+    plan = build_collision_plan_arrays(
+        dE=dE,
+        rho=rho,
+        K_r0=recombination_kernel_base(E_bins, gap, tau_r_eff, T_c) if enable_recombination else None,
+        K_s0=scattering_kernel_base(E_bins, gap, tau_s_eff, T_c) if enable_scattering else None,
+        pmap=pmap,
+        enable_recombination=enable_recombination,
+        enable_scattering=enable_scattering,
+        update_phonons=not freeze_phonon_dynamics,
+        device=device,
+        dtype=dtype,
+        pixel_chunk=pixel_chunk,
+    )
+    tables = build_kernel_tables(plan) if use_kernel else None
+
+    rho_state = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
+    rho_state[:, mask] = rho[:, None]
+    pauli_stats = make_pauli_stats_fn(
+        torch.as_tensor(rho_state, dtype=dtype, device=device), pauli_density_floor
+    )
+
+    gen = build_generation_program(external_generation, mask, device, dtype)
+    if strang_mode == "auto":
+        # merged wherever it applies; the runner degenerates to the exact
+        # composition without collisions, without diffusion, or at length 1
+        strang_mode = "merged"
+    np_t = numpy_dtype(dtype)
+
+    def make_col(dt_col: float):
+        if use_kernel:
+            return lambda q, ph, grow=None: collision_step(plan, tables, q, ph, dt_col, grow)
+        return lambda q, ph, grow=None: collision_step_plain(plan, q, ph, dt_col, grow)
+
+    no_gen = (None, False, False)
+    seg_cache: dict[tuple[float, int], Callable] = {}
+
+    def segment_runner(seg_dt: float, length: int):
+        key = (seg_dt, length)
+        if key in seg_cache:
+            return seg_cache[key]
+        col_half = make_col(0.5 * seg_dt) if collisions_on else None
+        col_full = make_col(seg_dt) if collisions_on else None
+        diff_step = backend.make_step(seg_dt) if backend is not None else None
+        merged = strang_mode == "merged" and collisions_on and diff_step is not None and length > 1
+
+        def gen_at(t):
+            return gen.plane(seg_dt, t) if gen.active else no_gen
+
+        def run(q, ph, t_start: float):
+            # in-segment times in the state dtype: t_k = t0 + k·dt
+            t0 = np_t(t_start)
+            times = [t0 + np_t(k) * np_t(seg_dt) for k in range(length)]
+            stats: list[torch.Tensor] = []
+            flags = np.zeros((length, 2), dtype=bool)
+            if merged:
+                # C(dt/2) [D C(dt)]^(L-1) D C(dt/2): the trailing half-step of
+                # each Strang step is fused with the next step's leading half.
+                # Step k's dt·g(t_k) injects at its seam, just before the
+                # fused C(dt) the exact composition would split around.
+                grow, nf0, ng0 = gen_at(times[0])
+                q, ph = col_half(q, ph, grow)
+                for k in range(length - 1):
+                    q = diff_step(q)
+                    grow, flags[k, 0], flags[k, 1] = gen_at(times[k + 1])
+                    q, ph = col_full(q, ph, grow)
+                    stats.append(pauli_stats(q))
+                q = diff_step(q)
+                q, ph = col_half(q, ph)
+                stats.append(pauli_stats(q))
+                # fold the pre-loop (step-1) generation flags into slot 0
+                flags[0] |= (nf0, ng0)
+            else:
+                for k in range(length):
+                    grow, flags[k, 0], flags[k, 1] = gen_at(times[k])
+                    if collisions_on and diff_step is not None:
+                        q, ph = col_half(q, ph, grow)
+                        q = diff_step(q)
+                        q, ph = col_half(q, ph)
+                    elif collisions_on:
+                        q, ph = col_full(q, ph, grow)
+                    else:
+                        if grow is not None:
+                            q = q + grow[None]
+                        if diff_step is not None:
+                            q = diff_step(q)
+                    stats.append(pauli_stats(q))
+            return q, ph, torch.stack(stats), flags
+
+        seg_cache[key] = run
+        return run
+
+    return EngineProgram(pmap=pmap, segment_runner=segment_runner, pauli_stats=pauli_stats)

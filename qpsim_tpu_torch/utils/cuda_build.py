@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels: ``csrc/*.cu`` → one shared library.
+
+The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes``; no
+PyTorch headers are involved, so a build takes seconds.  The library is
+built at first use from the sources in the checkout into
+``build/qpsim_tpu_torch/`` at the checkout root, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as is.  A missing ``nvcc`` or a failed build raises: there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["load_kernels", "build_dir", "ptxas_report"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # register, shared-memory and spill report per kernel (kept in ptxas.log)
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def build_dir() -> Path:
+    """``build/qpsim_tpu_torch`` beside the package, at the checkout root."""
+    return _PKG.parent / "build" / "qpsim_tpu_torch"
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+        "of qpsim_tpu_torch are compiled at first use and need the CUDA toolkit."
+    )
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(repr(_NVCC_FLAGS).encode())
+    return build_dir() / f"libqpsim_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(target: Path) -> None:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    (target.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, target)
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernels' library, built on first use; raises if it cannot be built."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _library_path()
+            if not path.is_file():
+                _build(path)
+            _lib = _declare(ctypes.CDLL(str(path)))
+        return _lib
+
+
+def ptxas_report() -> str:
+    """The ``-Xptxas -v`` lines of the last build in this checkout ('' if none)."""
+    log = build_dir() / "ptxas.log"
+    return log.read_text() if log.is_file() else ""
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Argument and return types of every C entry point (pointers as c_void_p)."""
+    P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"qp_collision_step_{suffix}")
+        # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
+        # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
+        fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
+        fn.restype = I
+        for half in ("x", "y"):
+            fn = getattr(lib, f"qp_adi_{half}_{suffix}")
+            # u, out, w_scratch, 7 planes, scale, nb, nbp, ny, nx, alpha, stream
+            fn.argtypes = [P] * 11 + [I, I, I, I, D, P]
+            fn.restype = I
+    return lib
