@@ -7,18 +7,30 @@ Phases, one line (or a few) each; any failure is an uncaught exception and
 a non-zero exit:
 
 1. environment — the card, torch/CUDA versions, the TF32 flags;
-2. build — compiles ``qpsim_tpu_torch/csrc/*.cu`` with nvcc (first use);
+2. build — compiles ``qpsim_tpu_torch/csrc/*.cu`` with nvcc (first use)
+   and prints each kernel's ptxas report;
 3. each kernel against its plain PyTorch version on the card, float64 and
-   float32, at the shapes listed below;
-4. the main path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
+   float32: the collision step (K3), the fused ADI halves (K2), the
+   separable ADI halves (K1) at NB = 1 and 16 on full films with mixed
+   faces, and the Thomas solve (K10);
+4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
-   stepping, with launch counters proving it ran through both kernels,
+   stepping, with launch counters proving it ran through K3 and K2,
    timed over three calls (steady-state ms/step and set-up apart); then
    each kernel checked against its plain version at those shapes, and
    both timed;
 5. the same physics on a 128² grid in float64 for 20 steps, kernels
    against the plain path end to end;
-6. a JSON line with the kernels' numbers, the card line, and a last JSON
+6. the scalar path (``energy_gap=0``) on the full 1024² film, float32,
+   10 000 steps: exactly one launch of each K1 half per step and none of
+   K2, mass conserved, steady-state ms/step and cell-steps/s over three
+   calls; then K1 timed against its plain version;
+7. the other diffusion paths: the masked 512² donut through K2, a
+   diffusion-only energy-resolved 1024² × 16 film through K1, and float64
+   scalar runs holding the kernel path, K10 under
+   ``set_default_solver("pallas")``, and the 'wang' and 'cg' backends
+   against the plain ones; then K10 timed against its plain version;
+8. a JSON line with the kernels' numbers, the card line, and a last JSON
    line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
@@ -40,7 +52,9 @@ import torch
 
 F32, F64 = torch.float32, torch.float64
 TOL = {("collision_step", F64): 1e-10, ("collision_step", F32): 5e-7,
-       ("adi", F64): 1e-10, ("adi", F32): 5e-6}
+       ("adi", F64): 1e-10, ("adi", F32): 5e-6,
+       ("adi_sep", F64): 1e-10, ("adi_sep", F32): 5e-6,
+       ("thomas", F64): 1e-10, ("thomas", F32): 5e-6}
 
 
 def scaled_err(got, ref) -> float:
@@ -143,12 +157,63 @@ def adi_planes(geometry, dtype, nb=16, seed=1):
     return planes, torch.as_tensor(u, dtype=dtype, device="cuda")
 
 
-def reset_counts():
-    from qpsim_tpu_torch.ops import adi_cuda, collisions_cuda
+def film(ny, nx, kinds=("reflective",)):
+    """A full ny × nx film (every cell inside), one BC per face, cycling ``kinds``."""
+    from qpsim_tpu_torch.geometry.mask import extract_edge_segments
+    from qpsim_tpu_torch.models.params import BoundaryCondition
 
-    for table in (adi_cuda.LAUNCHES, collisions_cuda.LAUNCHES):
+    mask = np.ones((ny, nx), dtype=bool)
+    edges = extract_edge_segments(mask)
+    bcs = {}
+    for i, e in enumerate(edges):
+        kind = kinds[i % len(kinds)]
+        bcs[e.edge_id] = BoundaryCondition(
+            kind=kind, value=0.4 if kind in ("dirichlet", "neumann", "robin") else None,
+            aux_value=0.2 if kind == "robin" else None,
+        )
+    return mask, edges, bcs
+
+
+MIXED_FACES = ("dirichlet", "neumann", "robin", "reflective")
+
+
+def sep_factors(geometry, nb, dtype, dt=0.1, seed=2):
+    """K1's factors for a film at NB bins (per-bin D(E) for NB > 1) and a random state."""
+    from qpsim_tpu_torch.ops.adi_sep import SepFactors
+    from qpsim_tpu_torch.ops.diffusion import build_directional_stencils, fold_diffusion
+    from qpsim_tpu_torch.ops.dos import diffusion_coefficient_of_energy
+    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
+
+    mask, edges, bcs = geometry
+    D = 6.0 if nb == 1 else diffusion_coefficient_of_energy(6.0, build_energy_grid(180.0, 1.0, 4.0, nb)[0], 180.0)
+    op = fold_diffusion(*build_directional_stencils(mask, edges, bcs, 1.0), mask, 1.0, D)
+    f = SepFactors.build(op, dt, "cuda", dtype)
+    u = np.random.default_rng(seed).uniform(0.0, 1e-5, (nb, *mask.shape))
+    return f, torch.as_tensor(u, dtype=dtype, device="cuda")
+
+
+def thomas_system(lines, n, dtype, seed=3):
+    """A diagonally dominant batch of ``lines`` tridiagonal systems of size n."""
+    rng = np.random.default_rng(seed)
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    return (as_t(rng.uniform(-0.3, -0.1, (lines, n))), as_t(rng.uniform(2.0, 3.0, (lines, n))),
+            as_t(rng.uniform(-0.3, -0.1, (lines, n))), as_t(rng.uniform(-1.0, 1.0, (lines, n))))
+
+
+def launch_tables():
+    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, collisions_cuda, tridiag_cuda
+
+    return (collisions_cuda.LAUNCHES, adi_cuda.LAUNCHES, adi_sep_cuda.LAUNCHES, tridiag_cuda.LAUNCHES)
+
+
+def reset_counts():
+    for table in launch_tables():
         for k in table:
             table[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for table in launch_tables() for k, v in table.items()}
 
 
 def main_path_kwargs(n):
@@ -201,7 +266,9 @@ def phase_build() -> None:
     # registers, stack and spills per kernel, from nvcc -Xptxas -v
     name = None
     for line in ptxas_report().splitlines():
-        m = re.search(r"Compiling entry function '.*?(adi_[xy]_kernel|collision_step_kernel)I([fd])E", line)
+        m = re.search(
+            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel|collision_step_kernel"
+            r"|thomas_kernel)I([fd])E", line)
         if m:
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
         elif name and ("stack frame" in line or "Used" in line):
@@ -239,12 +306,38 @@ def phase_kernels_vs_plain() -> None:
             check(f"adi_x_half {name}×16 {str(dtype)[6:]}", scaled_err(ux, ux_ref), tol)
             check(f"adi_y_half {name}×16 {str(dtype)[6:]}", scaled_err(uy, uy_ref), tol)
             check(f"adi_step   {name}×16 {str(dtype)[6:]}", scaled_err(step, uy_ref), tol)
+    from qpsim_tpu_torch.ops import adi_sep_cuda as k1
+
+    # mixed faces, so the split source sx(x) + sy(y) is non-zero; 512×1024
+    # shows a swapped x/y
+    for (ny, nx), nb in (((1024, 1024), 1), ((1024, 1024), 16), ((512, 1024), 1)):
+        for dtype in (F64, F32):
+            f, u = sep_factors(film(ny, nx, MIXED_FACES), nb, dtype)
+            ux_ref = k1.adi_sep_x_half_plain(u, f)
+            ux = k1.adi_sep_x(u, f)
+            uy_ref = k1.adi_sep_y_half_plain(ux_ref, f)
+            uy = k1.adi_sep_y(ux_ref, f)
+            step = k1.adi_sep_step(u, f)
+            torch.cuda.synchronize()
+            tol, tag = TOL[("adi_sep", dtype)], f"{ny}×{nx}×{nb} {str(dtype)[6:]}"
+            check(f"adi_sep_x {tag}", scaled_err(ux, ux_ref), tol)
+            check(f"adi_sep_y {tag}", scaled_err(uy, uy_ref), tol)
+            check(f"adi_sep_step {tag}", scaled_err(step, uy_ref), tol)
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    for lines, n in ((16 * 1024, 1024), (1000, 257)):
+        for dtype in (F64, F32):
+            system = thomas_system(lines, n, dtype)
+            ref = k10.thomas_plain(*system)
+            got = k10.thomas(*system)
+            torch.cuda.synchronize()
+            check(f"thomas {lines} lines × {n} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
 
 
 def phase_main_path(card: str) -> list[dict]:
     print("== 4 main path: 1024² × 16 bins, 100 steps, float32, merged stepping", flush=True)
     import qpsim_tpu_torch
-    from qpsim_tpu_torch.ops import adi_cuda, collisions_cuda
+    from qpsim_tpu_torch.ops import adi_cuda
     from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
 
     dt, total, store_every = 0.05, 5.0, 25
@@ -262,6 +355,9 @@ def phase_main_path(card: str) -> list[dict]:
         "collision_step_with_gen": steps,
         "adi_x_half": steps,
         "adi_y_half": steps,
+        "adi_sep_x": 0,
+        "adi_sep_y": 0,
+        "thomas": 0,
     }
     def timed_run():
         """One call: its result and (steady ms/step, set-up s, whole-call ms).
@@ -285,7 +381,7 @@ def phase_main_path(card: str) -> list[dict]:
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     (times, frames, mass, clim, ef, _), first = timed_run()
-    counts = {**collisions_cuda.LAUNCHES, **adi_cuda.LAUNCHES}
+    counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  launches {counts} (expected {expect})")
     if counts != expect:
@@ -380,12 +476,216 @@ def phase_end_to_end_f64() -> None:
           f"{mass_err:.3e} (rtol 1e-12) ok", flush=True)
 
 
+def scalar_kwargs(geometry, *, dt, steps, store_every, seed=0, **extra):
+    mask, edges, bcs = geometry
+    init = np.zeros(mask.shape)
+    init[mask] = np.random.default_rng(seed).uniform(0.0, 1.0, int(mask.sum()))
+    return dict(mask=mask, edges=edges, edge_conditions=bcs, initial_field=init,
+                diffusion_coefficient=6.0, dt=dt, total_time=dt * steps, dx=1.0,
+                store_every=store_every, energy_gap=0.0, **extra)
+
+
+def check_frames(frames, mask) -> None:
+    for f in frames:
+        if not (np.all(np.isfinite(f[mask])) and np.all(np.isnan(f[~mask]))):
+            raise AssertionError("frames must be finite inside the mask and NaN outside")
+
+
+def check_counts(label: str, counts: dict, expect: dict) -> None:
+    got = {k: counts[k] for k in expect}
+    print(f"  {label}: launches {got} (expected {expect})", flush=True)
+    if got != expect:
+        raise AssertionError(f"{label}: launch counts {got} != {expect}")
+
+
+def phase_scalar_path(card: str) -> list[dict]:
+    print("== 6 scalar path: full 1024² film, energy_gap=0, float32, 10 000 steps", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.ops import adi_sep_cuda as k1
+
+    n, dt, steps, store_every = 1024, 0.1, 10_000, 2500
+    kw = scalar_kwargs(film(n, n), dt=dt, steps=steps, store_every=store_every)
+    t0 = time.perf_counter()
+    qpsim_tpu_torch.run_2d_crank_nicolson(**kw)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up run {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def timed_run():
+        """One call: its result and (steady ms/step, set-up s); see phase 4."""
+        stamps: list[float] = []
+        t_call = time.perf_counter()
+        out = qpsim_tpu_torch.run_2d_crank_nicolson(
+            **kw, progress_callback=lambda t, f: stamps.append(time.perf_counter())
+        )
+        return out, (1e3 * (stamps[-1] - stamps[0]) / steps, stamps[0] - t_call)
+
+    reset_counts()
+    (times, frames, mass, _, _, _), first = timed_run()
+    check_counts("scalar 1024²", read_counts(), {
+        "adi_sep_x": steps, "adi_sep_y": steps, "adi_x_half": 0, "adi_y_half": 0, "thomas": 0})
+    sep_launches = {k: read_counts()[k] for k in ("adi_sep_x", "adi_sep_y")}
+    check_frames(frames, kw["mask"])
+    if not (len(times) == steps // store_every + 1 and abs(times[-1] - dt * steps) < 1e-6):
+        raise AssertionError(f"unexpected stored times {times}")
+    # reflective faces: mass moves only by float32 roundoff, at most one
+    # unit of float32 rounding per step
+    drift = max(abs(m - mass[0]) for m in mass) / mass[0]
+    bound = steps * float(np.finfo(np.float32).eps)
+    print(f"  stored times {times}; mass {mass}; max relative mass drift {drift:.3e} "
+          f"(bound {bound:.1e})", flush=True)
+    if drift > bound:
+        raise AssertionError(f"mass drift {drift:.3e} > {bound:.1e}")
+    runs = [first] + [timed_run()[1] for _ in range(2)]
+    cells = n * n
+    for i, (st, su) in enumerate(runs):
+        print(f"  run {i + 1}: steady state {st * 1e3:.2f} µs/step = {cells / (st * 1e-3):.4e} "
+              f"cell-steps/s; set-up {su:.3f} s")
+    med = sorted(r[0] for r in runs)[1]
+    lo, hi = min(r[0] for r in runs), max(r[0] for r in runs)
+    print(f"  end to end: steady state median {med * 1e3:.2f} µs/step over {len(runs)} runs "
+          f"(range {lo * 1e3:.2f}–{hi * 1e3:.2f}) = {cells / (med * 1e-3):.4e} cell-steps/s "
+          f"(range {cells / (hi * 1e-3):.4e}–{cells / (lo * 1e-3):.4e}) — {card}", flush=True)
+
+    # K1 at the path's shapes (NB = 1, reflective), and at NB = 16
+    rows = []
+    f, u = sep_factors(film(n, n), 1, F32, dt=dt)
+    ux_ref = k1.adi_sep_x_half_plain(u, f)
+    ux = k1.adi_sep_x(u, f)
+    uy_ref = k1.adi_sep_y_half_plain(ux_ref, f)
+    uy = k1.adi_sep_y(ux_ref, f)
+    torch.cuda.synchronize()
+    check("adi_sep_x 1024²×1 float32", scaled_err(ux, ux_ref), TOL[("adi_sep", F32)])
+    check("adi_sep_y 1024²×1 float32", scaled_err(uy, uy_ref), TOL[("adi_sep", F32)])
+    f16, u16 = sep_factors(film(n, n), 16, F32, dt=dt)
+    for name, line, err, kern, plain in (
+        ("adi_sep_x", 237, abs_err(ux, ux_ref), k1.adi_sep_x, k1.adi_sep_x_half_plain),
+        ("adi_sep_y", 280, abs_err(uy, uy_ref), k1.adi_sep_y, k1.adi_sep_y_half_plain),
+    ):
+        rows.append(dict(
+            name=name, route="cuda", source="qpsim_tpu_torch/csrc/adi_sep.cu",
+            replaces=f"qpsim_tpu/ops/pallas_adi_sep.py:{line}", launches=sep_launches[name],
+            max_abs_err=err, ms=time_ms(lambda: kern(u, f), 200),
+            plain_ms=time_ms(lambda: plain(u, f), 5),
+        ))
+        print(f"  {name} at 1024²×16 float32: kernel {time_ms(lambda: kern(u16, f16), 50):.4f} ms, "
+              f"plain {time_ms(lambda: plain(u16, f16), 3):.3f} ms — {card}")
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, max abs err "
+              f"{r['max_abs_err']:.3e} (1024²×1, float32) — {card}")
+    sys.stdout.flush()
+    return rows
+
+
+def assert_runs_close(label: str, a, b, rtol_frames: float, rtol_mass: float) -> None:
+    if a[0] != b[0]:
+        raise AssertionError(f"{label}: stored times differ")
+    np.testing.assert_allclose(a[2], b[2], rtol=rtol_mass, atol=0)
+    for fa, fb in zip(a[1], b[1]):
+        np.testing.assert_array_equal(np.isnan(fa), np.isnan(fb))
+        np.testing.assert_allclose(np.nan_to_num(fa), np.nan_to_num(fb), rtol=rtol_frames, atol=0)
+    frame_err = max(
+        float(np.nanmax(np.abs(fa - fb)) / np.nanmax(np.abs(fb))) for fa, fb in zip(a[1], b[1])
+    )
+    mass_err = float(np.max(np.abs(np.subtract(a[2], b[2])) / np.abs(b[2])))
+    print(f"  {label}: frames max rel err {frame_err:.3e} (rtol {rtol_frames:.0e}), mass max rel "
+          f"err {mass_err:.3e} (rtol {rtol_mass:.0e}) ok", flush=True)
+
+
+def phase_other_diffusion_paths(card: str) -> dict:
+    print("== 7 other diffusion paths on the card", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+    from qpsim_tpu_torch.ops.tridiag import get_default_solver, set_default_solver
+
+    run = qpsim_tpu_torch.run_2d_crank_nicolson
+    # (a) the masked donut: not separable, so K2 at NB = 1
+    mask, edges, _ = donut(512)
+    from qpsim_tpu_torch.models.params import BoundaryCondition
+
+    kinds = ("absorbing", "reflective")
+    bcs = {e.edge_id: BoundaryCondition(kind=kinds[i % 2]) for i, e in enumerate(edges)}
+    steps = 2000
+    kw = scalar_kwargs((mask, edges, bcs), dt=0.1, steps=steps, store_every=500)
+    reset_counts()
+    t0 = time.perf_counter()
+    times, frames, mass, _, _, _ = run(**kw)
+    check_counts(f"(a) donut 512² scalar, {steps} steps, {time.perf_counter() - t0:.2f} s",
+                 read_counts(), {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0})
+    check_frames(frames, mask)
+    if not all(b < a for a, b in zip(mass, mass[1:])):
+        raise AssertionError("absorbing faces must drain mass")
+
+    # (b) diffusion-only energy-resolved film: standalone multi-bin K1
+    mask, edges, bcs = film(1024, 1024)
+    init = np.full(mask.shape, 1e-5)
+    steps = 100
+    reset_counts()
+    t0 = time.perf_counter()
+    times, frames, mass, _, ef, _ = run(
+        mask=mask, edges=edges, edge_conditions=bcs, initial_field=init, diffusion_coefficient=6.0,
+        dt=0.05, total_time=0.05 * steps, dx=1.0, store_every=steps, energy_gap=180.0,
+        energy_max_factor=4.0, num_energy_bins=16, bath_temperature=0.1,
+    )
+    check_counts(f"(b) diffusion-only 1024² × 16 bins, {steps} steps, {time.perf_counter() - t0:.2f} s",
+                 read_counts(), {"adi_sep_x": steps, "adi_sep_y": steps, "adi_x_half": 0, "adi_y_half": 0,
+                                 "collision_step": 0})
+    check_frames(frames, mask)
+    drift = abs(mass[-1] - mass[0]) / mass[0]
+    print(f"  (b) mass {mass} (relative drift {drift:.2e}, reflective faces)", flush=True)
+    if drift > steps * float(np.finfo(np.float32).eps):
+        raise AssertionError("diffusion-only run must conserve mass to float32 roundoff")
+
+    # (c) float64 end to end, each run against the plain path
+    geometry = film(256, 256, MIXED_FACES)
+    kw = scalar_kwargs(geometry, dt=0.1, steps=200, store_every=50, dtype=F64)
+    reset_counts()
+    kernel = run(**kw)
+    check_counts("(c) auto on the 256² film", read_counts(), {"adi_sep_x": 200, "adi_sep_y": 200})
+    plain_adi = run(**kw, diffusion_backend="adi")
+    assert_runs_close("(c) K1 path vs 'adi'", kernel, plain_adi, 1e-10, 1e-12)
+    saved = get_default_solver()
+    try:
+        set_default_solver("pallas")
+        reset_counts()
+        pallas = run(**kw, diffusion_backend="adi")
+        thomas_launches = read_counts()["thomas"]
+        print(f"  (c) set_default_solver('pallas') with 'adi': thomas launches {thomas_launches}")
+        if thomas_launches == 0:
+            raise AssertionError("set_default_solver('pallas') did not launch the Thomas kernel")
+    finally:
+        set_default_solver(saved)
+    assert_runs_close("(c) 'adi' on K10 vs 'adi'", pallas, plain_adi, 1e-10, 1e-12)
+    assert_runs_close("(c) 'wang' vs 'adi'", run(**kw, diffusion_backend="wang"), plain_adi, 1e-10, 1e-12)
+    # a film the dense backend takes (≤ 4096 cells; its host eigh is O(P³))
+    kw48 = scalar_kwargs(film(48, 48, MIXED_FACES), dt=0.1, steps=200, store_every=50, dtype=F64)
+    assert_runs_close("(c) 'cg' vs 'dense' on a 48² film", run(**kw48, diffusion_backend="cg"),
+                      run(**kw48, diffusion_backend="dense"), 1e-9, 1e-9)
+
+    # K10 against its plain version at 16 K lines (the ADI solve's line count at 1024² × 16)
+    system = thomas_system(16 * 1024, 1024, F32)
+    ref = k10.thomas_plain(*system)
+    got = k10.thomas(*system)
+    torch.cuda.synchronize()
+    check("thomas 16384 lines × 1024 float32", scaled_err(got, ref), TOL[("thomas", F32)])
+    row = dict(
+        name="thomas", route="cuda", source="qpsim_tpu_torch/csrc/tridiag.cu",
+        replaces="qpsim_tpu/ops/pallas_tridiag.py:35", launches=thomas_launches,
+        max_abs_err=abs_err(got, ref), ms=time_ms(lambda: k10.thomas(*system), 20),
+        plain_ms=time_ms(lambda: k10.thomas_plain(*system), 3),
+    )
+    print(f"  thomas: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, max abs err "
+          f"{row['max_abs_err']:.3e} (16384 lines × 1024, float32) — {card}", flush=True)
+    return row
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
     phase_kernels_vs_plain()
     rows = phase_main_path(card)
     phase_end_to_end_f64()
+    rows += phase_scalar_path(card)
+    rows.append(phase_other_diffusion_paths(card))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ hot substeps on hand-written CUDA kernels (``csrc/``) built at first use.
 The JAX package ``qpsim_tpu`` stays beside it as the reference; this
 package imports neither it nor JAX.
 
-Public entry point: :func:`run_2d_crank_nicolson` (energy-resolved branch).
+Public entry point: :func:`run_2d_crank_nicolson` (energy-resolved and
+scalar branches).
 """
 
 from .solver.engine import run_2d_crank_nicolson

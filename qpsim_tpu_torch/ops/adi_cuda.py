@@ -10,7 +10,8 @@ and the implicit-direction tridiagonal solve.
 tensors and run their plain PyTorch versions (:func:`adi_x_half_plain`,
 :func:`adi_y_half_plain`) for CPU tensors; they never fall back.
 :func:`adi_step` is the whole step, and :func:`adi_step_plain` its plain
-version — the step ``ADIDiffusion`` runs.
+version, which calls the Thomas solve directly; ``ADIDiffusion`` runs it
+with the dispatching ``tridiag_solve`` instead.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from ..utils.cuda_build import load_kernels
 from .diffusion import SplitOperator
-from .tridiag import tridiag_solve, tridiag_solve_along
+from .tridiag import tridiag_solve_along, tridiag_solve_thomas
 
 __all__ = [
     "LAUNCHES",
@@ -88,30 +89,38 @@ def _alpha_s(planes: AdiPlanes, alpha: float) -> torch.Tensor:
     return (alpha * planes.scale).reshape(-1, 1, 1)
 
 
-def adi_x_half_plain(u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
+def adi_x_half_plain(
+    u: torch.Tensor, planes: AdiPlanes, alpha: float, solve=tridiag_solve_thomas
+) -> torch.Tensor:
     """x-implicit half: (I − αs·Lx) u* = u + αs·(Ly u + src).
 
-    Returns a contiguous tensor, like the kernel (which takes only those).
+    ``solve`` is the Thomas solve (what the kernel computes) unless a
+    caller hands in another; returns a contiguous tensor, like the kernel
+    (which takes only those).
     """
     a_s = _alpha_s(planes, alpha)
     rhs = u + a_s * (_apply_dir(u, planes.ay_lo, planes.ay_hi, planes.ay_diag, -2) + planes.src)
-    return tridiag_solve(
+    return solve(
         -a_s * planes.ax_lo, 1.0 - a_s * planes.ax_diag, -a_s * planes.ax_hi, rhs
     ).contiguous()
 
 
-def adi_y_half_plain(v: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
+def adi_y_half_plain(
+    v: torch.Tensor, planes: AdiPlanes, alpha: float, solve=tridiag_solve_thomas
+) -> torch.Tensor:
     """y-implicit half: (I − αs·Ly) u⁺ = u* + αs·(Lx u* + src)."""
     a_s = _alpha_s(planes, alpha)
     rhs = v + a_s * (_apply_dir(v, planes.ax_lo, planes.ax_hi, planes.ax_diag, -1) + planes.src)
     return tridiag_solve_along(
-        -2, -a_s * planes.ay_lo, 1.0 - a_s * planes.ay_diag, -a_s * planes.ay_hi, rhs
+        -2, -a_s * planes.ay_lo, 1.0 - a_s * planes.ay_diag, -a_s * planes.ay_hi, rhs, solve=solve
     ).contiguous()
 
 
-def adi_step_plain(u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
+def adi_step_plain(
+    u: torch.Tensor, planes: AdiPlanes, alpha: float, solve=tridiag_solve_thomas
+) -> torch.Tensor:
     """One Peaceman–Rachford ADI step with α = dt/2 (plain PyTorch)."""
-    return adi_y_half_plain(adi_x_half_plain(u, planes, alpha), planes, alpha)
+    return adi_y_half_plain(adi_x_half_plain(u, planes, alpha, solve), planes, alpha, solve)
 
 
 def _launch(half: str, u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:

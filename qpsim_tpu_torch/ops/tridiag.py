@@ -1,22 +1,44 @@
-"""Batched tridiagonal solves in PyTorch (Thomas algorithm).
+"""Batched tridiagonal solves in PyTorch: Thomas, PCR and the Wang partition.
 
-The counterpart of ``qpsim_tpu.ops.tridiag``'s Thomas path
-(``_tridiag_solve_thomas`` behind ``tridiag_solve``, ``tridiag_solve_along``): the
-same recurrences in the same order, so float64 results agree to roundoff.
-The sweep is a Python loop over the line axis, batched over every line at
-once.  It is the plain PyTorch solve behind ``ADIDiffusion`` and the plain
-version of the ADI kernel (``ops.adi_cuda``).  PCR and the Wang partition
-come with the scalar branch.
+The counterpart of ``qpsim_tpu.ops.tridiag``: the same recurrences in the
+same order, so float64 results agree to roundoff.  Every solve runs along
+the last axis, batched over the leading ones; the JAX package's scans are
+Python loops here, each step one batched operation over every line.
+
+Block-diagonal systems (masked geometries give independent intervals in
+one grid line) need no special casing: a zero sub-diagonal entry restarts
+the forward recurrence and a zero super-diagonal entry ends the backward
+one, so interval boundaries decouple exactly in every algorithm.
+
+:func:`tridiag_solve` dispatches by :func:`set_default_solver`, which
+takes the JAX package's names: 'auto' (Thomas on the CPU; on CUDA tensors
+PCR below 8192 lines and Thomas at or above, the JAX package's GPU rule),
+'thomas', 'pcr', 'wang' (chunk 64) and 'pallas', which selects the CUDA
+Thomas kernel (``ops.tridiag_cuda``).  :func:`tridiag_solve_thomas` is the
+plain Thomas solve that the kernels' plain versions call directly.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["tridiag_solve", "tridiag_solve_along"]
+__all__ = [
+    "tridiag_solve",
+    "tridiag_solve_along",
+    "tridiag_solve_thomas",
+    "tridiag_solve_pcr",
+    "tridiag_solve_wang",
+    "wang_eliminate",
+    "wang_interface_sweep",
+    "wang_externals",
+    "wang_factor",
+    "wang_apply",
+    "set_default_solver",
+    "get_default_solver",
+]
 
 
-def tridiag_solve(
+def tridiag_solve_thomas(
     sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, rhs: torch.Tensor
 ) -> torch.Tensor:
     """Solve T x = rhs with T tridiagonal along the last axis (Thomas sweep).
@@ -48,15 +70,322 @@ def tridiag_solve(
     return g.movedim(0, -1)
 
 
+def _shift_fwd(arr: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """Value of index i−s along the last axis (fill past the edge)."""
+    pad = torch.full((*arr.shape[:-1], s), fill, dtype=arr.dtype, device=arr.device)
+    return torch.cat([pad, arr[..., :-s]], dim=-1)
+
+
+def _shift_bwd(arr: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """Value of index i+s along the last axis (fill past the edge)."""
+    pad = torch.full((*arr.shape[:-1], s), fill, dtype=arr.dtype, device=arr.device)
+    return torch.cat([arr[..., s:], pad], dim=-1)
+
+
+def _open_ends(sub: torch.Tensor, sup: torch.Tensor):
+    """Copies of sub and sup with the unread sub[..., 0] and sup[..., -1] zeroed."""
+    a, c = sub.clone(), sup.clone()
+    a[..., 0] = 0.0
+    c[..., -1] = 0.0
+    return a, c
+
+
+def tridiag_solve_pcr(
+    sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, rhs: torch.Tensor
+) -> torch.Tensor:
+    """Parallel cyclic reduction along the last axis: ⌈log₂N⌉ vectorised levels."""
+    sub, diag, sup, rhs = torch.broadcast_tensors(sub, diag, sup, rhs)
+    n = rhs.shape[-1]
+    if n == 1:
+        return rhs / diag
+    a, c = _open_ends(sub, sup)
+    b, d = diag, rhs
+    s = 1
+    while s < n:
+        alpha = -a / _shift_fwd(b, s, 1.0)
+        gamma = -c / _shift_bwd(b, s, 1.0)
+        b = b + alpha * _shift_fwd(c, s, 0.0) + gamma * _shift_bwd(a, s, 0.0)
+        d = d + alpha * _shift_fwd(d, s, 0.0) + gamma * _shift_bwd(d, s, 0.0)
+        a = alpha * _shift_fwd(a, s, 0.0)
+        c = gamma * _shift_bwd(c, s, 0.0)
+        s *= 2
+    return d / b
+
+
+def wang_eliminate(a_s, b_s, c_s, d_s):
+    """Stages 1–2 of the Wang partition: per-partition elimination sweeps.
+
+    Inputs are laid out (M, *lanes), M the in-partition position.  Returns
+    ``(C, A, D)`` with every unknown expressed as x_i = D_i − A_i·X_L −
+    C_i·X_R in terms of the neighbouring partitions' boundary values.
+    """
+    m = a_s.shape[0]
+    cp, ap, dp = (torch.empty_like(a_s) for _ in range(3))
+    cp_prev = torch.zeros_like(a_s[0])
+    ap_prev = -torch.ones_like(a_s[0])
+    dp_prev = torch.zeros_like(a_s[0])
+    for i in range(m):
+        inv = 1.0 / (b_s[i] - a_s[i] * cp_prev)
+        cp[i] = cp_prev = c_s[i] * inv
+        ap[i] = ap_prev = -a_s[i] * ap_prev * inv
+        dp[i] = dp_prev = (d_s[i] - a_s[i] * dp_prev) * inv
+    C, A, D = (torch.empty_like(a_s) for _ in range(3))
+    # at i=M−1 the final form is the stage-1 row itself (its sup couples X_R)
+    c_nxt = torch.full_like(a_s[0], -1.0)
+    a_nxt = torch.zeros_like(a_s[0])
+    d_nxt = torch.zeros_like(a_s[0])
+    for i in range(m - 1, -1, -1):
+        D[i] = d_nxt = dp[i] - cp[i] * d_nxt
+        A[i] = a_nxt = ap[i] - cp[i] * a_nxt
+        C[i] = c_nxt = -cp[i] * c_nxt
+    return C, A, D
+
+
+def wang_interface_sweep(aL, cL, dL, aR, cR, dR, k: int):
+    """Stage 3 of the Wang partition: the 2K-unknown interface recurrence.
+
+    ``aL..dR`` are (K, *lanes) stacks of each partition's first/last row
+    coefficients.  Returns the boundary unknowns ``(Ls, Rs)`` as K-lists.
+    """
+    zero = torch.zeros_like(aL[0])
+    g = zero  # R_{k−1} = g − w·L_k
+    w = zero
+    ps, qs, gs, ws = [], [], [], []
+    for j in range(k):
+        inv = 1.0 / (1.0 - aL[j] * w)
+        p = (dL[j] - aL[j] * g) * inv
+        q = cL[j] * inv
+        g = dR[j] - aR[j] * g + aR[j] * w * p
+        w = cR[j] + aR[j] * w * q
+        ps.append(p)
+        qs.append(q)
+        gs.append(g)
+        ws.append(w)
+    L_next = zero
+    Ls, Rs = [None] * k, [None] * k
+    for j in range(k - 1, -1, -1):
+        Ls[j] = ps[j] - qs[j] * L_next
+        Rs[j] = gs[j] - ws[j] * L_next
+        L_next = Ls[j]
+    return Ls, Rs
+
+
+def wang_externals(Ls, Rs):
+    """Stacked ``(XL, XR)``: X_L of partition j = R_{j−1} (zero at the top),
+    X_R = L_{j+1} (zero at the bottom)."""
+    zero = torch.zeros_like(Ls[0])
+    return torch.stack([zero] + Rs[:-1]), torch.stack(Ls[1:] + [zero])
+
+
+def _pad_last(t: torch.Tensor, pad: int, value: float) -> torch.Tensor:
+    fill = torch.full((*t.shape[:-1], pad), value, dtype=t.dtype, device=t.device)
+    return torch.cat([t, fill], dim=-1)
+
+
+def _wang_layout(t: torch.Tensor, k: int, chunk: int) -> torch.Tensor:
+    """(..., K·M) → (M, K, ...): sweep over in-chunk position, lanes in batch."""
+    t = t.reshape(*t.shape[:-1], k, chunk)
+    return t.movedim(-1, 0).movedim(-1, 1)
+
+
+def _wang_unlayout(t: torch.Tensor) -> torch.Tensor:
+    """(M, K, ...) → (..., K·M)."""
+    t = t.movedim(1, -1).movedim(0, -1)  # (..., K, M)
+    return t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+
+
+def _wang_padded(sub, diag, sup, chunk: int):
+    """Open ends, chunk count and identity padding rows shared by the Wang paths."""
+    n = diag.shape[-1]
+    chunk = int(min(chunk, n))
+    k = -(-n // chunk)
+    pad = k * chunk - n
+    a, c = _open_ends(sub, sup)
+    b = diag
+    if pad:
+        # identity padding rows: decoupled (a=c=0), x=0
+        a, c, b = _pad_last(a, pad, 0.0), _pad_last(c, pad, 0.0), _pad_last(b, pad, 1.0)
+    return a, b, c, k, chunk, pad
+
+
+def tridiag_solve_wang(
+    sub: torch.Tensor,
+    diag: torch.Tensor,
+    sup: torch.Tensor,
+    rhs: torch.Tensor,
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Wang's partition method along the last axis (chunked Thomas + the
+    reduced interface system), as ``qpsim_tpu.ops.tridiag.tridiag_solve_wang``."""
+    sub, diag, sup, rhs = torch.broadcast_tensors(sub, diag, sup, rhs)
+    n = rhs.shape[-1]
+    if n == 1:
+        return rhs / diag
+    a, b, c, k, chunk, pad = _wang_padded(sub, diag, sup, chunk)
+    d = _pad_last(rhs, pad, 0.0) if pad else rhs
+    C, A, D = wang_eliminate(*(_wang_layout(t, k, chunk) for t in (a, b, c, d)))
+    Ls, Rs = wang_interface_sweep(A[0], C[0], D[0], A[-1], C[-1], D[-1], k)
+    XL, XR = wang_externals(Ls, Rs)
+    x = _wang_unlayout(D - A * XL[None] - C * XR[None])
+    return x[..., :n] if pad else x
+
+
+def wang_factor(
+    sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, chunk: int = 128
+) -> dict[str, torch.Tensor]:
+    """Precompute the Wang-partition factorization of a tridiagonal system.
+
+    Consumed by :func:`wang_apply`; together they split
+    :func:`tridiag_solve_wang` into a once-per-operator factor stage and a
+    per-step solve that runs only the rhs recurrences.
+    """
+    sub, diag, sup = torch.broadcast_tensors(sub, diag, sup)
+    a, b, c, k, chunk, _ = _wang_padded(sub, diag, sup, chunk)
+    a_s, b_s, c_s = (_wang_layout(t, k, chunk) for t in (a, b, c))
+    cp, ap, m, inv = (torch.empty_like(a_s) for _ in range(4))
+    cp_prev = torch.zeros_like(a_s[0])
+    ap_prev = -torch.ones_like(a_s[0])
+    for i in range(chunk):
+        inv[i] = inv_i = 1.0 / (b_s[i] - a_s[i] * cp_prev)
+        cp[i] = cp_prev = c_s[i] * inv_i
+        ap[i] = ap_prev = -a_s[i] * ap_prev * inv_i
+        m[i] = a_s[i] * inv_i
+    C, A = torch.empty_like(a_s), torch.empty_like(a_s)
+    c_nxt = torch.full_like(a_s[0], -1.0)
+    a_nxt = torch.zeros_like(a_s[0])
+    for i in range(chunk - 1, -1, -1):
+        A[i] = a_nxt = ap[i] - cp[i] * a_nxt
+        C[i] = c_nxt = -cp[i] * c_nxt
+    # interface coefficients (unrolled over the K chunks)
+    aL, cL, aR, cR = A[0], C[0], A[-1], C[-1]
+    w = torch.zeros_like(a_s[0, 0])
+    inv_if, q_if, w_pre, w_post = [], [], [], []
+    for j in range(k):
+        invj = 1.0 / (1.0 - aL[j] * w)
+        qj = cL[j] * invj
+        w_new = cR[j] + aR[j] * w * qj
+        inv_if.append(invj)
+        q_if.append(qj)
+        w_pre.append(w)
+        w_post.append(w_new)
+        w = w_new
+    return {
+        "cp": cp, "m": m, "inv": inv, "C": C, "A": A,
+        "if_inv": torch.stack(inv_if), "if_q": torch.stack(q_if),
+        "if_w_pre": torch.stack(w_pre), "if_w_post": torch.stack(w_post),
+        "if_aL": aL, "if_aR": aR,
+    }
+
+
+def wang_apply(fac: dict[str, torch.Tensor], rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with a :func:`wang_factor` factorization (rhs recurrences only)."""
+    cp, m, inv = fac["cp"], fac["m"], fac["inv"]
+    chunk, k = cp.shape[0], cp.shape[1]
+    n = rhs.shape[-1]
+    pad = k * chunk - n
+    d = _wang_layout(_pad_last(rhs, pad, 0.0) if pad else rhs, k, chunk)
+    # stages 1–2, rhs only: dp_i = d_i·inv_i − m_i·dp_{i−1}, D_i = dp_i − cp_i·D_{i+1}
+    dp = torch.empty_like(d)
+    prev = torch.zeros_like(d[0])
+    for i in range(chunk):
+        dp[i] = prev = d[i] * inv[i] - m[i] * prev
+    D = dp  # the backward sweep overwrites dp in place
+    nxt = torch.zeros_like(d[0])
+    for i in range(chunk - 1, -1, -1):
+        D[i] = nxt = dp[i] - cp[i] * nxt
+    # stage 3 with the prefactored interface coefficients
+    dL, dR = D[0], D[-1]
+    aL, aR = fac["if_aL"], fac["if_aR"]
+    if_inv, if_q, w_pre, w_post = fac["if_inv"], fac["if_q"], fac["if_w_pre"], fac["if_w_post"]
+    g = torch.zeros_like(dL[0])
+    ps, gs = [], []
+    for j in range(k):
+        p = (dL[j] - aL[j] * g) * if_inv[j]
+        g = dR[j] - aR[j] * g + aR[j] * w_pre[j] * p
+        ps.append(p)
+        gs.append(g)
+    L_next = torch.zeros_like(g)
+    Ls, Rs = [None] * k, [None] * k
+    for j in range(k - 1, -1, -1):
+        Ls[j] = ps[j] - if_q[j] * L_next
+        Rs[j] = gs[j] - w_post[j] * L_next
+        L_next = Ls[j]
+    XL, XR = wang_externals(Ls, Rs)
+    x = _wang_unlayout(D - fac["A"] * XL[None] - fac["C"] * XR[None])
+    return x[..., :n] if pad else x
+
+
+_SOLVERS = ("auto", "thomas", "pcr", "wang", "pallas")
+_DEFAULT_SOLVER = "auto"
+
+#: with at least this many lines solved together, 'auto' takes Thomas over
+#: PCR on CUDA tensors (the JAX package's rule for its GPU/TPU backends)
+_THOMAS_BATCH_THRESHOLD = 8192
+
+#: Wang partition chunk length of the 'wang' solver
+_WANG_CHUNK = 64
+
+
+def set_default_solver(name: str) -> None:
+    """Select the batched tridiagonal algorithm behind :func:`tridiag_solve`.
+
+    'auto'   — Thomas on the CPU; on CUDA tensors PCR below 8192 lines and
+               Thomas at or above;
+    'thomas' — the sequential Thomas sweep;
+    'pcr'    — parallel cyclic reduction;
+    'wang'   — Wang partition with chunk 64;
+    'pallas' — the CUDA Thomas kernel (``ops.tridiag_cuda``; its plain
+               version on CPU tensors).  The name is the JAX package's.
+    """
+    global _DEFAULT_SOLVER
+    if name not in _SOLVERS:
+        raise ValueError(f"Unknown tridiagonal solver: {name!r}")
+    _DEFAULT_SOLVER = name
+
+
+def get_default_solver() -> str:
+    """The name :func:`set_default_solver` last set ('auto' at import)."""
+    return _DEFAULT_SOLVER
+
+
+def tridiag_solve(
+    sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, rhs: torch.Tensor
+) -> torch.Tensor:
+    """Solve T x = rhs with T tridiagonal along the last axis.
+
+    ``sub[..., i]`` couples row i to i−1 (ignored at i=0) and ``sup[..., i]``
+    couples row i to i+1 (ignored at the last row).  Dispatches by
+    :func:`set_default_solver`.
+    """
+    solver = _DEFAULT_SOLVER
+    if solver == "pallas":
+        from .tridiag_cuda import thomas
+
+        return thomas(sub, diag, sup, rhs)
+    if solver == "wang":
+        return tridiag_solve_wang(sub, diag, sup, rhs, chunk=_WANG_CHUNK)
+    if solver == "auto" and rhs.device.type == "cuda":
+        batch = rhs.numel() // max(1, rhs.shape[-1])
+        solver = "thomas" if batch >= _THOMAS_BATCH_THRESHOLD else "pcr"
+    if solver == "pcr":
+        return tridiag_solve_pcr(sub, diag, sup, rhs)
+    return tridiag_solve_thomas(sub, diag, sup, rhs)
+
+
 def tridiag_solve_along(
     axis: int,
     sub: torch.Tensor,
     diag: torch.Tensor,
     sup: torch.Tensor,
     rhs: torch.Tensor,
+    solve=tridiag_solve,
 ) -> torch.Tensor:
-    """Tridiagonal solve along an arbitrary axis (moves it last and back)."""
+    """A tridiagonal solve along an arbitrary axis (moves it last and back).
+
+    ``solve`` is :func:`tridiag_solve` (the dispatch) unless a caller pins
+    one algorithm.
+    """
     if axis in (-1, rhs.ndim - 1):
-        return tridiag_solve(sub, diag, sup, rhs)
+        return solve(sub, diag, sup, rhs)
     move = lambda t: t.movedim(axis, -1)
-    return tridiag_solve(move(sub), move(diag), move(sup), move(rhs)).movedim(-1, axis)
+    return solve(move(sub), move(diag), move(sup), move(rhs)).movedim(-1, axis)

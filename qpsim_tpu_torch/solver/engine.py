@@ -7,12 +7,19 @@
     (times, frames, mass, [vmin, vmax], energy_frames | None, E_bins | None)
 
 with one more keyword, ``device`` ("cuda" by default; "cpu" for tests).
-It runs the energy-resolved branch: dense (NE, Ny, Nx) quasiparticle and
-(NW, Ny, Nx) phonon states, each step C(dt/2) D(dt) C(dt/2) (merged across
-a stored segment by default), with the collision substep and the ADI step
-on hand-written CUDA kernels on the card.  Features the port does not have
-yet raise ``NotImplementedError`` naming the ROADMAP item that ports them;
-nothing falls back quietly.
+It runs both branches:
+
+* energy-resolved (``energy_gap > 0``): dense (NE, Ny, Nx) quasiparticle
+  and (NW, Ny, Nx) phonon states, each step C(dt/2) D(dt) C(dt/2) (merged
+  across a stored segment by default), with the collision substep and the
+  ADI step on hand-written CUDA kernels on the card;
+* scalar (``energy_gap <= 0``): one (1, Ny, Nx) CN field, no collisions,
+  and a fixed-temperature phonon scaffold; on the card a full rectangle
+  diffuses through the separable ADI kernel, any other film through the
+  fused ADI kernel.
+
+Features the port does not have yet raise ``NotImplementedError`` naming
+the ROADMAP item that ports them; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..models.params import (
 )
 from ..ops.collisions import DEFAULT_PIXEL_CHUNK
 from .phonon_history import reconstruct_field
+from .scalar_runner import _run_scalar
 from .spectral_runner import _run_energy_resolved
 from .stepping import _plan_segments, _split_time, default_dtype
 
@@ -104,7 +112,7 @@ def run_2d_crank_nicolson(
     snapshot_detail: str = "full",
     device: str | torch.device = "cuda",
 ) -> tuple:
-    """Run an energy-resolved masked 2D diffusion–collision simulation.
+    """Run a masked 2D diffusion(–collision) simulation, scalar or energy-resolved.
 
     Reference-compatible entry point; see the module docstring and the
     JAX package's docstring for the physics and the options they share.
@@ -117,12 +125,14 @@ def run_2d_crank_nicolson(
     * ``collision_backend`` — 'auto' (the CUDA kernel for CUDA tensors, the
       plain version on the CPU), 'kernel' (raises on the CPU) or 'plain'.
     * ``diffusion_backend`` — 'auto' (dense spectral CN at ≤ 4096 interior
-      cells, else the CUDA ADI kernel on CUDA and plain ADI on the CPU),
-      'dense' or 'adi'; 'wang' and 'cg' are not ported yet and raise.
+      cells, else the CUDA ADI kernels on CUDA and plain ADI on the CPU),
+      'dense', 'adi', 'wang' or 'cg'.
     * ``strang_mode`` — 'auto' (= 'merged'), 'exact' or 'merged'.
     * ``snapshot_detail`` — 'full' or 'integrated' (reduced on the device).
 
     ``mesh_y_solve`` is accepted for signature compatibility and unused.
+    The scalar branch ignores the collision, generation and Strang options,
+    as the JAX package does.
     """
     if dt <= 0 or total_time <= 0:
         raise ValueError("dt and total_time must be positive.")
@@ -136,12 +146,9 @@ def run_2d_crank_nicolson(
         raise ValueError(
             f"Unknown snapshot_detail: {snapshot_detail!r} (use 'full' or 'integrated')"
         )
+    if photon_drive is not None and photon_drive_specs(photon_drive) and energy_gap <= 0.0:
+        raise ValueError("photon_drive needs the energy-resolved mode (energy_gap > 0).")
     # features outside this slice of the port fail loudly
-    if energy_gap <= 0.0:
-        raise _deferred(
-            "The scalar (energy-integrated) branch, energy_gap <= 0,",
-            "queue 1, 'Scalar branch and K1'",
-        )
     if str(gap_expression or "").strip() or precomputed is not None:
         raise _deferred("Gap maps (gap_expression / precomputed)", "queue 1, 'Gap maps'")
     if photon_drive is not None and photon_drive_specs(photon_drive):
@@ -181,6 +188,24 @@ def run_2d_crank_nicolson(
     full_steps, remainder_dt, _ = _split_time(total_time, dt)
     segments = _plan_segments(full_steps, remainder_dt, dt, store_every)
 
+    if energy_gap <= 0.0:
+        with torch.inference_mode():
+            return _run_scalar(
+                mask=mask,
+                edges=edges,
+                edge_conditions=edge_conditions,
+                initial_field=initial_field,
+                diffusion_coefficient=diffusion_coefficient,
+                dx=dx,
+                segments=segments,
+                enable_diffusion=enable_diffusion,
+                bath_temperature=bath_temperature,
+                phonon_history_out=phonon_history_out,
+                progress_callback=progress_callback,
+                diffusion_backend=diffusion_backend,
+                device=dev,
+                dtype=dtype,
+            )
     with torch.inference_mode():
         return _run_energy_resolved(
             mask=mask,

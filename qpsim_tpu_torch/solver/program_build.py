@@ -101,7 +101,8 @@ def build_engine_program(
         x_st, y_st = build_directional_stencils(mask, edges, edge_conditions, dx)
         D_E = diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
         op = fold_diffusion(x_st, y_st, mask, dx, D_E)
-        backend = choose_backend(op, device, dtype, diffusion_backend)
+        # a step composed with collisions keeps multi-bin operators on K2
+        backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
 
     # --- collision data ------------------------------------------------------
     pmap = build_phonon_frequency_map(E_bins)

@@ -118,4 +118,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             # u, out, w_scratch, 7 planes, scale, nb, nbp, ny, nx, alpha, stream
             fn.argtypes = [P] * 11 + [I, I, I, I, D, P]
             fn.restype = I
+            fn = getattr(lib, f"qp_adi_sep_{half}_{suffix}")
+            # u, out, xv, yv, fac, ifc, nb, ny, nx, k, stream
+            fn.argtypes = [P] * 6 + [I, I, I, I, P]
+            fn.restype = I
+        fn = getattr(lib, f"qp_thomas_{suffix}")
+        # a, b, c, r, x, w_scratch, n, batch, stream
+        fn.argtypes = [P] * 6 + [I, I, P]
+        fn.restype = I
     return lib

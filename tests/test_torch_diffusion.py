@@ -137,9 +137,9 @@ def test_choose_backend_dispatch():
     auto_big = tdb.choose_backend(big, "cpu", F64)
     assert type(auto_big) is tdb.ADIDiffusion  # plain ADI on the CPU, never the kernel
     assert isinstance(tdb.choose_backend(small, "cpu", F64, "adi"), tdb.ADIDiffusion)
-    for name in ("wang", "cg"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdb.choose_backend(small, "cpu", F64, name)
+    assert type(tdb.choose_backend(small, "cpu", F64, "wang")) is tdb.PrefactoredWangADI
+    assert type(tdb.choose_backend(small, "cpu", F64, "cg")) is tdb.CGDiffusion
+    assert type(tdb.choose_backend(big, "cpu", F64, coupled=True)) is tdb.ADIDiffusion
     for name in ("pallas", "kernel"):
         with pytest.raises(ValueError, match="Unknown"):
             tdb.choose_backend(small, "cpu", F64, name)

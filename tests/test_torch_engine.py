@@ -200,7 +200,6 @@ def test_pauli_violation_mid_run_reports_the_same_step():
 
 
 _DEFERRED = [
-    dict(energy_gap=0.0),
     dict(gap_expression="180 + 10*x"),
     dict(precomputed={"D_array": np.ones((4, 4))}),
     dict(photon_drive=tp.PhotonDriveSpec(mode="photon", photon_energy=400.0, coupling=1.0)),
@@ -209,15 +208,13 @@ _DEFERRED = [
     dict(checkpointer=object()),
     dict(frame_sink=object()),
     dict(external_generation=tp.ExternalGenerationSpec(mode="custom")),
-    dict(diffusion_backend="wang"),
-    dict(diffusion_backend="cg"),
 ]
 
 
 @pytest.mark.parametrize(
     "extra", _DEFERRED,
-    ids=["scalar", "gap_expression", "precomputed", "photon_drive", "initial_condition",
-         "mesh", "checkpointer", "frame_sink", "custom_generation", "wang", "cg"],
+    ids=["gap_expression", "precomputed", "photon_drive", "initial_condition",
+         "mesh", "checkpointer", "frame_sink", "custom_generation"],
 )
 def test_deferred_features_raise(extra):
     kw = _pauli_kwargs(initial_field=np.full((1, 4), 1e-5))

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the main path's time goes, on one CUDA GPU.
+"""Where a path's time goes, on one CUDA GPU.
 
-Run from the root of a checkout:  python3 tools/profile_main.py [--out DIR]
+Run from the root of a checkout:
+    python3 tools/profile_main.py [--path coupled|scalar] [--out DIR]
 
-Drives the configuration of ``chip_smoke.py`` phase 4 (1024² intrinsic
-rectangle × 16 energy bins, 100 steps, float32, merged stepping, pulse
-generation) through ``qpsim_tpu_torch.run_2d_crank_nicolson`` and prints:
+``--path coupled`` (the default) drives the configuration of
+``chip_smoke.py`` phase 4 (1024² intrinsic rectangle × 16 energy bins,
+100 steps, float32, merged stepping, pulse generation); ``--path scalar``
+the scalar path of phase 6 (full 1024² film, energy_gap=0, float32), here
+2000 steps stored every 500.  Both go through
+``qpsim_tpu_torch.run_2d_crank_nicolson``, and the script prints:
 
-1. whole-call ms/step at ``store_every`` 25 and 100 (host clock), so the
+1. whole-call ms/step at two ``store_every`` values (host clock), so the
    cost of the stored frames shows as the difference;
 2. a cProfile of one call, by cumulative host time;
 3. a torch.profiler table of one call by device self time, and the
@@ -16,7 +20,7 @@ generation) through ``qpsim_tpu_torch.run_2d_crank_nicolson`` and prints:
    that wall time).
 
 With ``--out DIR`` the profiler's Chrome trace goes to
-``DIR/profile_main_trace.json``.  Kernels build at first use, as in
+``DIR/profile_<path>_trace.json``.  Kernels build at first use, as in
 ``chip_smoke.py``.  Needs one CUDA GPU; imports nothing of JAX.
 """
 
@@ -34,25 +38,31 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import main_path_kwargs  # noqa: E402
+from chip_smoke import film, main_path_kwargs, scalar_kwargs  # noqa: E402
 
-DT, TOTAL = 0.05, 5.0
-STEPS = 100
+#: per path: steps, the two store_every values, and the run's keyword arguments
+PATHS = {
+    "coupled": (100, (25, 100), lambda: dict(main_path_kwargs(1024), dt=0.05, total_time=5.0)),
+    "scalar": (2000, (500, 2000), lambda: scalar_kwargs(film(1024, 1024), dt=0.1, steps=2000,
+                                                        store_every=500)),
+}
 
 
-def run(store_every: int):
+def run(kw: dict, store_every: int):
     import qpsim_tpu_torch
 
-    kw = dict(main_path_kwargs(1024), dt=DT, total_time=TOTAL, store_every=store_every)
-    out = qpsim_tpu_torch.run_2d_crank_nicolson(**kw)
+    out = qpsim_tpu_torch.run_2d_crank_nicolson(**dict(kw, store_every=store_every))
     torch.cuda.synchronize()
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=sorted(PATHS), default="coupled")
     ap.add_argument("--out", help="directory for the Chrome trace")
     args = ap.parse_args()
+    steps, store_values, make_kwargs = PATHS[args.path]
+    kw = make_kwargs()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main: needs a CUDA GPU")
     card = subprocess.run(
@@ -61,16 +71,17 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    run(25)  # warm-up: builds the kernels, first allocations
-    for store_every in (25, 100):
+    print(f"path: {args.path}, {steps} steps", flush=True)
+    run(kw, store_values[0])  # warm-up: builds the kernels, first allocations
+    for store_every in store_values:
         t0 = time.perf_counter()
-        run(store_every)
-        ms = 1e3 * (time.perf_counter() - t0) / STEPS
-        print(f"store_every={store_every}: whole call {ms:.3f} ms/step (host clock)", flush=True)
+        run(kw, store_every)
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        print(f"store_every={store_every}: whole call {ms:.4f} ms/step (host clock)", flush=True)
 
     prof = cProfile.Profile()
     prof.enable()
-    run(25)
+    run(kw, store_values[0])
     prof.disable()
     pstats.Stats(prof, stream=sys.stdout).sort_stats("cumulative").print_stats(35)
 
@@ -79,7 +90,7 @@ def main() -> int:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
         t0 = time.perf_counter()
-        run(25)
+        run(kw, store_values[0])
         wall_ms = 1e3 * (time.perf_counter() - t0)
     averages = tprof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=25))
@@ -92,7 +103,7 @@ def main() -> int:
           f"busy share {device_ms / wall_ms:.3f} — {card}", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        tprof.export_chrome_trace(os.path.join(args.out, "profile_main_trace.json"))
+        tprof.export_chrome_trace(os.path.join(args.out, f"profile_{args.path}_trace.json"))
     return 0
 
 
