@@ -10,17 +10,24 @@ a non-zero exit:
 2. build — compiles ``qpsim_tpu_torch/csrc/*.cu`` with nvcc (first use)
    and prints each kernel's ptxas report;
 3. each kernel against its plain PyTorch version on the card, float64 and
-   float32: the collision step (K3), the fused ADI halves (K2), the
-   separable ADI halves (K1) at NB = 1 and 16 on full films with mixed
-   faces, and the Thomas solve (K10);
+   float32: the collision step (K3) on a uniform gap and with per-pixel
+   gap ids (G = 3), the analytic-gap collision step (K4) on a continuous
+   gap plane, the fused ADI halves (K2) with one plane and with NB
+   per-pixel planes, the separable ADI halves (K1) at NB = 1 and 16 on
+   full films with mixed faces, and the Thomas solve (K10);
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
    timed over three calls (steady-state ms/step and set-up apart); then
    each kernel checked against its plain version at those shapes, and
    both timed;
+4b. gap maps at the same width: the coupled path with a quasiparticle
+   trap (two gaps: K3 with gap ids) and with a gap gradient (a distinct
+   gap per pixel: K4), both through per-pixel D(E, x) on K2's NB planes,
+   with exact launch counts, timed as in phase 4; then K3-gid, K4 and K2
+   on NB planes timed against their plain versions at 1024² × 16;
 5. the same physics on a 128² grid in float64 for 20 steps, kernels
-   against the plain path end to end;
+   against the plain path end to end, uniform and with both gap maps;
 6. the scalar path (``energy_gap=0``) on the full 1024² film, float32,
    10 000 steps: exactly one launch of each K1 half per step and none of
    K2, mass conserved, steady-state ms/step and cell-steps/s over three
@@ -34,7 +41,11 @@ a non-zero exit:
    line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
-compared arrays.  Kernel timings use CUDA events after a warm-up.  The
+compared arrays.  Kernel timings use CUDA events after a warm-up.  Each
+kernel's ``bound_ms`` is the least time the card could take for the same
+work: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its operations (counted from the algorithm,
+see ``*_work``) over 67 TFLOP/s in float32 — the H100 SXM data sheet.  The
 script imports nothing of JAX; it exits non-zero without CUDA.  For where
 the main path's time goes, run ``tools/profile_main.py``.
 """
@@ -52,9 +63,75 @@ import torch
 
 F32, F64 = torch.float32, torch.float64
 TOL = {("collision_step", F64): 1e-10, ("collision_step", F32): 5e-7,
+       ("collision_step_gid", F64): 1e-10, ("collision_step_gid", F32): 5e-7,
+       # the f32 tolerance of MOSAIC_PARITY_r05.json analytic_gap_gen_fused
+       ("collision_step_analytic", F64): 1e-10, ("collision_step_analytic", F32): 5e-6,
        ("adi", F64): 1e-10, ("adi", F32): 5e-6,
        ("adi_sep", F64): 1e-10, ("adi_sep", F32): 5e-6,
        ("thomas", F64): 1e-10, ("thomas", F32): 5e-6}
+
+
+#: H100 SXM data-sheet peaks: HBM bytes/s and float32 (non-tensor) and float64 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {F32: 67e12, F64: 34e12}
+
+#: the two gap maps of phase 4b: a quasiparticle trap (G = 2) and a gradient (G ≈ 10⁶)
+GAP_MAPS = {
+    "trap": "return 180.0 - 20.0 * (((x - 0.5)**2 + (y - 0.5)**2) < 0.04)",
+    "gradient": "return 170.0 + 20.0 * x + 2.0 * y",
+}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, flops: float, dtype) -> dict:
+    """bound_ms / bound_by of a kernel row from its bytes and operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def collision_work(plan, q, ph, gen, tensors, analytic=False) -> tuple[int, int]:
+    """(bytes, operations) of one collision substep on these inputs.
+
+    Bytes: q and n_ph in and out (n_ph out only when phonons update), the
+    gen plane and every table once.  Operations per pixel, from the
+    walk: 8 per scattering pair and 7 per recombination pair in the QP
+    update, 16 per bin (partner, gain, relaxation); per ω row 10 and per
+    row entry 4 (scattering) or 7 (recombination); K4 adds 10 per bin for
+    ρ and, once per pair, 3 to form its scattering constant and 2 its
+    recombination constant from Δ² (the function needs each once, however
+    often the kernel re-forms it).
+    """
+    ne, nw = plan.num_energy_bins, plan.num_omega
+    n_pix = q.shape[1] * q.shape[2]
+    n_s = ne * (ne - 1) if plan.enable_scattering else 0
+    n_r = ne * ne if plan.enable_recombination else 0
+    per_px = 8 * n_s + 7 * n_r + 16 * ne + (ne if gen is not None else 0)
+    if plan.update_phonons:
+        per_px += 4 * n_s + 7 * n_r + 10 * nw
+    if analytic:
+        per_px += 10 * ne + 3 * n_s + 2 * n_r
+    state = nbytes(q, q, ph, gen) + (nbytes(ph) if plan.update_phonons else 0)
+    return state + nbytes(*tensors), per_px * n_pix
+
+
+def adi_work(u, planes) -> tuple[int, int]:
+    """(bytes, operations) of one K2 half: u in, out, the 7 planes and the scale; ≈ 20 flops per element."""
+    p = planes
+    return nbytes(u, u, p.ax_lo, p.ax_hi, p.ax_diag, p.ay_lo, p.ay_hi, p.ay_diag, p.src, p.scale), 20 * u.numel()
+
+
+def adi_sep_work(u, f, half: str) -> tuple[int, int]:
+    """(bytes, operations) of one K1 half: u in, out, its packs; ≈ 15 flops per element."""
+    packs = (f.xv, f.yv) + ((f.facx, f.ifx) if half == "x" else (f.facy, f.ify))
+    return nbytes(u, u, *packs), 15 * u.numel()
+
+
+def thomas_work(system) -> tuple[int, int]:
+    """(bytes, operations) of the Thomas solve: a, b, c, r in, x out; ≈ 8 flops per element."""
+    return nbytes(*system, system[3]), 8 * system[3].numel()
 
 
 def scaled_err(got, ref) -> float:
@@ -89,10 +166,21 @@ def time_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- helpers
 
 
-def collision_setup(ne, n, dtype, *, phonons=True, seed=0):
-    """Plan, kernel tables and a random state at NE bins on an n×n grid."""
-    from qpsim_tpu_torch.ops.collisions import build_collision_plan_arrays
-    from qpsim_tpu_torch.ops.collisions_cuda import build_kernel_tables
+#: the collision kernels' forms: K3 on a uniform gap, K3 with gap ids, K4
+COLLISION_KINDS = {"uniform": "collision_step", "gid": "collision_step_gid",
+                   "analytic": "collision_step_analytic"}
+
+
+def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, seed=0):
+    """A collision kernel, its plain version and a random state at NE bins on an n×n grid.
+
+    ``kind`` "uniform": one gap (K3); "gid": per-gap tables for G = 3 gaps
+    and random gap ids (K3 with gap ids); "analytic": a random continuous
+    gap plane (K4).  Returns (kernel_step, plain_step, plan, table tensors,
+    q, ph, gen); each step is ``step(q, ph, dt, gen)``.
+    """
+    from qpsim_tpu_torch.ops import collisions_cuda as kc
+    from qpsim_tpu_torch.ops.collisions import build_analytic_plan, build_collision_plan_arrays
     from qpsim_tpu_torch.ops.dos import dynes_density_of_states, thermal_phonon_occupation
     from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
     from qpsim_tpu_torch.ops.kernels import recombination_kernel_base, scattering_kernel_base
@@ -100,21 +188,41 @@ def collision_setup(ne, n, dtype, *, phonons=True, seed=0):
 
     E, dE = build_energy_grid(180.0, 1.0, 4.0, ne)
     pm = build_phonon_frequency_map(E)
-    rho = dynes_density_of_states(E, 180.0, 0.0)
-    plan = build_collision_plan_arrays(
-        dE=dE, rho=rho, K_r0=recombination_kernel_base(E, 180.0, 440.0, 1.2),
-        K_s0=scattering_kernel_base(E, 180.0, 440.0, 1.2), pmap=pm,
-        enable_recombination=True, enable_scattering=True, update_phonons=phonons,
-        device="cuda", dtype=dtype,
-    )
     rng = np.random.default_rng(seed)
+    if kind == "analytic":
+        plane = rng.uniform(150.0, 195.0, (n, n))
+        plan, tab = build_analytic_plan(
+            E_bins=E, dE=dE, gap_plane=plane, pmap=pm, tau_s=440.0, tau_r=440.0, T_c=1.2,
+            dynes_gamma=gamma, update_phonons=phonons, device="cuda", dtype=dtype)
+        tables = kc.build_kernel_tables(plan)
+        rho = np.stack([dynes_density_of_states(E, g, gamma) for g in (150.0, 195.0)]).mean(0)
+        kernel = lambda q, ph, dt, g: kc.collision_step_analytic(plan, tab, tables, q, ph, dt, g)
+        plain = lambda q, ph, dt, g: kc.collision_step_analytic_plain(plan, tab, q, ph, dt, g)
+        tensors = (tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi, tab.dEa_s, tab.dEb_s, tab.dEa2_r,
+                   tab.dEb2_r, tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr,
+                   tables.row_code)
+    else:
+        gaps = (180.0,) if kind == "uniform" else (160.0, 170.0, 180.0)
+        gid = None if kind == "uniform" else rng.integers(0, len(gaps), (n, n))
+        stack = lambda fn: np.stack([fn(E, g, 440.0, 1.2) for g in gaps])
+        rho_g = np.stack([dynes_density_of_states(E, g, gamma) for g in gaps])
+        plan = build_collision_plan_arrays(
+            dE=dE, rho=rho_g, K_r0=stack(recombination_kernel_base),
+            K_s0=stack(scattering_kernel_base), pmap=pm, enable_recombination=True,
+            enable_scattering=True, update_phonons=phonons, device="cuda", dtype=dtype, gap_id=gid)
+        tables = kc.build_kernel_tables(plan)
+        rho = rho_g.mean(0)
+        kernel = lambda q, ph, dt, g: kc.collision_step(plan, tables, q, ph, dt, g)
+        plain = lambda q, ph, dt, g: kc.collision_step_plain(plan, q, ph, dt, g)
+        tensors = (plan.gap_id, tables.rho, tables.ks, tables.kr, tables.idx_diff, tables.idx_sum,
+                   tables.sign, tables.row_ptr, tables.row_code)
     q = rng.uniform(0.0, 2e-3, (ne, n, n)) * rho[:, None, None]
     ph = thermal_phonon_occupation(pm.omega_bins, 0.25)[:, None, None] * rng.uniform(
         0.5, 2.0, (pm.num_omega, n, n)
     )
     gen = rng.uniform(0.0, 1e-6, (n, n))
     as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
-    return plan, build_kernel_tables(plan), as_t(q), as_t(ph), as_t(gen)
+    return kernel, plain, plan, tensors, as_t(q), as_t(ph), as_t(gen)
 
 
 def rectangle(n):
@@ -142,7 +250,9 @@ def donut(n):
     return mask, edges, bcs
 
 
-def adi_planes(geometry, dtype, nb=16, seed=1):
+def adi_planes(geometry, dtype, nb=16, seed=1, per_pixel=False):
+    """K2's planes and a random state: per-bin D(E) (one plane), or with
+    ``per_pixel`` a D(E, x) from a random continuous gap plane (NB planes)."""
     from qpsim_tpu_torch.ops.adi_cuda import AdiPlanes
     from qpsim_tpu_torch.ops.diffusion import build_directional_stencils, fold_diffusion
     from qpsim_tpu_torch.ops.dos import diffusion_coefficient_of_energy
@@ -150,7 +260,11 @@ def adi_planes(geometry, dtype, nb=16, seed=1):
 
     mask, edges, bcs = geometry
     E, _ = build_energy_grid(180.0, 1.0, 4.0, nb)
-    D = diffusion_coefficient_of_energy(6.0, E, 180.0)  # per-bin D(E)
+    if per_pixel:
+        gap = np.random.default_rng(seed + 7).uniform(150.0, 190.0, mask.shape)
+        D = diffusion_coefficient_of_energy(6.0, E[:, None, None], gap[None])
+    else:
+        D = diffusion_coefficient_of_energy(6.0, E, 180.0)  # per-bin D(E)
     op = fold_diffusion(*build_directional_stencils(mask, edges, bcs, 1.0), mask, 1.0, D)
     planes = AdiPlanes.from_operator(op, "cuda", dtype)
     u = np.random.default_rng(seed).uniform(0.0, 1e-5, (nb, *mask.shape)) * mask[None]
@@ -267,10 +381,12 @@ def phase_build() -> None:
     name = None
     for line in ptxas_report().splitlines():
         m = re.search(
-            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel|collision_step_kernel"
-            r"|thomas_kernel)I([fd])E", line)
+            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel"
+            r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
+            line)
         if m:
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>"
+            gid = "" if m.group(3) is None else f", gap ids {'on' if m.group(3) == '1' else 'off'}"
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{gid}>"
         elif name and ("stack frame" in line or "Used" in line):
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
     sys.stdout.flush()
@@ -279,33 +395,38 @@ def phase_build() -> None:
 def phase_kernels_vs_plain() -> None:
     print("== 3 kernels against their plain versions on the card", flush=True)
     from qpsim_tpu_torch.ops import adi_cuda
-    from qpsim_tpu_torch.ops.collisions_cuda import collision_step, collision_step_plain
 
-    for ne, n in ((16, 256), (50, 128)):
-        for dtype in (F64, F32):
-            for phonons in (True, False):
-                plan, tables, q, ph, gen = collision_setup(ne, n, dtype, phonons=phonons)
-                for g in (None, gen):
-                    ref = collision_step_plain(plan, q, ph, 0.025, g)
-                    got = collision_step(plan, tables, q, ph, 0.025, g)
-                    torch.cuda.synchronize()
-                    err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
-                    check(f"collision_step NE={ne} {n}² {str(dtype)[6:]} gen={g is not None} "
-                          f"phonons={phonons}", err, TOL[("collision_step", dtype)])
+    for kind, name in COLLISION_KINDS.items():
+        for ne, n in ((16, 256), (50, 128)):
+            for dtype in (F64, F32):
+                for phonons in (True, False):
+                    for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
+                        kern, plain, _, _, q, ph, gen = collision_setup(
+                            ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma)
+                        for g in (None, gen):
+                            ref = plain(q, ph, 0.025, g)
+                            got = kern(q, ph, 0.025, g)
+                            torch.cuda.synchronize()
+                            err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
+                            extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
+                            check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
+                                  f"phonons={phonons}", err, TOL[(name, dtype)])
     for name, geometry in (("rectangle 1024²", rectangle(1024)), ("donut 256²", donut(256))):
-        for dtype in (F64, F32):
-            planes, u = adi_planes(geometry, dtype)
-            alpha = 0.025
-            ux_ref = adi_cuda.adi_x_half_plain(u, planes, alpha)
-            ux = adi_cuda.adi_x_half(u, planes, alpha)
-            uy_ref = adi_cuda.adi_y_half_plain(ux_ref, planes, alpha)
-            uy = adi_cuda.adi_y_half(ux_ref, planes, alpha)
-            step = adi_cuda.adi_step(u, planes, alpha)
-            torch.cuda.synchronize()
-            tol = TOL[("adi", dtype)]
-            check(f"adi_x_half {name}×16 {str(dtype)[6:]}", scaled_err(ux, ux_ref), tol)
-            check(f"adi_y_half {name}×16 {str(dtype)[6:]}", scaled_err(uy, uy_ref), tol)
-            check(f"adi_step   {name}×16 {str(dtype)[6:]}", scaled_err(step, uy_ref), tol)
+        for per_pixel in (False, True):
+            for dtype in (F64, F32):
+                planes, u = adi_planes(geometry, dtype, per_pixel=per_pixel)
+                alpha = 0.025
+                ux_ref = adi_cuda.adi_x_half_plain(u, planes, alpha)
+                ux = adi_cuda.adi_x_half(u, planes, alpha)
+                uy_ref = adi_cuda.adi_y_half_plain(ux_ref, planes, alpha)
+                uy = adi_cuda.adi_y_half(ux_ref, planes, alpha)
+                step = adi_cuda.adi_step(u, planes, alpha)
+                torch.cuda.synchronize()
+                tol = TOL[("adi", dtype)]
+                tag = f"{name}×16 nbp={planes.ax_lo.shape[0]} {str(dtype)[6:]}"
+                check(f"adi_x_half {tag}", scaled_err(ux, ux_ref), tol)
+                check(f"adi_y_half {tag}", scaled_err(uy, uy_ref), tol)
+                check(f"adi_step   {tag}", scaled_err(step, uy_ref), tol)
     from qpsim_tpu_torch.ops import adi_sep_cuda as k1
 
     # mixed faces, so the split source sx(x) + sy(y) is non-zero; 512×1024
@@ -334,11 +455,109 @@ def phase_kernels_vs_plain() -> None:
             check(f"thomas {lines} lines × {n} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
 
 
+def timed_run(kw: dict, steps: int):
+    """One call: its result and (steady ms/step, set-up s, whole-call ms).
+
+    Set-up runs from the call to the first stored frame (t = 0); the
+    steady state from the first to the last stored frame (host clock),
+    which holds every step and the other stored frames.
+    """
+    import qpsim_tpu_torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    stamps: list[float] = []
+    t_call = time.perf_counter()
+    start.record()
+    out = qpsim_tpu_torch.run_2d_crank_nicolson(
+        **kw, progress_callback=lambda t, f: stamps.append(time.perf_counter())
+    )
+    end.record()
+    end.synchronize()
+    return out, (1e3 * (stamps[-1] - stamps[0]) / steps, stamps[0] - t_call,
+                 start.elapsed_time(end))
+
+
+def coupled_expect(segments, collision: str) -> dict:
+    """Exact launch counts of the coupled merged path through collision kernel ``collision``."""
+    steps = sum(s.length for s in segments)
+    names = COLLISION_KINDS.values()
+    expect = {n: 0 for n in names} | {f"{n}_with_gen": 0 for n in names}
+    expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
+    expect[f"{collision}_with_gen"] = steps
+    return expect | {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0,
+                     "thomas": 0}
+
+
+def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str) -> dict:
+    """Three timed calls of a coupled configuration with exact launch counts
+    and the physics checks; returns the launch counts of the first."""
+    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
+
+    full, rem, _ = _split_time(kw["total_time"], kw["dt"])
+    segments = _plan_segments(full, rem, kw["dt"], kw["store_every"])
+    steps = sum(s.length for s in segments)
+    expect = coupled_expect(segments, expect_collision)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (times, frames, mass, clim, ef, _), first = timed_run(kw, steps)
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label}: launches {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"{label}: launch counts {counts} != {expect}")
+    check_frames(frames, kw["mask"])
+    print(f"  {label}: stored times {times}")
+    print(f"  {label}: mass {mass}")
+    if not (len(times) == len(segments) + 1 and abs(times[-1] - kw["total_time"]) < 1e-9):
+        raise AssertionError(f"{label}: unexpected stored times {times}")
+    if not (mass[1] > mass[0] and mass[2] > mass[0]):
+        raise AssertionError(f"{label}: mass must rise during the pulse")
+    runs = [first] + [timed_run(kw, steps)[1] for _ in range(2)]
+    for i, (st, su, wh) in enumerate(runs):
+        print(f"  {label} run {i + 1}: steady state {st:.3f} ms/step (host clock, first to last "
+              f"stored frame, {steps} steps); set-up {su:.3f} s (call to first stored frame); "
+              f"whole call {wh / steps:.3f} ms/step (CUDA events)")
+    med = sorted(r[0] for r in runs)[1]
+    print(f"  {label} end to end: steady state median {med:.3f} ms/step over {len(runs)} runs "
+          f"(range {min(r[0] for r in runs):.3f}–{max(r[0] for r in runs):.3f}); set-up "
+          f"{min(r[1] for r in runs):.3f}–{max(r[1] for r in runs):.3f} s; peak device memory "
+          f"{peak_gib:.2f} GiB — {card}", flush=True)
+    return counts
+
+
+def collision_row(kind, line, launches, dt):
+    """A kernels-line row for a collision kernel form at the main path's shapes (float32)."""
+    name = COLLISION_KINDS[kind]
+    kern, plain, plan, tensors, q, ph, gen = collision_setup(16, 1024, F32, kind=kind)
+    ref = plain(q, ph, dt, gen)
+    got = kern(q, ph, dt, gen)
+    torch.cuda.synchronize()
+    tol = TOL[(name, F32)]
+    check(f"{name} NE=16 1024² float32 gen=True phonons=True, q", scaled_err(got[0], ref[0]), tol)
+    check(f"{name} NE=16 1024² float32 gen=True phonons=True, ph", scaled_err(got[1], ref[1]), tol)
+    n_bytes, flops = collision_work(plan, q, ph, gen, tensors, analytic=kind == "analytic")
+    return dict(
+        name=name, route="cuda", source="qpsim_tpu_torch/csrc/collisions.cu",
+        replaces=f"qpsim_tpu/ops/pallas_collisions.py:{line}", launches=launches,
+        max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
+        ms=time_ms(lambda: kern(q, ph, dt, gen), 20),
+        plain_ms=time_ms(lambda: plain(q, ph, dt, gen), 3),
+        **bound(n_bytes, flops, F32), library_ms=None,
+    )
+
+
+def print_rows(rows, shape: str, card: str) -> None:
+    for r in rows:
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3e} "
+              f"({shape}, float32) — {card}")
+    sys.stdout.flush()
+
+
 def phase_main_path(card: str) -> list[dict]:
     print("== 4 main path: 1024² × 16 bins, 100 steps, float32, merged stepping", flush=True)
     import qpsim_tpu_torch
     from qpsim_tpu_torch.ops import adi_cuda
-    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
 
     dt, total, store_every = 0.05, 5.0, 25
     kw = dict(main_path_kwargs(1024), dt=dt, total_time=total, store_every=store_every)
@@ -346,86 +565,10 @@ def phase_main_path(card: str) -> list[dict]:
     qpsim_tpu_torch.run_2d_crank_nicolson(**kw)  # warm-up
     torch.cuda.synchronize()
     print(f"  warm-up run {time.perf_counter() - t0:.2f} s", flush=True)
-
-    full, rem, _ = _split_time(total, dt)
-    segments = _plan_segments(full, rem, dt, store_every)
-    steps = sum(s.length for s in segments)
-    expect = {
-        "collision_step": sum(s.length + 1 if s.length > 1 else 2 for s in segments),
-        "collision_step_with_gen": steps,
-        "adi_x_half": steps,
-        "adi_y_half": steps,
-        "adi_sep_x": 0,
-        "adi_sep_y": 0,
-        "thomas": 0,
-    }
-    def timed_run():
-        """One call: its result and (steady ms/step, set-up s, whole-call ms).
-
-        Set-up runs from the call to the first stored frame (t = 0); the
-        steady state from the first to the last stored frame (host clock),
-        which holds every step and the other stored frames.
-        """
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        stamps: list[float] = []
-        t_call = time.perf_counter()
-        start.record()
-        out = qpsim_tpu_torch.run_2d_crank_nicolson(
-            **kw, progress_callback=lambda t, f: stamps.append(time.perf_counter())
-        )
-        end.record()
-        end.synchronize()
-        return out, (1e3 * (stamps[-1] - stamps[0]) / steps, stamps[0] - t_call,
-                     start.elapsed_time(end))
-
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    (times, frames, mass, clim, ef, _), first = timed_run()
-    counts = read_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  launches {counts} (expected {expect})")
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
-    mask = kw["mask"]
-    for f in frames:
-        if not (np.all(np.isfinite(f[mask])) and np.all(np.isnan(f[~mask]))):
-            raise AssertionError("frames must be finite inside the mask and NaN outside")
-    print(f"  stored times {times}")
-    print(f"  mass {mass}")
-    if not (len(times) == len(segments) + 1 and abs(times[-1] - total) < 1e-9):
-        raise AssertionError(f"unexpected stored times {times}")
-    if not (mass[1] > mass[0] and mass[2] > mass[0]):
-        raise AssertionError("mass must rise during the pulse")
-    runs = [first] + [timed_run()[1] for _ in range(2)]
-    for i, (st, su, wh) in enumerate(runs):
-        print(f"  run {i + 1}: steady state {st:.3f} ms/step (host clock, first to last stored "
-              f"frame, {steps} steps); set-up {su:.3f} s (call to first stored frame); whole "
-              f"call {wh / steps:.3f} ms/step (CUDA events)")
-    med = sorted(r[0] for r in runs)[1]
-    print(f"  end to end: steady state median {med:.3f} ms/step over {len(runs)} runs "
-          f"(range {min(r[0] for r in runs):.3f}–{max(r[0] for r in runs):.3f}); "
-          f"peak device memory {peak_gib:.2f} GiB — {card}", flush=True)
+    counts = run_coupled_timed("uniform gap", kw, "collision_step", card)
 
     # each kernel against its plain version at the main path's shapes, then their times
-    from qpsim_tpu_torch.ops.collisions_cuda import collision_step, collision_step_plain
-
-    plan, tables, q, ph, gen = collision_setup(16, 1024, F32)
-    ref = collision_step_plain(plan, q, ph, dt, gen)
-    got = collision_step(plan, tables, q, ph, dt, gen)
-    torch.cuda.synchronize()
-    tol = TOL[("collision_step", F32)]
-    check("collision_step NE=16 1024² float32 gen=True phonons=True, q", scaled_err(got[0], ref[0]), tol)
-    check("collision_step NE=16 1024² float32 gen=True phonons=True, ph", scaled_err(got[1], ref[1]), tol)
-    rows = []
-    k3 = dict(
-        name="collision_step", route="cuda", source="qpsim_tpu_torch/csrc/collisions.cu",
-        replaces="qpsim_tpu/ops/pallas_collisions.py:169",
-        launches=counts["collision_step"],
-        max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
-        ms=time_ms(lambda: collision_step(plan, tables, q, ph, dt, gen), 20),
-        plain_ms=time_ms(lambda: collision_step_plain(plan, q, ph, dt, gen), 3),
-    )
-    rows.append(k3)
+    rows = [collision_row("uniform", 169, counts["collision_step"], dt)]
     planes, u = adi_planes(rectangle(1024), F32)
     alpha = 0.5 * dt
     ux_ref = adi_cuda.adi_x_half_plain(u, planes, alpha)
@@ -445,11 +588,45 @@ def phase_main_path(card: str) -> list[dict]:
             max_abs_err=err,
             ms=time_ms(lambda: kern(u, planes, alpha), 20),
             plain_ms=time_ms(lambda: plain(u, planes, alpha), 3),
+            **bound(*adi_work(u, planes), F32), library_ms=None,
         ))
-    for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"max abs err {r['max_abs_err']:.3e} (1024² × 16, float32) — {card}")
-    sys.stdout.flush()
+    print_rows(rows, "1024² × 16, one plane", card)
+    return rows
+
+
+def phase_gap_maps(card: str) -> list[dict]:
+    print("== 4b gap maps: 1024² × 16 bins, 100 steps, float32, merged stepping", flush=True)
+    from qpsim_tpu_torch.ops import adi_cuda
+
+    dt = 0.05
+    counts = {}
+    for map_name, collision in (("trap", "collision_step_gid"), ("gradient", "collision_step_analytic")):
+        kw = dict(main_path_kwargs(1024), dt=dt, total_time=5.0, store_every=25,
+                  gap_expression=GAP_MAPS[map_name])
+        counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card)
+
+    rows = [collision_row("gid", 169, counts["trap"]["collision_step_gid"], dt),
+            collision_row("analytic", 429, counts["gradient"]["collision_step_analytic"], dt)]
+    # K2 on NB = 16 per-pixel planes (a gap map's D(E, x)) at the same shapes;
+    # its launches are the trap map's
+    planes, u = adi_planes(rectangle(1024), F32, per_pixel=True)
+    alpha = 0.5 * dt
+    for name, line, kern, plain in (
+        ("adi_x_half", 225, adi_cuda.adi_x_half, adi_cuda.adi_x_half_plain),
+        ("adi_y_half", 275, adi_cuda.adi_y_half, adi_cuda.adi_y_half_plain),
+    ):
+        got, ref = kern(u, planes, alpha), plain(u, planes, alpha)
+        torch.cuda.synchronize()
+        check(f"{name} rectangle 1024²×16 nbp=16 float32", scaled_err(got, ref), TOL[("adi", F32)])
+        rows.append(dict(
+            name=f"{name}_nb_planes", route="cuda", source="qpsim_tpu_torch/csrc/adi.cu",
+            replaces=f"qpsim_tpu/ops/pallas_adi.py:{line}", launches=counts["trap"][name],
+            max_abs_err=abs_err(got, ref),
+            ms=time_ms(lambda: kern(u, planes, alpha), 20),
+            plain_ms=time_ms(lambda: plain(u, planes, alpha), 3),
+            **bound(*adi_work(u, planes), F32), library_ms=None,
+        ))
+    print_rows(rows, "1024² × 16", card)
     return rows
 
 
@@ -457,23 +634,22 @@ def phase_end_to_end_f64() -> None:
     print("== 5 end to end, float64, 128² × 16 bins, 20 steps: kernels against plain", flush=True)
     import qpsim_tpu_torch
 
-    kw = dict(main_path_kwargs(128), dt=0.05, total_time=1.0,
-              store_every=5, dtype=F64)
-    a = qpsim_tpu_torch.run_2d_crank_nicolson(**kw)
-    b = qpsim_tpu_torch.run_2d_crank_nicolson(
-        **kw, collision_backend="plain", diffusion_backend="adi"
-    )
-    if a[0] != b[0]:
-        raise AssertionError("stored times differ")
-    np.testing.assert_allclose(a[2], b[2], rtol=1e-12, atol=0)
-    for fa, fb in zip(a[1], b[1]):
-        np.testing.assert_allclose(np.nan_to_num(fa), np.nan_to_num(fb), rtol=1e-10, atol=0)
-    frame_err = max(
-        float(np.nanmax(np.abs(fa - fb)) / np.nanmax(np.abs(fb))) for fa, fb in zip(a[1], b[1])
-    )
-    mass_err = float(np.max(np.abs(np.subtract(a[2], b[2])) / np.abs(b[2])))
-    print(f"  frames max rel err {frame_err:.3e} (rtol 1e-10), mass max rel err "
-          f"{mass_err:.3e} (rtol 1e-12) ok", flush=True)
+    run = qpsim_tpu_torch.run_2d_crank_nicolson
+    kw = dict(main_path_kwargs(128), dt=0.05, total_time=1.0, store_every=5, dtype=F64)
+    reset_counts()
+    a = run(**kw)
+    check_counts("uniform gap", read_counts(), {"collision_step": 24, "adi_x_half": 20})
+    assert_runs_close("uniform gap: kernels vs plain", a,
+                      run(**kw, collision_backend="plain", diffusion_backend="adi"), 1e-10, 1e-12)
+    # gap maps: the plain path of the same form is the CPU run (gap-id tables,
+    # or the analytic plain version for the gradient's continuous map)
+    for map_name, collision in (("trap", "collision_step_gid"), ("gradient", "collision_step_analytic")):
+        kw_map = dict(kw, gap_expression=GAP_MAPS[map_name])
+        reset_counts()
+        a = run(**kw_map)
+        check_counts(f"{map_name} map", read_counts(), {collision: 24, "collision_step": 0, "adi_x_half": 20})
+        assert_runs_close(f"{map_name} map: kernels vs plain", a,
+                          run(**kw_map, device="cpu", diffusion_backend="adi"), 1e-10, 1e-12)
 
 
 def scalar_kwargs(geometry, *, dt, steps, store_every, seed=0, **extra):
@@ -530,11 +706,11 @@ def phase_scalar_path(card: str) -> list[dict]:
     # reflective faces: mass moves only by float32 roundoff, at most one
     # unit of float32 rounding per step
     drift = max(abs(m - mass[0]) for m in mass) / mass[0]
-    bound = steps * float(np.finfo(np.float32).eps)
+    drift_bound = steps * float(np.finfo(np.float32).eps)
     print(f"  stored times {times}; mass {mass}; max relative mass drift {drift:.3e} "
-          f"(bound {bound:.1e})", flush=True)
-    if drift > bound:
-        raise AssertionError(f"mass drift {drift:.3e} > {bound:.1e}")
+          f"(bound {drift_bound:.1e})", flush=True)
+    if drift > drift_bound:
+        raise AssertionError(f"mass drift {drift:.3e} > {drift_bound:.1e}")
     runs = [first] + [timed_run()[1] for _ in range(2)]
     cells = n * n
     for i, (st, su) in enumerate(runs):
@@ -566,13 +742,11 @@ def phase_scalar_path(card: str) -> list[dict]:
             replaces=f"qpsim_tpu/ops/pallas_adi_sep.py:{line}", launches=sep_launches[name],
             max_abs_err=err, ms=time_ms(lambda: kern(u, f), 200),
             plain_ms=time_ms(lambda: plain(u, f), 5),
+            **bound(*adi_sep_work(u, f, name[-1]), F32), library_ms=None,
         ))
         print(f"  {name} at 1024²×16 float32: kernel {time_ms(lambda: kern(u16, f16), 50):.4f} ms, "
               f"plain {time_ms(lambda: plain(u16, f16), 3):.3f} ms — {card}")
-    for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, max abs err "
-              f"{r['max_abs_err']:.3e} (1024²×1, float32) — {card}")
-    sys.stdout.flush()
+    print_rows(rows, "1024²×1", card)
     return rows
 
 
@@ -672,9 +846,9 @@ def phase_other_diffusion_paths(card: str) -> dict:
         replaces="qpsim_tpu/ops/pallas_tridiag.py:35", launches=thomas_launches,
         max_abs_err=abs_err(got, ref), ms=time_ms(lambda: k10.thomas(*system), 20),
         plain_ms=time_ms(lambda: k10.thomas_plain(*system), 3),
+        **bound(*thomas_work(system), F32), library_ms=None,
     )
-    print(f"  thomas: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, max abs err "
-          f"{row['max_abs_err']:.3e} (16384 lines × 1024, float32) — {card}", flush=True)
+    print_rows([row], "16384 lines × 1024", card)
     return row
 
 
@@ -683,6 +857,7 @@ def main() -> int:
     phase_build()
     phase_kernels_vs_plain()
     rows = phase_main_path(card)
+    rows += phase_gap_maps(card)
     phase_end_to_end_f64()
     rows += phase_scalar_path(card)
     rows.append(phase_other_diffusion_paths(card))

@@ -11,13 +11,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.collisions import DEFAULT_PIXEL_CHUNK, CollisionPlan, build_collision_plan_arrays
+from .ops.collisions import (
+    DEFAULT_PIXEL_CHUNK,
+    AnalyticTables,
+    CollisionPlan,
+    build_analytic_plan,
+    build_collision_plan_arrays,
+)
 from .ops.diffusion import SplitOperator
 from .ops.phonon_map import PhononFrequencyMap, _one_hot
 
 __all__ = [
     "split_operator_from_numpy",
     "collision_tables_from_numpy",
+    "analytic_tables_from_numpy",
     "state_to_torch",
     "state_to_numpy",
 ]
@@ -55,31 +62,77 @@ def collision_tables_from_numpy(
     device,
     dtype: torch.dtype,
     pixel_chunk: int = DEFAULT_PIXEL_CHUNK,
+    gap_id=None,
 ) -> CollisionPlan:
-    """A collision plan from ρ, K^s₀, K^r₀ and a ``PhononFrequencyMap``'s maps."""
-    omega_bins = np.array(omega_bins, dtype=np.float64)
-    idx_diff = np.array(idx_diff, dtype=np.int32)
-    idx_sum = np.array(idx_sum, dtype=np.int32)
-    pmap = PhononFrequencyMap(
-        omega_bins=omega_bins,
-        idx_diff=idx_diff,
-        idx_sum=idx_sum,
-        diff_sign=np.array(diff_sign, dtype=np.int8),
-        scatter_diff=_one_hot(idx_diff, omega_bins.size),
-        scatter_sum=_one_hot(idx_sum, omega_bins.size),
-    )
+    """A collision plan from ρ, K^s₀, K^r₀ and a ``PhononFrequencyMap``'s maps.
+
+    ``rho`` (NE,) with ``K_*`` (NE, NE) for one gap, or the per-gap stacks
+    (G, NE) and (G, NE, NE) with the dense (Ny, Nx) ``gap_id`` plane, as
+    the JAX package's ``build_collision_plan_arrays`` takes them.
+    """
     return build_collision_plan_arrays(
         dE=dE,
         rho=np.asarray(rho, dtype=np.float64),
         K_r0=None if K_r0 is None else np.asarray(K_r0, dtype=np.float64),
         K_s0=None if K_s0 is None else np.asarray(K_s0, dtype=np.float64),
-        pmap=pmap,
+        pmap=_pmap(omega_bins, idx_diff, idx_sum, diff_sign),
         enable_recombination=enable_recombination,
         enable_scattering=enable_scattering,
         update_phonons=update_phonons,
         device=device,
         dtype=dtype,
         pixel_chunk=pixel_chunk,
+        gap_id=None if gap_id is None else np.asarray(gap_id, dtype=np.int64),
+    )
+
+
+def analytic_tables_from_numpy(
+    *,
+    E_bins,
+    dE: float,
+    gap_plane,
+    omega_bins,
+    idx_diff,
+    idx_sum,
+    diff_sign,
+    tau_s: float | None,
+    tau_r: float | None,
+    T_c: float,
+    dynes_gamma: float,
+    update_phonons: bool,
+    device,
+    dtype: torch.dtype,
+    pixel_chunk: int = DEFAULT_PIXEL_CHUNK,
+) -> tuple[CollisionPlan, AnalyticTables]:
+    """The analytic-gap plan and tables from the arguments of the JAX package's
+    ``build_pallas_collision_step_analytic`` (``tau_s``/``tau_r`` None = channel off)."""
+    return build_analytic_plan(
+        E_bins=np.asarray(E_bins, dtype=np.float64),
+        dE=dE,
+        gap_plane=np.asarray(gap_plane, dtype=np.float64),
+        pmap=_pmap(omega_bins, idx_diff, idx_sum, diff_sign),
+        tau_s=tau_s,
+        tau_r=tau_r,
+        T_c=T_c,
+        dynes_gamma=dynes_gamma,
+        update_phonons=update_phonons,
+        device=device,
+        dtype=dtype,
+        pixel_chunk=pixel_chunk,
+    )
+
+
+def _pmap(omega_bins, idx_diff, idx_sum, diff_sign) -> PhononFrequencyMap:
+    omega_bins = np.array(omega_bins, dtype=np.float64)
+    idx_diff = np.array(idx_diff, dtype=np.int32)
+    idx_sum = np.array(idx_sum, dtype=np.int32)
+    return PhononFrequencyMap(
+        omega_bins=omega_bins,
+        idx_diff=idx_diff,
+        idx_sum=idx_sum,
+        diff_sign=np.array(diff_sign, dtype=np.int8),
+        scatter_diff=_one_hot(idx_diff, omega_bins.size),
+        scatter_sum=_one_hot(idx_sum, omega_bins.size),
     )
 
 

@@ -1,11 +1,19 @@
 """Coupled quasiparticle–phonon collision integrator (Fischer–Catelani local).
 
-The plain PyTorch version of the collision substep, carried over from
+The plain PyTorch versions of the collision substep, carried over from
 ``qpsim_tpu.ops.collisions`` (``build_collision_plan_arrays``,
-``make_collision_step``) for a uniform gap: the same batched einsums over
-pixels, the same one-hot ω-scatter matmuls and the same exponential
-updates.  It is the CPU path and the plain version the CUDA kernel
-(``ops.collisions_cuda``, ``csrc/collisions.cu``) is held against.
+``make_collision_step``): the same batched einsums over pixels, the same
+one-hot ω-scatter matmuls and the same exponential updates.  They are the
+CPU path and the plain versions the CUDA kernels (``ops.collisions_cuda``,
+``csrc/collisions.cu``) are held against:
+
+* :func:`collision_step_plain` — tables per unique gap (G, NE[, NE]),
+  gathered per pixel by a dense gap-id plane (K3's plain version; G = 1 is
+  a uniform film);
+* :func:`collision_step_analytic_plain` — continuous gap maps: K^s₀ and
+  K^r₀ affine in Δ²(px) and the Dynes ρ in closed form of Δ², from four
+  (NE, NE) tables and a Δ² plane (K4's plain version; the JAX package's
+  ``pallas_collisions._make_analytic_kernel``), with no bound on G.
 
 Physics summary (per pixel, per collision substep of length dt):
 
@@ -29,7 +37,7 @@ K^s_eff dresses the base kernel with the *local, dynamic* phonon occupation:
 Pixels are processed in chunks of ``pixel_chunk`` so the (C, NE, NE) pair
 temporaries stay bounded on 1024² grids.  An optional (Ny, Nx) generation
 plane dt·g is added to every bin before the substep (the forward-Euler
-injection the CUDA kernel fuses).
+injection the CUDA kernels fuse).
 """
 
 from __future__ import annotations
@@ -39,12 +47,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .kernels import recombination_kernel_base, scattering_kernel_base
 from .phonon_map import PhononFrequencyMap
 
 __all__ = [
     "DEFAULT_PIXEL_CHUNK",
+    "AnalyticTables",
     "CollisionPlan",
+    "build_analytic_plan",
     "build_collision_plan_arrays",
+    "collision_step_analytic_plain",
     "collision_step_plain",
 ]
 
@@ -58,17 +70,22 @@ _RHO_FLOOR = 1e-30
 
 @dataclass
 class CollisionPlan:
-    """Device tables of the collision substep for one uniform gap.
+    """Device tables of the collision substep.
 
-    The host maps (``*_np``) feed the CUDA kernel's pair tables
-    (``ops.collisions_cuda.build_kernel_tables``); the rest feeds the plain
-    einsum version.
+    ``rho``/``K_r0``/``K_s0`` hold one table per unique gap (G of them;
+    G == 1 for a uniform film) and ``gap_id`` each dense pixel's index into
+    them (None when G == 1).  An analytic plan (:func:`build_analytic_plan`)
+    carries no per-gap tables at all: its constants come from
+    :class:`AnalyticTables`.  The host maps (``*_np``) feed the CUDA
+    kernels' pair tables (``ops.collisions_cuda``); the rest feeds the
+    plain einsum versions.
     """
 
     dE: float
-    rho: torch.Tensor  # (NE,)
-    K_r0: torch.Tensor | None  # (NE, NE)
-    K_s0: torch.Tensor | None  # (NE, NE)
+    rho: torch.Tensor | None  # (G, NE)
+    K_r0: torch.Tensor | None  # (G, NE, NE)
+    K_s0: torch.Tensor | None  # (G, NE, NE)
+    gap_id: torch.Tensor | None  # (Ny*Nx,) uint8 (G ≤ 256) or int32, None for G == 1
     idx_diff: torch.Tensor  # (NE*NE,) int64
     idx_sum: torch.Tensor  # (NE*NE,) int64
     emit_mask: torch.Tensor  # (NE, NE) 1.0 where E_i > E_j
@@ -81,7 +98,7 @@ class CollisionPlan:
     num_energy_bins: int
     num_omega: int
     pixel_chunk: int
-    # host copies, for the kernel's pair tables
+    # host copies, for the kernels' pair tables
     idx_diff_np: np.ndarray  # (NE, NE) int32
     idx_sum_np: np.ndarray  # (NE, NE) int32
     diff_sign_np: np.ndarray  # (NE, NE) int8
@@ -89,6 +106,28 @@ class CollisionPlan:
     @property
     def active(self) -> bool:
         return self.enable_scattering or self.enable_recombination
+
+    @property
+    def num_gaps(self) -> int:
+        return 0 if self.rho is None else int(self.rho.shape[0])
+
+
+def _pair_map_fields(pmap: PhononFrequencyMap, device, dtype: torch.dtype) -> dict:
+    """The plan's ω-map fields, shared by the gather and the analytic plans."""
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+    sign = np.asarray(pmap.diff_sign)
+    return dict(
+        idx_diff=torch.as_tensor(pmap.idx_diff.reshape(-1), dtype=torch.int64, device=device),
+        idx_sum=torch.as_tensor(pmap.idx_sum.reshape(-1), dtype=torch.int64, device=device),
+        emit_mask=as_dev(sign > 0),
+        absorb_mask=as_dev(sign < 0),
+        scatter_diff=as_dev(pmap.scatter_diff),
+        scatter_sum=as_dev(pmap.scatter_sum),
+        num_omega=pmap.num_omega,
+        idx_diff_np=np.asarray(pmap.idx_diff, dtype=np.int32),
+        idx_sum_np=np.asarray(pmap.idx_sum, dtype=np.int32),
+        diff_sign_np=sign.astype(np.int8),
+    )
 
 
 def build_collision_plan_arrays(
@@ -104,31 +143,134 @@ def build_collision_plan_arrays(
     device: torch.device | str,
     dtype: torch.dtype,
     pixel_chunk: int = DEFAULT_PIXEL_CHUNK,
+    gap_id: np.ndarray | None = None,
 ) -> CollisionPlan:
-    """Upload host-precomputed collision data (float64 numpy) as a plan."""
-    as_dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
-    sign = np.asarray(pmap.diff_sign)
+    """Upload host-precomputed collision data (float64 numpy) as a plan.
+
+    ``rho`` is (NE,) for one gap or (G, NE) per unique gap, ``K_r0``/``K_s0``
+    (NE, NE) or (G, NE, NE) to match.  ``gap_id`` is the dense (Ny, Nx)
+    plane of gap indices (0 on masked-out cells, whose state is zero); it
+    may be None when G == 1.  It is kept as uint8 while G ≤ 256, the
+    form K3 reads, so the card holds one copy of it.
+    """
+    by_gap = lambda a, nd: None if a is None else np.asarray(a, dtype=np.float64).reshape(
+        (-1,) + np.shape(a)[-nd:]
+    )
+    rho_g, kr_g, ks_g = by_gap(rho, 1), by_gap(K_r0, 2), by_gap(K_s0, 2)
+    n_gaps = rho_g.shape[0]
+    if gap_id is None and n_gaps != 1:
+        raise ValueError(f"{n_gaps} gap tables need a gap_id plane")
+    as_dev = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return CollisionPlan(
         dE=float(dE),
-        rho=as_dev(rho),
-        K_r0=None if K_r0 is None or not enable_recombination else as_dev(K_r0),
-        K_s0=None if K_s0 is None or not enable_scattering else as_dev(K_s0),
-        idx_diff=torch.as_tensor(pmap.idx_diff.reshape(-1), dtype=torch.int64, device=device),
-        idx_sum=torch.as_tensor(pmap.idx_sum.reshape(-1), dtype=torch.int64, device=device),
-        emit_mask=as_dev(sign > 0),
-        absorb_mask=as_dev(sign < 0),
-        scatter_diff=as_dev(pmap.scatter_diff),
-        scatter_sum=as_dev(pmap.scatter_sum),
+        rho=as_dev(rho_g),
+        K_r0=None if kr_g is None or not enable_recombination else as_dev(kr_g),
+        K_s0=None if ks_g is None or not enable_scattering else as_dev(ks_g),
+        gap_id=None if n_gaps == 1 else torch.as_tensor(
+            np.asarray(gap_id).reshape(-1),
+            dtype=torch.uint8 if n_gaps <= 256 else torch.int32, device=device,
+        ),
         enable_recombination=bool(enable_recombination and K_r0 is not None),
         enable_scattering=bool(enable_scattering and K_s0 is not None),
         update_phonons=bool(update_phonons),
-        num_energy_bins=int(np.asarray(rho).size),
-        num_omega=pmap.num_omega,
+        num_energy_bins=int(rho_g.shape[1]),
         pixel_chunk=int(pixel_chunk),
-        idx_diff_np=np.asarray(pmap.idx_diff, dtype=np.int32),
-        idx_sum_np=np.asarray(pmap.idx_sum, dtype=np.int32),
-        diff_sign_np=sign.astype(np.int8),
+        **_pair_map_fields(pmap, device, dtype),
     )
+
+
+@dataclass
+class AnalyticTables:
+    """Constants of the analytic-gap substep (K4), in the state dtype.
+
+    K^s₀ = a_s·max(1 − Δ²/(EᵢEⱼ), 0) and K^r₀ = a_r·(1 + Δ²/(EᵢEⱼ)) are
+    affine in Δ², so per pixel dE·K^s₀ = max(dEa_s − dEb_s·Δ², 0) and
+    2dE·K^r₀ = dEa2_r + dEb2_r·Δ²; the four tables are built in float64.
+    The Dynes ρ comes from ``e2`` = Eᵢ² − γ² and ``zi`` = −2Eᵢγ (rounded
+    once each, as the TPU kernel's constants are).
+    """
+
+    gamma: float
+    E: torch.Tensor  # (NE,)
+    inv_E: torch.Tensor  # (NE,)
+    e2: torch.Tensor  # (NE,) E² − γ²
+    zi: torch.Tensor  # (NE,) −2Eγ
+    dEa_s: torch.Tensor | None  # (NE, NE) dE·a_s, None when scattering is off
+    dEb_s: torch.Tensor | None  # (NE, NE) dE·a_s/(EᵢEⱼ)
+    dEa2_r: torch.Tensor | None  # (NE, NE) 2dE·a_r, None when recombination is off
+    dEb2_r: torch.Tensor | None  # (NE, NE) 2dE·a_r/(EᵢEⱼ)
+    g2: torch.Tensor  # (Ny*Nx,) Δ² per dense pixel
+
+
+def build_analytic_plan(
+    *,
+    E_bins: np.ndarray,
+    dE: float,
+    gap_plane: np.ndarray,
+    pmap: PhononFrequencyMap,
+    tau_s: float | None,
+    tau_r: float | None,
+    T_c: float,
+    dynes_gamma: float,
+    update_phonons: bool,
+    device: torch.device | str,
+    dtype: torch.dtype,
+    pixel_chunk: int = DEFAULT_PIXEL_CHUNK,
+) -> tuple[CollisionPlan, AnalyticTables]:
+    """The plan (ω maps, flags) and tables of the analytic-gap substep.
+
+    ``gap_plane`` is the dense (Ny, Nx) gap map in µeV (masked-out cells
+    may hold any finite value); ``tau_s``/``tau_r`` None turn a channel
+    off.  Tables as ``build_pallas_collision_step_analytic`` builds them.
+    """
+    e = np.asarray(E_bins, dtype=np.float64)
+    gamma = float(dynes_gamma)
+    prod = np.maximum(e[:, None] * e[None, :], 1e-30)
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+    tabs: dict = dict(dEa_s=None, dEb_s=None, dEa2_r=None, dEb2_r=None)
+    if tau_s is not None:
+        a_s = scattering_kernel_base(e, 0.0, float(tau_s), T_c)  # coherence ≡ 1
+        tabs.update(dEa_s=as_dev(dE * a_s), dEb_s=as_dev(dE * (a_s / prod)))
+    if tau_r is not None:
+        a_r = recombination_kernel_base(e, 0.0, float(tau_r), T_c)
+        tabs.update(dEa2_r=as_dev(2.0 * dE * a_r), dEb2_r=as_dev(2.0 * dE * (a_r / prod)))
+    tables = AnalyticTables(
+        gamma=gamma, E=as_dev(e), inv_E=as_dev(1.0 / e), e2=as_dev(e * e - gamma * gamma),
+        zi=as_dev(-2.0 * e * gamma),
+        g2=as_dev(np.asarray(gap_plane, dtype=np.float64).reshape(-1) ** 2), **tabs,
+    )
+    plan = CollisionPlan(
+        dE=float(dE), rho=None, K_r0=None, K_s0=None, gap_id=None,
+        enable_recombination=tau_r is not None, enable_scattering=tau_s is not None,
+        update_phonons=bool(update_phonons), num_energy_bins=int(e.size),
+        pixel_chunk=int(pixel_chunk), **_pair_map_fields(pmap, device, dtype),
+    )
+    return plan, tables
+
+
+def analytic_rho(tables: AnalyticTables, g2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ρ, 1/ρ) of shape (C, NE) from a (C,) Δ² chunk, in closed form.
+
+    Dynes: ρ = max(Re((E−iγ)/√((E−iγ)² − Δ²)), 0); with z = (E² − γ² − Δ²)
+    − 2iEγ the principal root is s + i·t, s = √((|z| + Re z)/2),
+    t = −√((|z| − Re z)/2).  1/ρ is 0 where ρ vanishes.
+    """
+    g2 = g2[:, None]
+    if tables.gamma == 0.0:
+        r2 = tables.e2 - g2
+        t = torch.rsqrt(torch.clamp(r2, min=_RHO_FLOOR))
+        pos = r2 > 0.0
+        rho = torch.where(pos, tables.E * t, 0.0)
+        inv = torch.where(pos, (r2 * t) * tables.inv_E, 0.0)
+        return rho, inv
+    zr = tables.e2 - g2
+    zi = tables.zi
+    r = torch.sqrt(zr * zr + zi * zi)
+    s = torch.sqrt(torch.clamp(0.5 * (r + zr), min=0.0))
+    tq = -torch.sqrt(torch.clamp(0.5 * (r - zr), min=0.0))
+    rho = torch.clamp((tables.E * s - tables.gamma * tq) / torch.clamp(r, min=_RHO_FLOOR), min=0.0)
+    inv = torch.where(rho > _RHO_FLOOR, 1.0 / torch.clamp(rho, min=_RHO_FLOOR), 0.0)
+    return rho, inv
 
 
 def _relaxation_update(n, gain, loss_rate, dt: float):
@@ -155,14 +297,12 @@ def _affine_growth_update(y, a_term, b_term, dt: float):
     return torch.clamp(torch.exp(x) * y + coeff * a_term, min=0.0)
 
 
-def _chunk_update(plan: CollisionPlan, q, ph, dt: float):
-    """One substep for a (C, NE) / (C, NW) block of pixels."""
-    ne = plan.num_energy_bins
-    dE = plan.dE
-    rho = plan.rho[None, :]
-    f = q / torch.clamp(rho, min=_RHO_FLOOR)
-    partner = rho * torch.clamp(1.0 - f, min=0.0)  # ρ(1−f): pair-breaking target density
+def _pair_update(plan: CollisionPlan, q, ph, partner, ks, kr2, dt: float):
+    """The substep of a (C, NE) / (C, NW) block from its per-pixel constants.
 
+    ``ks`` is dE·K^s₀ and ``kr2`` 2dE·K^r₀, each (C or 1, NE, NE) or None.
+    """
+    ne = plan.num_energy_bins
     # the accumulators are updated in place: no new (C, NE)/(C, NW) buffer
     # per term
     gain = torch.zeros_like(q)
@@ -170,30 +310,27 @@ def _chunk_update(plan: CollisionPlan, q, ph, dt: float):
     a_ph = torch.zeros_like(ph)
     b_ph = torch.zeros_like(ph)
 
-    if plan.enable_scattering:
-        K_s0 = plan.K_s0[None]
+    if ks is not None:
         n_diff = ph[:, plan.idx_diff].reshape(-1, ne, ne)
         np_diff = plan.emit_mask * (1.0 + n_diff) + plan.absorb_mask * n_diff
-        Ks_eff = K_s0 * np_diff  # (C, NE, NE)
-        gain += dE * partner * torch.einsum("cji,cj->ci", Ks_eff, q)
-        loss += dE * torch.einsum("cij,cj->ci", Ks_eff, partner)
+        Ks_eff = ks * np_diff  # (C, NE, NE)
+        gain += partner * torch.einsum("cji,cj->ci", Ks_eff, q)
+        loss += torch.einsum("cij,cj->ci", Ks_eff, partner)
         if plan.update_phonons:
-            base_sc = dE * (q[:, :, None] * K_s0 * partner[:, None, :])
+            base_sc = q[:, :, None] * ks * partner[:, None, :]
             emit = (base_sc * plan.emit_mask).reshape(-1, ne * ne) @ plan.scatter_diff
             absorb = (base_sc * plan.absorb_mask).reshape(-1, ne * ne) @ plan.scatter_diff
             a_ph += emit
             b_ph += emit - absorb
 
-    if plan.enable_recombination:
-        K_r0 = plan.K_r0[None]
+    if kr2 is not None:
         n_sum = ph[:, plan.idx_sum].reshape(-1, ne, ne)
-        loss += 2.0 * dE * torch.einsum("cij,cj->ci", K_r0 * (1.0 + n_sum), q)
-        gain += 2.0 * dE * partner * torch.einsum("cij,cj->ci", K_r0 * n_sum, partner)
+        loss += torch.einsum("cij,cj->ci", kr2 * (1.0 + n_sum), q)
+        gain += partner * torch.einsum("cij,cj->ci", kr2 * n_sum, partner)
         if plan.update_phonons:
-            base_rec = dE * (q[:, :, None] * K_r0 * q[:, None, :])
-            rec = base_rec.reshape(-1, ne * ne) @ plan.scatter_sum
-            base_pb = dE * (partner[:, :, None] * K_r0 * partner[:, None, :])
-            pb = base_pb.reshape(-1, ne * ne) @ plan.scatter_sum
+            kr = 0.5 * kr2  # dE·K^r₀
+            rec = (q[:, :, None] * kr * q[:, None, :]).reshape(-1, ne * ne) @ plan.scatter_sum
+            pb = (partner[:, :, None] * kr * partner[:, None, :]).reshape(-1, ne * ne) @ plan.scatter_sum
             a_ph += rec
             b_ph += rec - pb
 
@@ -202,18 +339,37 @@ def _chunk_update(plan: CollisionPlan, q, ph, dt: float):
     return q_new, ph_new
 
 
-def collision_step_plain(
-    plan: CollisionPlan,
-    n_qp: torch.Tensor,
-    n_ph: torch.Tensor,
-    dt: float,
-    gen: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One collision substep: (NE, Ny, Nx), (NW, Ny, Nx) → new states.
+def _chunk_update(plan: CollisionPlan, q, ph, gid, dt: float):
+    """One substep of a block of pixels with per-gap tables (``gid`` (C,) or None)."""
+    if gid is None:  # one gap: the tables broadcast over the block
+        rho, K_s0, K_r0 = plan.rho, plan.K_s0, plan.K_r0
+    else:
+        rho = plan.rho[gid]
+        K_s0 = None if plan.K_s0 is None else plan.K_s0[gid]
+        K_r0 = None if plan.K_r0 is None else plan.K_r0[gid]
+    f = q / torch.clamp(rho, min=_RHO_FLOOR)
+    partner = rho * torch.clamp(1.0 - f, min=0.0)  # ρ(1−f): pair-breaking target density
+    dE = plan.dE
+    ks = None if not plan.enable_scattering else dE * K_s0
+    kr2 = None if not plan.enable_recombination else 2.0 * dE * K_r0
+    return _pair_update(plan, q, ph, partner, ks, kr2, dt)
 
-    ``gen`` is an optional (Ny, Nx) plane of forward-Euler increments dt·g
-    added to every bin first.  Inputs are not modified.
-    """
+
+def _analytic_chunk_update(plan: CollisionPlan, tables: AnalyticTables, q, ph, g2, dt: float):
+    """One substep of a block of pixels from their Δ² (``g2`` (C,))."""
+    rho, inv = analytic_rho(tables, g2)
+    partner = rho * torch.clamp(1.0 - q * inv, min=0.0)
+    g2c = g2[:, None, None]
+    ks = (
+        torch.clamp(tables.dEa_s - tables.dEb_s * g2c, min=0.0)
+        if plan.enable_scattering else None
+    )
+    kr2 = tables.dEa2_r + tables.dEb2_r * g2c if plan.enable_recombination else None
+    return _pair_update(plan, q, ph, partner, ks, kr2, dt)
+
+
+def _chunked(plan: CollisionPlan, n_qp, n_ph, gen, update):
+    """Run ``update(q, ph, lo, hi)`` over pixel chunks of (NE, Ny, Nx) / (NW, Ny, Nx) states."""
     if gen is not None:
         n_qp = n_qp + gen[None]
     if not plan.active:
@@ -225,10 +381,56 @@ def collision_step_plain(
     ph = n_ph.reshape(nw, p_live).T
     q_out = torch.empty((p_live, ne), dtype=n_qp.dtype, device=n_qp.device)
     ph_out = torch.empty((p_live, nw), dtype=n_ph.dtype, device=n_ph.device)
-    dt = float(dt)
     for lo in range(0, p_live, plan.pixel_chunk):
         hi = min(lo + plan.pixel_chunk, p_live)
-        q_out[lo:hi], ph_out[lo:hi] = _chunk_update(plan, q[lo:hi], ph[lo:hi], dt)
+        q_out[lo:hi], ph_out[lo:hi] = update(q[lo:hi], ph[lo:hi], lo, hi)
     if not plan.update_phonons:
         return q_out.T.reshape(ne, ny, nx), n_ph
     return q_out.T.reshape(ne, ny, nx), ph_out.T.reshape(nw, ny, nx)
+
+
+def _check_pixels(name: str, table: torch.Tensor | None, n_qp: torch.Tensor) -> None:
+    if table is not None and table.numel() != n_qp.shape[1] * n_qp.shape[2]:
+        raise ValueError(f"{name} holds {table.numel()} pixels, the state {tuple(n_qp.shape[1:])}")
+
+
+def collision_step_plain(
+    plan: CollisionPlan,
+    n_qp: torch.Tensor,
+    n_ph: torch.Tensor,
+    dt: float,
+    gen: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One collision substep: (NE, Ny, Nx), (NW, Ny, Nx) → new states.
+
+    Each pixel takes its gap's tables (``plan.gap_id``).  ``gen`` is an
+    optional (Ny, Nx) plane of forward-Euler increments dt·g added to every
+    bin first.  Inputs are not modified.
+    """
+    if plan.rho is None:
+        raise ValueError("an analytic plan runs collision_step_analytic_plain")
+    _check_pixels("gap_id", plan.gap_id, n_qp)
+    gid = plan.gap_id
+    dt = float(dt)
+    return _chunked(
+        plan, n_qp, n_ph, gen,
+        # .long(): a uint8 index tensor would act as a boolean mask
+        lambda q, ph, lo, hi: _chunk_update(plan, q, ph, None if gid is None else gid[lo:hi].long(), dt),
+    )
+
+
+def collision_step_analytic_plain(
+    plan: CollisionPlan,
+    tables: AnalyticTables,
+    n_qp: torch.Tensor,
+    n_ph: torch.Tensor,
+    dt: float,
+    gen: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The analytic-gap collision substep; same contract as :func:`collision_step_plain`."""
+    _check_pixels("g2", tables.g2, n_qp)
+    dt = float(dt)
+    return _chunked(
+        plan, n_qp, n_ph, gen,
+        lambda q, ph, lo, hi: _analytic_chunk_update(plan, tables, q, ph, tables.g2[lo:hi], dt),
+    )

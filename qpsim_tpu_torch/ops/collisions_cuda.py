@@ -1,17 +1,25 @@
-"""The collision substep on the card: wrapper of the CUDA kernel ``csrc/collisions.cu``.
+"""The collision substep on the card: wrappers of the CUDA kernels ``csrc/collisions.cu``.
 
-Port of ``qpsim_tpu.ops.pallas_collisions.build_pallas_collision_step``
-(kernel ``_make_kernel``) for a uniform gap.  :func:`collision_step` takes
-the same arguments as the plain version
-(:func:`qpsim_tpu_torch.ops.collisions.collision_step_plain`) plus the
-kernel's tables.  For tensors on the CPU it runs that plain version; for
-CUDA tensors it launches the kernel or raises — it never falls back.
+Port of ``qpsim_tpu.ops.pallas_collisions``:
 
-The kernel reads the physics from small device tables built once per plan
-(:func:`build_kernel_tables`): ρ, dE·K^s₀, 2dE·K^r₀, the per-pair ω maps
-``idx_diff``/``idx_sum``, sign(Eᵢ − Eⱼ), and for every ω row the list of
-pairs that land on it (``row_ptr``/``row_code``, CSR), so the phonon rates
-are gathered per row instead of scattered into a per-pixel array.
+* :func:`collision_step` — ``build_pallas_collision_step`` (kernel
+  ``_make_kernel``, K3), for a uniform gap and for piecewise gap maps of at
+  most :data:`MAX_GAP_IDS` unique gaps (per-pixel gap ids);
+* :func:`collision_step_analytic` — ``build_pallas_collision_step_analytic``
+  (kernel ``_make_analytic_kernel``, K4), for continuous gap maps.
+
+Each takes the arguments of its plain version
+(:func:`qpsim_tpu_torch.ops.collisions.collision_step_plain`,
+:func:`~qpsim_tpu_torch.ops.collisions.collision_step_analytic_plain`) plus
+the kernel's tables.  For tensors on the CPU it runs that plain version;
+for CUDA tensors it launches the kernel or raises — it never falls back.
+
+The kernels read the physics from small device tables built once per plan
+(:func:`build_kernel_tables`): ρ, dE·K^s₀, 2dE·K^r₀ per gap (K3 only), the
+per-pair ω maps ``idx_diff``/``idx_sum``, sign(Eᵢ − Eⱼ), and for every ω
+row the list of pairs that land on it (``row_ptr``/``row_code``, CSR), so
+the phonon rates are gathered per row instead of scattered into a
+per-pixel array.
 """
 
 from __future__ import annotations
@@ -22,23 +30,44 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import load_kernels
-from .collisions import CollisionPlan, collision_step_plain
+from .collisions import (
+    AnalyticTables,
+    CollisionPlan,
+    collision_step_analytic_plain,
+    collision_step_plain,
+)
 
 __all__ = [
     "LAUNCHES",
+    "MAX_GAP_IDS",
     "MAX_KERNEL_BINS",
     "CollisionKernelTables",
     "build_kernel_tables",
     "collision_step",
+    "collision_step_analytic",
+    "collision_step_analytic_plain",
     "collision_step_plain",
 ]
 
-#: launches of the collision kernel since import (or since the caller reset
-#: it), and how many of them took a generation plane
-LAUNCHES = {"collision_step": 0, "collision_step_with_gen": 0}
+#: launches of each collision kernel since import (or since the caller reset
+#: it), and how many of them took a generation plane: ``collision_step`` is
+#: K3 on a uniform gap, ``collision_step_gid`` K3 with per-pixel gap ids,
+#: ``collision_step_analytic`` K4
+LAUNCHES = {
+    "collision_step": 0,
+    "collision_step_with_gen": 0,
+    "collision_step_gid": 0,
+    "collision_step_gid_with_gen": 0,
+    "collision_step_analytic": 0,
+    "collision_step_analytic_with_gen": 0,
+}
 
-#: energy bins the kernel's per-thread arrays hold (kMaxBins in the source)
+#: energy bins the kernels' per-thread arrays hold (kMaxBins in the source)
 MAX_KERNEL_BINS = 64
+
+#: unique gaps K3's gap-id tables take (the JAX package's table-blend bound);
+#: more distinct gaps go to K4
+MAX_GAP_IDS = 8
 
 #: CSR code of a pair on its ω row: pair·4 + kind
 EMISSION, ABSORPTION, RECOMBINATION = 0, 1, 2
@@ -46,9 +75,9 @@ EMISSION, ABSORPTION, RECOMBINATION = 0, 1, 2
 
 @dataclass
 class CollisionKernelTables:
-    rho: torch.Tensor  # (NE,) state dtype
-    ks: torch.Tensor | None  # (NE*NE,) dE·K^s₀, None when scattering is off
-    kr: torch.Tensor | None  # (NE*NE,) 2dE·K^r₀, None when recombination is off
+    rho: torch.Tensor | None  # (G*NE,) state dtype; None on an analytic plan
+    ks: torch.Tensor | None  # (G*NE*NE,) dE·K^s₀, None when scattering is off (or analytic)
+    kr: torch.Tensor | None  # (G*NE*NE,) 2dE·K^r₀, None when recombination is off (or analytic)
     idx_diff: torch.Tensor  # (NE*NE,) int32
     idx_sum: torch.Tensor  # (NE*NE,) int32
     sign: torch.Tensor  # (NE*NE,) int8
@@ -83,16 +112,29 @@ def pair_rows(plan: CollisionPlan) -> tuple[np.ndarray, np.ndarray]:
 
 
 def build_kernel_tables(plan: CollisionPlan) -> CollisionKernelTables:
-    """The kernel's device tables for ``plan`` (on the plan's device and dtype)."""
-    dev, dtype = plan.rho.device, plan.rho.dtype
+    """The kernels' device tables for ``plan`` (on the plan's device and dtype).
+
+    On an analytic plan (no per-gap tables) only the pair tables are built;
+    :func:`collision_step_analytic` takes its constants from
+    :class:`~qpsim_tpu_torch.ops.collisions.AnalyticTables`.
+    """
+    dev = plan.emit_mask.device
     ints = lambda a, t=torch.int32: torch.as_tensor(np.ascontiguousarray(a).reshape(-1), dtype=t, device=dev)
+    flat = lambda t: t.reshape(-1).contiguous()
     row_ptr, row_code = pair_rows(plan)
+    gather = plan.rho is not None
+    if gather and plan.num_gaps > MAX_GAP_IDS:
+        raise ValueError(
+            f"{plan.num_gaps} unique gaps: the gap-id kernel takes at most {MAX_GAP_IDS} "
+            "(continuous gap maps run the analytic kernel)"
+        )
+    dtype = plan.emit_mask.dtype
     return CollisionKernelTables(
-        rho=plan.rho.contiguous(),
-        ks=(plan.K_s0.double() * plan.dE).to(dtype).reshape(-1).contiguous()
-        if plan.enable_scattering else None,
-        kr=(plan.K_r0.double() * (2.0 * plan.dE)).to(dtype).reshape(-1).contiguous()
-        if plan.enable_recombination else None,
+        rho=flat(plan.rho) if gather else None,
+        ks=flat((plan.K_s0.double() * plan.dE).to(dtype))
+        if gather and plan.enable_scattering else None,
+        kr=flat((plan.K_r0.double() * (2.0 * plan.dE)).to(dtype))
+        if gather and plan.enable_recombination else None,
         idx_diff=ints(plan.idx_diff_np),
         idx_sum=ints(plan.idx_sum_np),
         sign=ints(plan.diff_sign_np, torch.int8),
@@ -105,7 +147,7 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_inputs(plan, tables, n_qp, n_ph, gen) -> None:
+def _check_inputs(plan, n_qp, n_ph, gen, named_tables) -> None:
     if not plan.active:
         raise ValueError("collision kernel called with no collision channel enabled")
     if n_qp.dtype not in (torch.float32, torch.float64):
@@ -119,8 +161,7 @@ def _check_inputs(plan, tables, n_qp, n_ph, gen) -> None:
         raise ValueError(f"n_ph must be ({nw}, Ny, Nx), got {tuple(n_ph.shape)}")
     if gen is not None and tuple(gen.shape) != tuple(n_qp.shape[1:]):
         raise ValueError(f"gen must be (Ny, Nx), got {tuple(gen.shape)}")
-    for name, t in (("n_qp", n_qp), ("n_ph", n_ph), ("gen", gen), ("rho", tables.rho),
-                    ("ks", tables.ks), ("kr", tables.kr)):
+    for name, t in (("n_qp", n_qp), ("n_ph", n_ph), ("gen", gen), *named_tables):
         if t is None:
             continue
         if t.device != n_qp.device:
@@ -131,6 +172,21 @@ def _check_inputs(plan, tables, n_qp, n_ph, gen) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _outputs(plan, n_qp, n_ph):
+    q_out = torch.empty_like(n_qp)
+    ph_out = torch.empty_like(n_ph) if plan.update_phonons else n_ph
+    return q_out, ph_out
+
+
+def _pair_ptrs(tables: CollisionKernelTables) -> list:
+    return [_ptr(t) for t in (tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr, tables.row_code)]
+
+
+def _count(name: str, gen) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_with_gen"] += gen is not None
+
+
 def collision_step(
     plan: CollisionPlan,
     tables: CollisionKernelTables,
@@ -139,33 +195,86 @@ def collision_step(
     dt: float,
     gen: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One collision substep through the CUDA kernel (plain version on the CPU).
+    """One collision substep through K3 (plain version on the CPU).
 
     Same contract as :func:`collision_step_plain`: (NE, Ny, Nx) and
     (NW, Ny, Nx) states in, new states out (inputs untouched), ``gen`` an
-    optional (Ny, Nx) plane of dt·g added to every bin first.
+    optional (Ny, Nx) plane of dt·g added to every bin first.  A plan with
+    per-pixel gap ids launches the gap-id form (``collision_step_gid``),
+    which reads the plan's uint8 ``gap_id`` plane.
     """
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
     if n_qp.device.type != "cuda":
         raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
-    _check_inputs(plan, tables, n_qp, n_ph, gen)
-    lib = load_kernels()
-    fn = lib.qp_collision_step_f32 if n_qp.dtype == torch.float32 else lib.qp_collision_step_f64
-    q_out = torch.empty_like(n_qp)
-    ph_out = torch.empty_like(n_ph) if plan.update_phonons else n_ph
+    if tables.rho is None:
+        raise ValueError("an analytic plan runs collision_step_analytic")
+    _check_inputs(plan, n_qp, n_ph, gen,
+                  (("rho", tables.rho), ("ks", tables.ks), ("kr", tables.kr)))
     n_pix = n_qp.shape[1] * n_qp.shape[2]
+    gid = plan.gap_id
+    if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
+                            or gid.dtype != torch.uint8 or not gid.is_contiguous()):
+        raise ValueError(f"gap ids must be {n_pix} contiguous uint8 entries on {n_qp.device}")
+    lib = load_kernels()
+    suffix = "f32" if n_qp.dtype == torch.float32 else "f64"
+    q_out, ph_out = _outputs(plan, n_qp, n_ph)
+    head = [_ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
+            _ptr(ph_out) if plan.update_phonons else None]
+    tail = [_ptr(tables.rho), _ptr(tables.ks), _ptr(tables.kr), *_pair_ptrs(tables),
+            plan.num_energy_bins, plan.num_omega, n_pix, float(dt),
+            int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream]
+    if gid is None:
+        name, err = "collision_step", getattr(lib, f"qp_collision_step_{suffix}")(*head, *tail)
+    else:
+        name = "collision_step_gid"
+        err = getattr(lib, f"qp_collision_step_gid_{suffix}")(*head, _ptr(gid), *tail)
+    if err != 0:
+        raise RuntimeError(f"collision kernel launch failed with CUDA error {err}")
+    _count(name, gen)
+    return q_out, ph_out
+
+
+def collision_step_analytic(
+    plan: CollisionPlan,
+    analytic: AnalyticTables,
+    tables: CollisionKernelTables,
+    n_qp: torch.Tensor,
+    n_ph: torch.Tensor,
+    dt: float,
+    gen: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One analytic-gap collision substep through K4 (plain version on the CPU).
+
+    Same contract as :func:`collision_step_analytic_plain`; ``tables`` are
+    the plan's pair tables (:func:`build_kernel_tables`).
+    """
+    if n_qp.device.type == "cpu":
+        return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
+    if n_qp.device.type != "cuda":
+        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
+    a = analytic
+    _check_inputs(plan, n_qp, n_ph, gen, (
+        ("g2", a.g2), ("E", a.E), ("inv_E", a.inv_E), ("e2", a.e2), ("zi", a.zi),
+        ("dEa_s", a.dEa_s), ("dEb_s", a.dEb_s), ("dEa2_r", a.dEa2_r), ("dEb2_r", a.dEb2_r)))
+    n_pix = n_qp.shape[1] * n_qp.shape[2]
+    if a.g2.numel() != n_pix:
+        raise ValueError(f"the Δ² plane holds {a.g2.numel()} pixels, the state {n_pix}")
+    lib = load_kernels()
+    fn = getattr(lib, f"qp_collision_step_analytic_{'f32' if n_qp.dtype == torch.float32 else 'f64'}")
+    q_out, ph_out = _outputs(plan, n_qp, n_ph)
+    scat, rec = plan.enable_scattering, plan.enable_recombination
     err = fn(
         _ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
         _ptr(ph_out) if plan.update_phonons else None,
-        _ptr(tables.rho), _ptr(tables.ks), _ptr(tables.kr),
-        _ptr(tables.idx_diff), _ptr(tables.idx_sum), _ptr(tables.sign),
-        _ptr(tables.row_ptr), _ptr(tables.row_code),
-        plan.num_energy_bins, plan.num_omega, n_pix, float(dt),
+        _ptr(a.g2), _ptr(a.E), _ptr(a.inv_E), _ptr(a.e2), _ptr(a.zi),
+        _ptr(a.dEa_s) if scat else None, _ptr(a.dEb_s) if scat else None,
+        _ptr(a.dEa2_r) if rec else None, _ptr(a.dEb2_r) if rec else None,
+        *_pair_ptrs(tables),
+        plan.num_energy_bins, plan.num_omega, n_pix, float(dt), float(a.gamma),
         int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"collision kernel launch failed with CUDA error {err}")
-    LAUNCHES["collision_step"] += 1
-    LAUNCHES["collision_step_with_gen"] += gen is not None
+        raise RuntimeError(f"analytic collision kernel launch failed with CUDA error {err}")
+    _count("collision_step_analytic", gen)
     return q_out, ph_out

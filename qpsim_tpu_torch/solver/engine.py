@@ -12,7 +12,9 @@ It runs both branches:
 * energy-resolved (``energy_gap > 0``): dense (NE, Ny, Nx) quasiparticle
   and (NW, Ny, Nx) phonon states, each step C(dt/2) D(dt) C(dt/2) (merged
   across a stored segment by default), with the collision substep and the
-  ADI step on hand-written CUDA kernels on the card;
+  ADI step on hand-written CUDA kernels on the card; a spatially varying
+  gap (``gap_expression`` or a ``precomputed`` payload) gives per-pixel
+  D(E, x) and per-pixel collision constants;
 * scalar (``energy_gap <= 0``): one (1, Ny, Nx) CN field, no collisions,
   and a fixed-temperature phonon scaffold; on the card a full rectangle
   diffuses through the separable ADI kernel, any other film through the
@@ -149,8 +151,6 @@ def run_2d_crank_nicolson(
     if photon_drive is not None and photon_drive_specs(photon_drive) and energy_gap <= 0.0:
         raise ValueError("photon_drive needs the energy-resolved mode (energy_gap > 0).")
     # features outside this slice of the port fail loudly
-    if str(gap_expression or "").strip() or precomputed is not None:
-        raise _deferred("Gap maps (gap_expression / precomputed)", "queue 1, 'Gap maps'")
     if photon_drive is not None and photon_drive_specs(photon_drive):
         raise _deferred("photon_drive", "queue 1, 'Photon drive'")
     if initial_condition_spec is not None:
@@ -185,7 +185,7 @@ def run_2d_crank_nicolson(
     if external_generation is not None:
         external_generation.validate()
 
-    full_steps, remainder_dt, _ = _split_time(total_time, dt)
+    full_steps, remainder_dt, total_steps = _split_time(total_time, dt)
     segments = _plan_segments(full_steps, remainder_dt, dt, store_every)
 
     if energy_gap <= 0.0:
@@ -216,6 +216,7 @@ def run_2d_crank_nicolson(
             dt=dt,
             dx=dx,
             segments=segments,
+            total_steps=total_steps,
             energy_gap=energy_gap,
             energy_min_factor=energy_min_factor,
             energy_max_factor=energy_max_factor,
@@ -231,6 +232,8 @@ def run_2d_crank_nicolson(
             T_c=T_c,
             bath_temperature=bath_temperature,
             external_generation=external_generation,
+            gap_expression=gap_expression,
+            precomputed=precomputed,
             pauli_warn_threshold=pauli_warn_threshold,
             pauli_error_threshold=pauli_error_threshold,
             enforce_pauli=enforce_pauli,

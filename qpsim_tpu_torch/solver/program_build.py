@@ -7,16 +7,23 @@ no retrace cost, so nothing is cached across runs).  Each step's Pauli
 statistics stay on the device as one small tensor; a segment returns them
 stacked, for the runner to move to the host once.
 
-Dispatch (mirrors ``program_build.py:120-161`` and
+Dispatch (mirrors ``program_build.py:67-231`` and
 ``diffusion_backends.py:604-618`` of the JAX package):
 
-* collisions — ``collision_backend='auto'`` runs the CUDA kernel wrapper,
-  which launches the kernel for CUDA tensors and runs the plain version
-  for CPU tensors; ``'kernel'`` does the same but raises on the CPU;
-  ``'plain'`` runs the plain PyTorch version everywhere.
+* gap maps — a non-uniform ``precomputed`` payload folds a per-pixel
+  D(E, x) into the diffusion operator and gives every pixel a gap id into
+  the sorted unique gaps (``np.unique`` order, 0 on masked-out cells); a
+  uniform one (or none) keeps ``gap`` in the collisions and the Pauli ρ.
+* collisions — ``collision_backend='auto'`` runs the CUDA kernel wrappers,
+  which launch their kernels for CUDA tensors and run the plain versions
+  for CPU tensors: K3 with per-gap tables for G ≤ 8 unique gaps (gap ids
+  when G > 1), K4 from the per-pixel Δ² for G > 8 (no per-gap stacks);
+  ``'kernel'`` does the same but raises on the CPU; ``'plain'`` runs the
+  plain per-gap gather version everywhere (the JAX package's ``'xla'``),
+  which refuses stacks above 4 GB.
 * diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
 * generation (constant, pulse) — the dt·g plane is fused into the
-  collision substep that opens each step, as the TPU kernel's
+  collision substep that opens each step, as the TPU kernels'
   ``gen_input`` does; every collision step here takes that plane.
 """
 
@@ -28,10 +35,24 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops.collisions import build_collision_plan_arrays, collision_step_plain
-from ..ops.collisions_cuda import MAX_KERNEL_BINS, build_kernel_tables, collision_step
+from ..ops.collisions import (
+    build_analytic_plan,
+    build_collision_plan_arrays,
+    collision_step_plain,
+)
+from ..ops.collisions_cuda import (
+    MAX_GAP_IDS,
+    MAX_KERNEL_BINS,
+    build_kernel_tables,
+    collision_step,
+    collision_step_analytic,
+)
 from ..ops.diffusion import build_directional_stencils, fold_diffusion
-from ..ops.dos import diffusion_coefficient_of_energy, dynes_density_of_states
+from ..ops.dos import (
+    diffusion_coefficient_of_energy,
+    dynes_density_of_states,
+    dynes_density_of_states_per_pixel,
+)
 from ..ops.generation import build_generation_program, numpy_dtype
 from ..ops.kernels import recombination_kernel_base, scattering_kernel_base
 from ..ops.phonon_map import PhononFrequencyMap, build_phonon_frequency_map
@@ -66,6 +87,8 @@ def build_engine_program(
     diffusion_coefficient,
     enable_diffusion,
     diffusion_backend,
+    precomputed,
+    nonuniform_gap,
     enable_recombination,
     enable_scattering,
     dynes_gamma,
@@ -80,6 +103,7 @@ def build_engine_program(
     strang_mode,
 ) -> EngineProgram:
     ny, nx = mask.shape
+    n_spatial = int(mask.sum())
     collisions_on = bool(enable_recombination or enable_scattering)
     if collision_backend not in ("auto", "kernel", "plain"):
         raise ValueError(
@@ -88,42 +112,99 @@ def build_engine_program(
     use_kernel = collisions_on and collision_backend != "plain"
     if use_kernel and collision_backend == "kernel" and device.type != "cuda":
         raise ValueError("collision_backend='kernel' needs a CUDA device")
+
+    # --- gap map ---------------------------------------------------------------
+    if nonuniform_gap:
+        gap_values = np.asarray(
+            precomputed.get("gap_values", np.full(n_spatial, gap)), dtype=np.float64
+        )
+    else:
+        gap_values = np.full(n_spatial, gap, dtype=np.float64)
+    unique_gaps = np.unique(gap_values)
+    gap_lookup = np.searchsorted(unique_gaps, gap_values)
+    gap_id = np.zeros((ny, nx), dtype=np.int32)
+    gap_id[mask] = gap_lookup.astype(np.int32)
+    # continuous gap maps (more gaps than the gap-id tables take): exact
+    # per-pixel constants from Δ² (K4), no per-gap stacks
+    analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
     if use_kernel and device.type == "cuda" and num_energy_bins > MAX_KERNEL_BINS:
         raise NotImplementedError(
-            f"{num_energy_bins} energy bins: the collision kernel holds at most "
-            f"{MAX_KERNEL_BINS}; the blocked kernel for more bins (K5) is not ported "
-            "yet (ROADMAP.md, queue 2, K5)."
+            f"{num_energy_bins} energy bins: the collision kernels hold at most "
+            f"{MAX_KERNEL_BINS}; the blocked kernels for more bins (K5, and K6 for "
+            "continuous gap maps) are not ported yet (ROADMAP.md, queue 2, K5/K6)."
         )
 
     # --- diffusion backend -------------------------------------------------
     backend = None
     if enable_diffusion:
+        if precomputed is not None:
+            D_array = np.asarray(precomputed["D_array"], dtype=np.float64)  # (NE, P)
         x_st, y_st = build_directional_stencils(mask, edges, edge_conditions, dx)
-        D_E = diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
-        op = fold_diffusion(x_st, y_st, mask, dx, D_E)
+        if nonuniform_gap:
+            D_dense = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
+            D_dense[:, mask] = D_array
+            op = fold_diffusion(x_st, y_st, mask, dx, D_dense)
+        elif precomputed is not None:
+            op = fold_diffusion(x_st, y_st, mask, dx, D_array[:, 0])
+        else:
+            op = fold_diffusion(
+                x_st, y_st, mask, dx, diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
+            )
         # a step composed with collisions keeps multi-bin operators on K2
         backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
 
     # --- collision data ------------------------------------------------------
     pmap = build_phonon_frequency_map(E_bins)
-    rho = dynes_density_of_states(E_bins, gap, dynes_gamma)
-    plan = build_collision_plan_arrays(
-        dE=dE,
-        rho=rho,
-        K_r0=recombination_kernel_base(E_bins, gap, tau_r_eff, T_c) if enable_recombination else None,
-        K_s0=scattering_kernel_base(E_bins, gap, tau_s_eff, T_c) if enable_scattering else None,
-        pmap=pmap,
-        enable_recombination=enable_recombination,
-        enable_scattering=enable_scattering,
-        update_phonons=not freeze_phonon_dynamics,
-        device=device,
-        dtype=dtype,
-        pixel_chunk=pixel_chunk,
-    )
+    plan = atab = None
+    if not collisions_on:  # only the Pauli ρ plane, vectorised over pixels
+        rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
+    elif analytic:
+        gap_plane = np.full((ny, nx), gap, dtype=np.float64)
+        gap_plane[mask] = gap_values
+        plan, atab = build_analytic_plan(
+            E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap,
+            tau_s=tau_s_eff if enable_scattering else None,
+            tau_r=tau_r_eff if enable_recombination else None,
+            T_c=T_c, dynes_gamma=dynes_gamma, update_phonons=not freeze_phonon_dynamics,
+            device=device, dtype=dtype, pixel_chunk=pixel_chunk,
+        )
+        rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
+    else:
+        # one (NE, NE) table per unique gap and channel: for continuous gap
+        # maps G ≈ Npix, so refuse with guidance instead of thrashing
+        n_channels = 1 + int(enable_recombination) + int(enable_scattering)
+        stack_bytes = int(unique_gaps.size) * num_energy_bins * num_energy_bins * 8 * n_channels
+        if stack_bytes > 4 << 30:
+            raise ValueError(
+                f"{unique_gaps.size} unique gap values x {num_energy_bins} "
+                f"bins needs ~{stack_bytes / 2**30:.0f} GB of per-gap kernel "
+                "tables on the plain collision path. Continuous gap maps "
+                "should use the analytic collision kernel instead: pass "
+                "collision_backend='auto' or 'kernel'."
+            )
+        rho_by_gap = np.stack(
+            [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
+        )
+        rho_per_pixel = rho_by_gap[gap_lookup].T
+        per_gap = lambda fn, tau: np.stack([fn(E_bins, float(g), tau, T_c) for g in unique_gaps])
+        plan = build_collision_plan_arrays(
+            dE=dE,
+            rho=rho_by_gap,
+            K_r0=per_gap(recombination_kernel_base, tau_r_eff) if enable_recombination else None,
+            K_s0=per_gap(scattering_kernel_base, tau_s_eff) if enable_scattering else None,
+            pmap=pmap,
+            enable_recombination=enable_recombination,
+            enable_scattering=enable_scattering,
+            update_phonons=not freeze_phonon_dynamics,
+            device=device,
+            dtype=dtype,
+            pixel_chunk=pixel_chunk,
+            gap_id=gap_id,
+        )
     tables = build_kernel_tables(plan) if use_kernel else None
 
     rho_state = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
-    rho_state[:, mask] = rho[:, None]
+    rho_state[:, mask] = rho_per_pixel
     pauli_stats = make_pauli_stats_fn(
         torch.as_tensor(rho_state, dtype=dtype, device=device), pauli_density_floor
     )
@@ -136,6 +217,10 @@ def build_engine_program(
     np_t = numpy_dtype(dtype)
 
     def make_col(dt_col: float):
+        if analytic:
+            return lambda q, ph, grow=None: collision_step_analytic(
+                plan, atab, tables, q, ph, dt_col, grow
+            )
         if use_kernel:
             return lambda q, ph, grow=None: collision_step(plan, tables, q, ph, dt_col, grow)
         return lambda q, ph, grow=None: collision_step_plain(plan, q, ph, dt_col, grow)

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.params import normalize_collision_solver_name
+from ..io.precompute import precompute_arrays
+from ..models.params import SimulationParameters, normalize_collision_solver_name
 from ..ops.dos import dynes_density_of_states, thermal_phonon_occupation
 from ..ops.energy_grid import build_energy_grid, integration_widths_from_centers
 from .pauli import PauliEnforcer
@@ -67,6 +68,7 @@ def _run_energy_resolved(
     dt,
     dx,
     segments,
+    total_steps,
     energy_gap,
     energy_min_factor,
     energy_max_factor,
@@ -82,6 +84,8 @@ def _run_energy_resolved(
     T_c,
     bath_temperature,
     external_generation,
+    gap_expression,
+    precomputed,
     pauli_warn_threshold,
     pauli_error_threshold,
     enforce_pauli,
@@ -103,6 +107,32 @@ def _run_energy_resolved(
     E_bins, dE = build_energy_grid(gap, energy_min_factor, energy_max_factor, num_energy_bins)
     normalize_collision_solver_name(collision_solver)
 
+    # Auto-precompute diffusion arrays when a gap map is requested.
+    if precomputed is None and str(gap_expression or "").strip():
+        auto_params = SimulationParameters(
+            diffusion_coefficient=diffusion_coefficient,
+            dt=dt,
+            total_time=max(dt, dt * max(1, total_steps)),
+            mesh_size=dx,
+            energy_gap=energy_gap,
+            energy_min_factor=energy_min_factor,
+            energy_max_factor=energy_max_factor,
+            num_energy_bins=num_energy_bins,
+            dynes_gamma=dynes_gamma,
+            gap_expression=gap_expression,
+            tau_0=0.5 * (tau_s_eff + tau_r_eff),
+            tau_s=tau_s_eff,
+            tau_r=tau_r_eff,
+            T_c=T_c,
+            bath_temperature=bath_temperature,
+        )
+        precomputed = precompute_arrays(
+            mask, edges, edge_conditions, auto_params, include_collision_kernels=False
+        )
+    nonuniform_gap = precomputed is not None and not bool(
+        np.asarray(precomputed.get("is_uniform", True)).reshape(-1)[0]
+    )
+
     prog = build_engine_program(
         mask=mask,
         edges=edges,
@@ -117,6 +147,8 @@ def _run_energy_resolved(
         diffusion_coefficient=diffusion_coefficient,
         enable_diffusion=enable_diffusion,
         diffusion_backend=diffusion_backend,
+        precomputed=precomputed,
+        nonuniform_gap=nonuniform_gap,
         enable_recombination=enable_recombination,
         enable_scattering=enable_scattering,
         dynes_gamma=dynes_gamma,
@@ -132,7 +164,7 @@ def _run_energy_resolved(
     )
     omega_bins = prog.pmap.omega_bins
 
-    # --- initial states ------------------------------------------------------
+    # --- initial states (weights at the uniform energy_gap's DOS, gap map or not)
     spatial_values = initial_field[mask].astype(np.float64)
     if energy_weights is not None:
         raw_w = np.asarray(energy_weights, dtype=np.float64)

@@ -2,7 +2,9 @@
 
 The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes``; no
-PyTorch headers are involved, so a build takes seconds.  The library is
+PyTorch headers are involved, so a build takes seconds.  Each source is
+compiled by its own ``nvcc`` process, all started together, and the
+objects are then linked into the library.  The library is
 built at first use from the sources in the checkout into
 ``build/qpsim_tpu_torch/`` at the checkout root, named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
@@ -19,15 +21,17 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load_kernels", "build_dir", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # register, shared-memory and spill report per kernel (kept in ptxas.log)
     "-Xptxas", "-v",
 ]
@@ -68,22 +72,34 @@ def _library_path() -> Path:
     return build_dir() / f"libqpsim_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
-    target.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    (target.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, target)
+    return proc
+
+
+def _build(target: Path) -> None:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp_dir:
+        objects = [Path(tmp_dir) / f"{src.stem}.o" for src in _sources()]
+        compiles = [
+            [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)
+        ]
+        # one nvcc per source, all at once; the report keeps the source order
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            procs = list(pool.map(_run, compiles))
+        # link to a private name, then rename: a concurrent or interrupted
+        # build never leaves a half-written library under the final name
+        tmp_lib = Path(tmp_dir) / target.name
+        _run([nvcc, *_ARCH, "-shared", "-o", str(tmp_lib), *map(str, objects)])
+        (target.parent / "ptxas.log").write_text("".join(p.stdout + p.stderr for p in procs))
+        os.replace(tmp_lib, target)
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -112,6 +128,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
         # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
         fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"qp_collision_step_gid_{suffix}")
+        # as above with gid after ph_out
+        fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"qp_collision_step_analytic_{suffix}")
+        # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
+        # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
+        # n_pix, dt, gamma, update_phonons, stream
+        fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
         fn.restype = I
         for half in ("x", "y"):
             fn = getattr(lib, f"qp_adi_{half}_{suffix}")

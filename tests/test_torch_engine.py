@@ -4,7 +4,7 @@ Both packages get the same geometry, initial field and physics; the port
 runs with ``device="cpu"`` (every kernel's plain version).  Parity tests
 pin ``strang_mode`` on both sides.  Also covered: the Pauli policy and its
 messages, the features this port defers (they must raise), and the
-interop helpers.
+interop helpers.  Gap maps are in ``test_torch_gap_maps.py``.
 """
 
 import warnings
@@ -200,8 +200,6 @@ def test_pauli_violation_mid_run_reports_the_same_step():
 
 
 _DEFERRED = [
-    dict(gap_expression="180 + 10*x"),
-    dict(precomputed={"D_array": np.ones((4, 4))}),
     dict(photon_drive=tp.PhotonDriveSpec(mode="photon", photon_energy=400.0, coupling=1.0)),
     dict(initial_condition_spec=tp.InitialConditionSpec()),
     dict(mesh=object()),
@@ -213,7 +211,7 @@ _DEFERRED = [
 
 @pytest.mark.parametrize(
     "extra", _DEFERRED,
-    ids=["gap_expression", "precomputed", "photon_drive", "initial_condition",
+    ids=["photon_drive", "initial_condition",
          "mesh", "checkpointer", "frame_sink", "custom_generation"],
 )
 def test_deferred_features_raise(extra):
