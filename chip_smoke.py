@@ -14,7 +14,10 @@ a non-zero exit:
    gap ids (G = 3), the analytic-gap collision step (K4) on a continuous
    gap plane, the fused ADI halves (K2) with one plane and with NB
    per-pixel planes, the separable ADI halves (K1) at NB = 1 and 16 on
-   full films with mixed faces, and the Thomas solve (K10);
+   full films with mixed faces, and the Thomas solve (K10); beyond 64
+   bins the blocked collision step (K5) on a uniform gap and with gap
+   ids, and its analytic form (K6), at NE = 65 (split ω diagonals), 72
+   (ω rows shared by a difference and a sum), 100 and 256;
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
@@ -26,8 +29,15 @@ a non-zero exit:
    gap per pixel: K4), both through per-pixel D(E, x) on K2's NB planes,
    with exact launch counts, timed as in phase 4; then K3-gid, K4 and K2
    on NB planes timed against their plain versions at 1024² × 16;
+4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 40
+   steps stored at the start and the end — uniform on the 1024²
+   rectangle through K5, the trap (K5 with gap ids) and a gradient (K6)
+   on 512² — with exact launch counts and no K3/K4 launch; then K5,
+   K5-gid and K6 timed against their plain versions at 1024² × 100, and
+   K5 at 256 bins;
 5. the same physics on a 128² grid in float64 for 20 steps, kernels
    against the plain path end to end, uniform and with both gap maps;
+   then at 100 bins on 64² for 10 steps (K5, K5-gid, K6);
 6. the scalar path (``energy_gap=0``) on the full 1024² film, float32,
    10 000 steps: exactly one launch of each K1 half per step and none of
    K2, mass conserved, steady-state ms/step and cell-steps/s over three
@@ -71,6 +81,13 @@ TOL = {("collision_step", F64): 1e-10, ("collision_step", F32): 5e-7,
        ("thomas", F64): 1e-10, ("thomas", F32): 5e-6}
 
 
+def blocked_tol(dtype, ne: int) -> float:
+    """Tolerance of the blocked kernels (K5, K6): float64 1e-10; float32 K4's
+    5e-6 up to 100 bins, the JAX package's sharded float32 tier
+    (MOSAIC_PARITY_r05.json) 2e-5 beyond, where 256-term sums accumulate."""
+    return 1e-10 if dtype == F64 else (5e-6 if ne <= 100 else 2e-5)
+
+
 #: H100 SXM data-sheet peaks: HBM bytes/s and float32 (non-tensor) and float64 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {F32: 67e12, F64: 34e12}
@@ -80,6 +97,11 @@ GAP_MAPS = {
     "trap": "return 180.0 - 20.0 * (((x - 0.5)**2 + (y - 0.5)**2) < 0.04)",
     "gradient": "return 170.0 + 20.0 * x + 2.0 * y",
 }
+#: the gap maps at 100 bins (phases 4c, 5): the first bin centre is then
+#: 182.7 µeV, below the largest gaps of the 170–192 µeV gradient, so its
+#: initial state (the uniform gap's DOS in every bin) would fill forbidden
+#: states, which the Pauli gate refuses; the gradient moves down by 20 µeV
+GAP_MAPS_100 = dict(GAP_MAPS, gradient="return 150.0 + 20.0 * x + 2.0 * y")
 
 
 def nbytes(*tensors) -> int:
@@ -96,21 +118,30 @@ def collision_work(plan, q, ph, gen, tensors, analytic=False) -> tuple[int, int]
     """(bytes, operations) of one collision substep on these inputs.
 
     Bytes: q and n_ph in and out (n_ph out only when phonons update), the
-    gen plane and every table once.  Operations per pixel, from the
-    walk: 8 per scattering pair and 7 per recombination pair in the QP
-    update, 16 per bin (partner, gain, relaxation); per ω row 10 and per
-    row entry 4 (scattering) or 7 (recombination); K4 adds 10 per bin for
-    ρ and, once per pair, 3 to form its scattering constant and 2 its
-    recombination constant from Δ² (the function needs each once, however
-    often the kernel re-forms it).
+    gen plane and every table once.  Operations per pixel: what the
+    function needs, however often a kernel re-forms a term.  K^s₀, K^r₀
+    and their ω rows are symmetric in (i, j), so each constant is formed
+    once per unordered pair {i, j}:
+      scattering, i ≠ j (NE(NE − 1)/2 pairs): K·n and K + K·n (2), the
+        four gathers loss_i, loss_j, gain_i, gain_j (8), the phonon row's
+        emission and absorption terms (4) and their sums into a, b (3);
+      recombination, i ≤ j (NE(NE + 1)/2 pairs): k·s and k + k·s (2),
+        the phonon row's k·q_i·q_j and k·p_i·p_j (4) and their sums (3);
+        the gathers loss_i += k(1 + s)·q_j, gain_i += k·s·p_j take 4 per
+        ordered pair (NE²);
+    then 16 per bin (partner, gain, relaxation), 1 per bin for gen and 10
+    per ω row.  The analytic forms add 10 per bin for ρ and, per
+    unordered pair, 3 for the scattering constant and 2 for the
+    recombination constant from Δ².
     """
     ne, nw = plan.num_energy_bins, plan.num_omega
     n_pix = q.shape[1] * q.shape[2]
-    n_s = ne * (ne - 1) if plan.enable_scattering else 0
-    n_r = ne * ne if plan.enable_recombination else 0
-    per_px = 8 * n_s + 7 * n_r + 16 * ne + (ne if gen is not None else 0)
+    n_s = ne * (ne - 1) // 2 if plan.enable_scattering else 0
+    n_r = ne * (ne + 1) // 2 if plan.enable_recombination else 0
+    n_r_ordered = ne * ne if plan.enable_recombination else 0
+    per_px = 10 * n_s + 2 * n_r + 4 * n_r_ordered + 16 * ne + (ne if gen is not None else 0)
     if plan.update_phonons:
-        per_px += 4 * n_s + 7 * n_r + 10 * nw
+        per_px += 7 * n_s + 7 * n_r + 10 * nw
     if analytic:
         per_px += 10 * ne + 3 * n_s + 2 * n_r
     state = nbytes(q, q, ph, gen) + (nbytes(ph) if plan.update_phonons else 0)
@@ -166,37 +197,56 @@ def time_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- helpers
 
 
-#: the collision kernels' forms: K3 on a uniform gap, K3 with gap ids, K4
+#: the collision kernels' forms and their launch counters: K3 on a uniform
+#: gap, K3 with gap ids, K4; and beyond 64 bins K5, K5 with gap ids, K6
 COLLISION_KINDS = {"uniform": "collision_step", "gid": "collision_step_gid",
                    "analytic": "collision_step_analytic"}
+BLOCKED_KINDS = {"uniform": "collision_step_blocked", "gid": "collision_step_blocked_gid",
+                 "analytic": "collision_step_blocked_analytic"}
+
+_PMAPS: dict = {}
 
 
-def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, seed=0):
+def phonon_map(ne):
+    """The energy grid (E, dE) and ω map at NE bins (Δ = 180, E_max = 4Δ), built once per NE."""
+    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
+    from qpsim_tpu_torch.ops.phonon_map import build_phonon_frequency_map
+
+    if ne not in _PMAPS:
+        E, dE = build_energy_grid(180.0, 1.0, 4.0, ne)
+        _PMAPS[ne] = (E, dE, build_phonon_frequency_map(E))
+    return _PMAPS[ne]
+
+
+def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, seed=0,
+                    blocked=False, pixel_chunk=4096):
     """A collision kernel, its plain version and a random state at NE bins on an n×n grid.
 
     ``kind`` "uniform": one gap (K3); "gid": per-gap tables for G = 3 gaps
     and random gap ids (K3 with gap ids); "analytic": a random continuous
-    gap plane (K4).  Returns (kernel_step, plain_step, plan, table tensors,
-    q, ph, gen); each step is ``step(q, ph, dt, gen)``.
+    gap plane (K4); with ``blocked`` the same forms through K5 / K6.  The
+    state is drawn on the card from ``seed``.  Returns (kernel_step,
+    plain_step, plan, table tensors, q, ph, gen); each step is
+    ``step(q, ph, dt, gen)``.
     """
+    from qpsim_tpu_torch.ops import collisions_blocked_cuda as kb
     from qpsim_tpu_torch.ops import collisions_cuda as kc
     from qpsim_tpu_torch.ops.collisions import build_analytic_plan, build_collision_plan_arrays
     from qpsim_tpu_torch.ops.dos import dynes_density_of_states, thermal_phonon_occupation
-    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
     from qpsim_tpu_torch.ops.kernels import recombination_kernel_base, scattering_kernel_base
-    from qpsim_tpu_torch.ops.phonon_map import build_phonon_frequency_map
 
-    E, dE = build_energy_grid(180.0, 1.0, 4.0, ne)
-    pm = build_phonon_frequency_map(E)
+    E, dE, pm = phonon_map(ne)
     rng = np.random.default_rng(seed)
     if kind == "analytic":
         plane = rng.uniform(150.0, 195.0, (n, n))
         plan, tab = build_analytic_plan(
             E_bins=E, dE=dE, gap_plane=plane, pmap=pm, tau_s=440.0, tau_r=440.0, T_c=1.2,
-            dynes_gamma=gamma, update_phonons=phonons, device="cuda", dtype=dtype)
+            dynes_gamma=gamma, update_phonons=phonons, device="cuda", dtype=dtype,
+            pixel_chunk=pixel_chunk)
         tables = kc.build_kernel_tables(plan)
         rho = np.stack([dynes_density_of_states(E, g, gamma) for g in (150.0, 195.0)]).mean(0)
-        kernel = lambda q, ph, dt, g: kc.collision_step_analytic(plan, tab, tables, q, ph, dt, g)
+        step = kb.collision_step_blocked_analytic if blocked else kc.collision_step_analytic
+        kernel = lambda q, ph, dt, g: step(plan, tab, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_analytic_plain(plan, tab, q, ph, dt, g)
         tensors = (tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi, tab.dEa_s, tab.dEb_s, tab.dEa2_r,
                    tab.dEb2_r, tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr,
@@ -209,20 +259,24 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
         plan = build_collision_plan_arrays(
             dE=dE, rho=rho_g, K_r0=stack(recombination_kernel_base),
             K_s0=stack(scattering_kernel_base), pmap=pm, enable_recombination=True,
-            enable_scattering=True, update_phonons=phonons, device="cuda", dtype=dtype, gap_id=gid)
+            enable_scattering=True, update_phonons=phonons, device="cuda", dtype=dtype, gap_id=gid,
+            pixel_chunk=pixel_chunk)
         tables = kc.build_kernel_tables(plan)
         rho = rho_g.mean(0)
-        kernel = lambda q, ph, dt, g: kc.collision_step(plan, tables, q, ph, dt, g)
+        step = kb.collision_step_blocked if blocked else kc.collision_step
+        kernel = lambda q, ph, dt, g: step(plan, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_plain(plan, q, ph, dt, g)
         tensors = (plan.gap_id, tables.rho, tables.ks, tables.kr, tables.idx_diff, tables.idx_sum,
                    tables.sign, tables.row_ptr, tables.row_code)
-    q = rng.uniform(0.0, 2e-3, (ne, n, n)) * rho[:, None, None]
-    ph = thermal_phonon_occupation(pm.omega_bins, 0.25)[:, None, None] * rng.uniform(
-        0.5, 2.0, (pm.num_omega, n, n)
-    )
-    gen = rng.uniform(0.0, 1e-6, (n, n))
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
-    return kernel, plain, plan, tensors, as_t(q), as_t(ph), as_t(gen)
+    draw = torch.Generator(device="cuda").manual_seed(seed)
+    uniform = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
+        shape, generator=draw, device="cuda", dtype=F64)
+    as_t = lambda a: torch.as_tensor(a, dtype=F64, device="cuda")
+    q = uniform(0.0, 2e-3, (ne, n, n)) * as_t(rho)[:, None, None]
+    ph = as_t(thermal_phonon_occupation(pm.omega_bins, 0.25))[:, None, None] * uniform(
+        0.5, 2.0, (pm.num_omega, n, n))
+    gen = uniform(0.0, 1e-6, (n, n))
+    return kernel, plain, plan, tensors, q.to(dtype), ph.to(dtype), gen.to(dtype)
 
 
 def rectangle(n):
@@ -384,11 +438,20 @@ def phase_build() -> None:
             r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel"
             r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
+        b = re.search(r"Compiling entry function '.*?(blocked_collision_kernel)I([fd])NS_\d+(\w+?Consts)", line)
         if m:
             gid = "" if m.group(3) is None else f", gap ids {'on' if m.group(3) == '1' else 'off'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{gid}>"
+        elif b:
+            name = f"{b.group(1)}<{'float' if b.group(2) == 'f' else 'double'}, {b.group(3)}>"
+        elif "Compiling entry function" in line:
+            name = None
         elif name and ("stack frame" in line or "Used" in line):
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    # the blocked kernels' dynamic shared memory: q and partner of a 32-pixel tile
+    for ne in (65, 100, 256):
+        print(f"  blocked_collision_kernel dynamic shared memory per block at NE={ne}: "
+              f"{2 * ne * 32 * 4} B (float), {2 * ne * 32 * 8} B (double)")
     sys.stdout.flush()
 
 
@@ -411,6 +474,26 @@ def phase_kernels_vs_plain() -> None:
                             extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
                             check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
                                   f"phonons={phonons}", err, TOL[(name, dtype)])
+    # K5, K5 with gap ids, K6: split ω diagonals (65), ω rows shared by a
+    # difference and a sum (72), the slice's 100 bins, the 256-bin envelope;
+    # with and without gen at 100 bins, with gen (the stepping's case) at
+    # the others
+    for kind, name in BLOCKED_KINDS.items():
+        for ne, n in ((65, 128), (72, 128), (100, 128), (256, 64)):
+            for dtype in (F64, F32):
+                for phonons in (True, False):
+                    for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
+                        kern, plain, _, _, q, ph, gen = collision_setup(
+                            ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma, blocked=True,
+                            pixel_chunk=1024)
+                        for g in ((None, gen) if ne == 100 else (gen,)):
+                            ref = plain(q, ph, 0.025, g)
+                            got = kern(q, ph, 0.025, g)
+                            torch.cuda.synchronize()
+                            err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
+                            extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
+                            check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
+                                  f"phonons={phonons}", err, blocked_tol(dtype, ne))
     for name, geometry in (("rectangle 1024²", rectangle(1024)), ("donut 256²", donut(256))):
         for per_pixel in (False, True):
             for dtype in (F64, F32):
@@ -480,7 +563,7 @@ def timed_run(kw: dict, steps: int):
 def coupled_expect(segments, collision: str) -> dict:
     """Exact launch counts of the coupled merged path through collision kernel ``collision``."""
     steps = sum(s.length for s in segments)
-    names = COLLISION_KINDS.values()
+    names = [*COLLISION_KINDS.values(), *BLOCKED_KINDS.values()]
     expect = {n: 0 for n in names} | {f"{n}_with_gen": 0 for n in names}
     expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
     expect[f"{collision}_with_gen"] = steps
@@ -488,9 +571,9 @@ def coupled_expect(segments, collision: str) -> dict:
                      "thomas": 0}
 
 
-def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str) -> dict:
-    """Three timed calls of a coupled configuration with exact launch counts
-    and the physics checks; returns the launch counts of the first."""
+def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, calls: int = 3) -> dict:
+    """``calls`` timed calls of a coupled configuration with exact launch
+    counts and the physics checks; returns the launch counts of the first."""
     from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
 
     full, rem, _ = _split_time(kw["total_time"], kw["dt"])
@@ -510,14 +593,14 @@ def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str) ->
     print(f"  {label}: mass {mass}")
     if not (len(times) == len(segments) + 1 and abs(times[-1] - kw["total_time"]) < 1e-9):
         raise AssertionError(f"{label}: unexpected stored times {times}")
-    if not (mass[1] > mass[0] and mass[2] > mass[0]):
+    if not all(m > mass[0] for m in mass[1:3]):
         raise AssertionError(f"{label}: mass must rise during the pulse")
-    runs = [first] + [timed_run(kw, steps)[1] for _ in range(2)]
+    runs = [first] + [timed_run(kw, steps)[1] for _ in range(calls - 1)]
     for i, (st, su, wh) in enumerate(runs):
         print(f"  {label} run {i + 1}: steady state {st:.3f} ms/step (host clock, first to last "
               f"stored frame, {steps} steps); set-up {su:.3f} s (call to first stored frame); "
               f"whole call {wh / steps:.3f} ms/step (CUDA events)")
-    med = sorted(r[0] for r in runs)[1]
+    med = float(np.median([r[0] for r in runs]))
     print(f"  {label} end to end: steady state median {med:.3f} ms/step over {len(runs)} runs "
           f"(range {min(r[0] for r in runs):.3f}–{max(r[0] for r in runs):.3f}); set-up "
           f"{min(r[1] for r in runs):.3f}–{max(r[1] for r in runs):.3f} s; peak device memory "
@@ -525,23 +608,40 @@ def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str) ->
     return counts
 
 
-def collision_row(kind, line, launches, dt):
-    """A kernels-line row for a collision kernel form at the main path's shapes (float32)."""
-    name = COLLISION_KINDS[kind]
-    kern, plain, plan, tensors, q, ph, gen = collision_setup(16, 1024, F32, kind=kind)
-    ref = plain(q, ph, dt, gen)
+def timed_once(fn):
+    """One call's result and its ms on the card (CUDA events, no warm-up)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def collision_row(kind, line, launches, dt, *, ne=16, blocked=False):
+    """A kernels-line row for a collision kernel form at a main path's shapes (1024², float32).
+
+    K3/K4 (NE = 16): the plain version timed over 3 calls after a warm-up;
+    K5/K6 (``blocked``): its one reference call is timed (seconds at 100 bins).
+    """
+    name = (BLOCKED_KINDS if blocked else COLLISION_KINDS)[kind]
+    kern, plain, plan, tensors, q, ph, gen = collision_setup(ne, 1024, F32, kind=kind, blocked=blocked)
+    ref, plain_once = timed_once(lambda: plain(q, ph, dt, gen))
     got = kern(q, ph, dt, gen)
     torch.cuda.synchronize()
-    tol = TOL[(name, F32)]
-    check(f"{name} NE=16 1024² float32 gen=True phonons=True, q", scaled_err(got[0], ref[0]), tol)
-    check(f"{name} NE=16 1024² float32 gen=True phonons=True, ph", scaled_err(got[1], ref[1]), tol)
+    tol = blocked_tol(F32, ne) if blocked else TOL[(name, F32)]
+    check(f"{name} NE={ne} 1024² float32 gen=True phonons=True, q", scaled_err(got[0], ref[0]), tol)
+    check(f"{name} NE={ne} 1024² float32 gen=True phonons=True, ph", scaled_err(got[1], ref[1]), tol)
     n_bytes, flops = collision_work(plan, q, ph, gen, tensors, analytic=kind == "analytic")
+    source, pallas = (("collisions_blocked.cu", "pallas_collisions_blocked.py") if blocked
+                      else ("collisions.cu", "pallas_collisions.py"))
     return dict(
-        name=name, route="cuda", source="qpsim_tpu_torch/csrc/collisions.cu",
-        replaces=f"qpsim_tpu/ops/pallas_collisions.py:{line}", launches=launches,
+        name=name, route="cuda", source=f"qpsim_tpu_torch/csrc/{source}",
+        replaces=f"qpsim_tpu/ops/{pallas}:{line}", launches=launches,
         max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
-        ms=time_ms(lambda: kern(q, ph, dt, gen), 20),
-        plain_ms=time_ms(lambda: plain(q, ph, dt, gen), 3),
+        ms=time_ms(lambda: kern(q, ph, dt, gen), 5 if blocked else 20),
+        plain_ms=plain_once if blocked else time_ms(lambda: plain(q, ph, dt, gen), 3),
         **bound(n_bytes, flops, F32), library_ms=None,
     )
 
@@ -630,6 +730,55 @@ def phase_gap_maps(card: str) -> list[dict]:
     return rows
 
 
+def phase_blocked_path(card: str) -> list[dict]:
+    print("== 4c beyond 64 bins: 100 bins, 40 steps, float32, merged stepping — uniform gap on "
+          "1024², gap maps on 512² (cut from 1024²: their per-pixel D(E, x) fold grows with NE)",
+          flush=True)
+    dt, steps = 0.05, 40
+    # stored only at the start and the end: each stored frame rebuilds 100
+    # bins on the host.  No warm-up call: the kernels were built and run in
+    # phases 3–4, and a 100-bin call spends ≈ 15 s of host set-up (1024²)
+    counts = {"uniform": run_coupled_timed(
+        "uniform gap 1024² × 100",
+        dict(main_path_kwargs(1024), num_energy_bins=100, dt=dt, total_time=dt * steps,
+             store_every=steps),
+        "collision_step_blocked", card, calls=2)}
+    for map_name, collision in (("trap", "collision_step_blocked_gid"),
+                                ("gradient", "collision_step_blocked_analytic")):
+        kw_map = dict(main_path_kwargs(512), num_energy_bins=100, dt=dt, total_time=dt * steps,
+                      store_every=steps, gap_expression=GAP_MAPS_100[map_name])
+        counts[map_name] = run_coupled_timed(f"{map_name} map 512² × 100", kw_map, collision, card,
+                                             calls=2)
+
+    # each form at 1024² × 100 against its plain version, then their times
+    rows = [collision_row("uniform", 101, counts["uniform"]["collision_step_blocked"], dt,
+                          ne=100, blocked=True),
+            collision_row("gid", 101, counts["trap"]["collision_step_blocked_gid"], dt,
+                          ne=100, blocked=True),
+            collision_row("analytic", 972, counts["gradient"]["collision_step_blocked_analytic"], dt,
+                          ne=100, blocked=True)]
+    print_rows(rows, "1024² × 100, NW 299", card)
+    # K5 at the 256-bin envelope: the kernel on 1024², its plain version
+    # (whose time grows with the pixels) on 256², each checked on its own shape
+    kern, plain, plan, tensors, q, ph, gen = collision_setup(256, 256, F32, blocked=True, pixel_chunk=1024)
+    ref, plain_once = timed_once(lambda: plain(q, ph, dt, gen))
+    got = kern(q, ph, dt, gen)
+    torch.cuda.synchronize()
+    check("collision_step_blocked NE=256 256² float32 gen=True phonons=True",
+          max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1])), blocked_tol(F32, 256))
+    small_ms = time_ms(lambda: kern(q, ph, dt, gen), 5)
+    del kern, plain, plan, tensors, q, ph, gen, ref, got
+    kern, _, plan, tensors, q, ph, gen = collision_setup(256, 1024, F32, blocked=True)
+    ms = time_ms(lambda: kern(q, ph, dt, gen), 3)
+    b = bound(*collision_work(plan, q, ph, gen, tensors), F32)
+    print(f"  collision_step_blocked NE=256 (NW 767): kernel {ms:.4f} ms at 1024², bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); at 256²: kernel {small_ms:.4f} ms, plain "
+          f"{plain_once:.3f} ms (one call) — float32, {card}", flush=True)
+    del kern, plan, tensors, q, ph, gen
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_end_to_end_f64() -> None:
     print("== 5 end to end, float64, 128² × 16 bins, 20 steps: kernels against plain", flush=True)
     import qpsim_tpu_torch
@@ -650,6 +799,28 @@ def phase_end_to_end_f64() -> None:
         check_counts(f"{map_name} map", read_counts(), {collision: 24, "collision_step": 0, "adi_x_half": 20})
         assert_runs_close(f"{map_name} map: kernels vs plain", a,
                           run(**kw_map, device="cpu", diffusion_backend="adi"), 1e-10, 1e-12)
+
+    print("== 5 end to end, float64, 64² × 100 bins, 10 steps: K5/K6 against plain", flush=True)
+    # 'adi' on both sides: 'auto' takes the dense backend on this small
+    # film, and K2 is held end to end at 128² above
+    kw = dict(main_path_kwargs(64), num_energy_bins=100, dt=0.05, total_time=0.5, store_every=5,
+              dtype=F64, diffusion_backend="adi")
+    # the plain path of the same form: the per-gap gather version on the card
+    # (uniform, trap), the analytic plain version on the CPU (gradient)
+    for map_name, collision, plain_kw in (
+        ("uniform", "collision_step_blocked", dict(collision_backend="plain")),
+        ("trap", "collision_step_blocked_gid", dict(collision_backend="plain")),
+        ("gradient", "collision_step_blocked_analytic", dict(device="cpu")),
+    ):
+        kw_map = dict(kw, gap_expression=GAP_MAPS_100[map_name]) if map_name != "uniform" else kw
+        reset_counts()
+        t0 = time.perf_counter()
+        a = run(**kw_map)
+        check_counts(f"{map_name}, 100 bins, {time.perf_counter() - t0:.2f} s", read_counts(),
+                     {collision: 12, "collision_step": 0, "collision_step_gid": 0,
+                      "collision_step_analytic": 0, "adi_x_half": 0})
+        assert_runs_close(f"{map_name}, 100 bins: kernels vs plain", a, run(**kw_map, **plain_kw),
+                          1e-10, 1e-12)
 
 
 def scalar_kwargs(geometry, *, dt, steps, store_every, seed=0, **extra):
@@ -852,15 +1023,24 @@ def phase_other_diffusion_paths(card: str) -> dict:
     return row
 
 
+def timed_phase(fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
-    card = phase_environment()
-    phase_build()
-    phase_kernels_vs_plain()
-    rows = phase_main_path(card)
-    rows += phase_gap_maps(card)
-    phase_end_to_end_f64()
-    rows += phase_scalar_path(card)
-    rows.append(phase_other_diffusion_paths(card))
+    card = timed_phase(phase_environment)
+    timed_phase(phase_build)
+    timed_phase(phase_kernels_vs_plain)
+    rows = timed_phase(phase_main_path, card)
+    rows += timed_phase(phase_gap_maps, card)
+    rows += timed_phase(phase_blocked_path, card)
+    timed_phase(phase_end_to_end_f64)
+    rows += timed_phase(phase_scalar_path, card)
+    rows.append(timed_phase(phase_other_diffusion_paths, card))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

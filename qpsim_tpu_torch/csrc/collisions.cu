@@ -47,7 +47,9 @@
 // so the float32 comparison measures the kernel and not the formula
 // (E² − Δ² cancels near the threshold).  Partner = ρ·max(1 − q·(1/ρ), 0).
 //
-// expm1 is CUDA's own (the TPU kernels needed a Taylor substitute).
+// The update rules and the closed-form ρ live in collision_math.cuh, shared
+// with the blocked kernels (collisions_blocked.cu).  expm1 is CUDA's own
+// (the TPU kernels needed a Taylor substitute).
 //
 // Design: one thread per pixel on the (NE, P) layout with the pixel index
 // fastest, so every state load and store is coalesced.  The thread keeps
@@ -70,46 +72,17 @@
 
 #include <cuda_runtime.h>
 
+#include "collision_math.cuh"
+
 namespace {
+
+using qpsim::affine;
+using qpsim::analytic_rho;
+using qpsim::relax;
+using qpsim::relu;
 
 constexpr int kBlock = 128;
 constexpr int kMaxBins = 64;
-
-// max(x, 0) that propagates NaN like jnp.maximum / torch.clamp
-template <typename T>
-__device__ __forceinline__ T relu(T x) { return x < T(0) ? T(0) : x; }
-
-__device__ __forceinline__ float dexp(float x) { return expf(x); }
-__device__ __forceinline__ double dexp(double x) { return exp(x); }
-__device__ __forceinline__ float dexpm1(float x) { return expm1f(x); }
-__device__ __forceinline__ double dexpm1(double x) { return expm1(x); }
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float drsqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double drsqrt(double x) { return rsqrt(x); }
-
-// positivity-preserving exponential relaxation of dn/dt = gain − loss·n
-template <typename T>
-__device__ __forceinline__ T relax(T n, T gain, T loss, T dt) {
-  const T floor = T(1e-14);
-  const T mu = relu(loss);
-  const T p_term = relu(gain + (mu - loss) * n);
-  const T decay = dexp(-mu * dt);
-  const T coeff = mu < floor ? dt : -dexpm1(-mu * dt) / (mu < floor ? floor : mu);
-  return relu(decay * n + coeff * p_term);
-}
-
-// exact frozen-coefficient solve of y' = a + b·y, clamped non-negative
-template <typename T>
-__device__ __forceinline__ T affine(T y, T a, T b, T dt) {
-  T x = b * dt;
-  x = x < T(-80) ? T(-80) : (x > T(80) ? T(80) : x);
-  const bool tiny = dabs(b) < T(1e-14);
-  const T coeff = tiny ? dt : dexpm1(x) / b;
-  return relu(dexp(x) * y + coeff * a);
-}
 
 template <typename T, bool kGapIds>
 __global__ void __launch_bounds__(kBlock) collision_step_kernel(
@@ -209,7 +182,6 @@ __global__ void __launch_bounds__(kBlock) collision_step_analytic_kernel(
   const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= n_pix) return;
   const T d2 = g2[p];  // Δ²(px)
-  const T floor = T(1e-30);
 
   T qv[kMaxBins];
   T pv[kMaxBins];
@@ -217,21 +189,7 @@ __global__ void __launch_bounds__(kBlock) collision_step_analytic_kernel(
     T qi = q_in[i * n_pix + p];
     if (gen != nullptr) qi += gen[p];  // fused forward-Euler n += dt·g
     T rho_i, inv_i;
-    if (gamma == T(0)) {
-      const T r2 = e2[i] - d2;
-      const T t = drsqrt(r2 > floor ? r2 : floor);
-      const bool pos = r2 > T(0);
-      rho_i = pos ? e_bins[i] * t : T(0);
-      inv_i = pos ? (r2 * t) * inv_e[i] : T(0);
-    } else {
-      const T zr = e2[i] - d2;
-      const T zi = zim[i];
-      const T r = dsqrt(zr * zr + zi * zi);
-      const T s = dsqrt(relu(T(0.5) * (r + zr)));
-      const T tq = -dsqrt(relu(T(0.5) * (r - zr)));
-      rho_i = relu((e_bins[i] * s - gamma * tq) / (r > floor ? r : floor));
-      inv_i = rho_i > floor ? T(1) / (rho_i > floor ? rho_i : floor) : T(0);
-    }
+    analytic_rho(d2, e_bins[i], inv_e[i], e2[i], zim[i], gamma, rho_i, inv_i);
     qv[i] = qi;
     pv[i] = rho_i * relu(T(1) - qi * inv_i);
   }

@@ -52,14 +52,13 @@ __all__ = [
 #: launches of each collision kernel since import (or since the caller reset
 #: it), and how many of them took a generation plane: ``collision_step`` is
 #: K3 on a uniform gap, ``collision_step_gid`` K3 with per-pixel gap ids,
-#: ``collision_step_analytic`` K4
+#: ``collision_step_analytic`` K4; ``collision_step_blocked[_gid]`` is K5
+#: and ``collision_step_blocked_analytic`` K6 (``ops.collisions_blocked_cuda``)
 LAUNCHES = {
-    "collision_step": 0,
-    "collision_step_with_gen": 0,
-    "collision_step_gid": 0,
-    "collision_step_gid_with_gen": 0,
-    "collision_step_analytic": 0,
-    "collision_step_analytic_with_gen": 0,
+    f"{name}{form}{gen}": 0
+    for name in ("collision_step", "collision_step_blocked")
+    for form in ("", "_gid", "_analytic")
+    for gen in ("", "_with_gen")
 }
 
 #: energy bins the kernels' per-thread arrays hold (kMaxBins in the source)
@@ -147,14 +146,14 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_inputs(plan, n_qp, n_ph, gen, named_tables) -> None:
+def _check_inputs(plan, n_qp, n_ph, gen, named_tables, max_bins: int) -> None:
     if not plan.active:
         raise ValueError("collision kernel called with no collision channel enabled")
     if n_qp.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"collision kernel takes float32 or float64, got {n_qp.dtype}")
     ne, nw = plan.num_energy_bins, plan.num_omega
-    if ne > MAX_KERNEL_BINS:
-        raise ValueError(f"collision kernel holds at most {MAX_KERNEL_BINS} bins, got {ne}")
+    if ne > max_bins:
+        raise ValueError(f"collision kernel holds at most {max_bins} bins, got {ne}")
     if n_qp.ndim != 3 or n_qp.shape[0] != ne:
         raise ValueError(f"n_qp must be ({ne}, Ny, Nx), got {tuple(n_qp.shape)}")
     if tuple(n_ph.shape) != (nw, *n_qp.shape[1:]):
@@ -187,6 +186,82 @@ def _count(name: str, gen) -> None:
     LAUNCHES[f"{name}_with_gen"] += gen is not None
 
 
+def _suffix(n_qp: torch.Tensor) -> str:
+    return "f32" if n_qp.dtype == torch.float32 else "f64"
+
+
+def table_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
+               tables: CollisionKernelTables, n_qp, n_ph, dt: float, gen):
+    """Launch a per-gap-table collision kernel (K3 or K5) on CUDA tensors.
+
+    ``entry`` is the C entry's family (``qp_<entry>[_gid]_<f32|f64>``),
+    ``name`` its launch counter (``<name>[_gid]``), ``max_bins`` the bins
+    the kernel holds.
+    """
+    if n_qp.device.type != "cuda":
+        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
+    if tables.rho is None:
+        raise ValueError("an analytic plan runs the analytic collision kernel")
+    _check_inputs(plan, n_qp, n_ph, gen,
+                  (("rho", tables.rho), ("ks", tables.ks), ("kr", tables.kr)), max_bins)
+    n_pix = n_qp.shape[1] * n_qp.shape[2]
+    gid = plan.gap_id
+    if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
+                            or gid.dtype != torch.uint8 or not gid.is_contiguous()):
+        raise ValueError(f"gap ids must be {n_pix} contiguous uint8 entries on {n_qp.device}")
+    lib = load_kernels()
+    q_out, ph_out = _outputs(plan, n_qp, n_ph)
+    head = [_ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
+            _ptr(ph_out) if plan.update_phonons else None]
+    tail = [_ptr(tables.rho), _ptr(tables.ks), _ptr(tables.kr), *_pair_ptrs(tables),
+            plan.num_energy_bins, plan.num_omega, n_pix, float(dt),
+            int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream]
+    if gid is None:
+        err = getattr(lib, f"qp_{entry}_{_suffix(n_qp)}")(*head, *tail)
+    else:
+        name = f"{name}_gid"
+        err = getattr(lib, f"qp_{entry}_gid_{_suffix(n_qp)}")(*head, _ptr(gid), *tail)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    _count(name, gen)
+    return q_out, ph_out
+
+
+def analytic_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
+                  analytic: AnalyticTables, tables: CollisionKernelTables, n_qp, n_ph,
+                  dt: float, gen):
+    """Launch an analytic-gap collision kernel (K4 or K6) on CUDA tensors;
+    arguments as :func:`table_step` (entry ``qp_<entry>_analytic_<f32|f64>``)."""
+    if n_qp.device.type != "cuda":
+        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
+    a = analytic
+    _check_inputs(plan, n_qp, n_ph, gen, (
+        ("g2", a.g2), ("E", a.E), ("inv_E", a.inv_E), ("e2", a.e2), ("zi", a.zi),
+        ("dEa_s", a.dEa_s), ("dEb_s", a.dEb_s), ("dEa2_r", a.dEa2_r), ("dEb2_r", a.dEb2_r)),
+        max_bins)
+    n_pix = n_qp.shape[1] * n_qp.shape[2]
+    if a.g2.numel() != n_pix:
+        raise ValueError(f"the Δ² plane holds {a.g2.numel()} pixels, the state {n_pix}")
+    lib = load_kernels()
+    fn = getattr(lib, f"qp_{entry}_analytic_{_suffix(n_qp)}")
+    q_out, ph_out = _outputs(plan, n_qp, n_ph)
+    scat, rec = plan.enable_scattering, plan.enable_recombination
+    err = fn(
+        _ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
+        _ptr(ph_out) if plan.update_phonons else None,
+        _ptr(a.g2), _ptr(a.E), _ptr(a.inv_E), _ptr(a.e2), _ptr(a.zi),
+        _ptr(a.dEa_s) if scat else None, _ptr(a.dEb_s) if scat else None,
+        _ptr(a.dEa2_r) if rec else None, _ptr(a.dEb2_r) if rec else None,
+        *_pair_ptrs(tables),
+        plan.num_energy_bins, plan.num_omega, n_pix, float(dt), float(a.gamma),
+        int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}_analytic kernel launch failed with CUDA error {err}")
+    _count(f"{name}_analytic", gen)
+    return q_out, ph_out
+
+
 def collision_step(
     plan: CollisionPlan,
     tables: CollisionKernelTables,
@@ -205,34 +280,8 @@ def collision_step(
     """
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
-    if n_qp.device.type != "cuda":
-        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
-    if tables.rho is None:
-        raise ValueError("an analytic plan runs collision_step_analytic")
-    _check_inputs(plan, n_qp, n_ph, gen,
-                  (("rho", tables.rho), ("ks", tables.ks), ("kr", tables.kr)))
-    n_pix = n_qp.shape[1] * n_qp.shape[2]
-    gid = plan.gap_id
-    if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
-                            or gid.dtype != torch.uint8 or not gid.is_contiguous()):
-        raise ValueError(f"gap ids must be {n_pix} contiguous uint8 entries on {n_qp.device}")
-    lib = load_kernels()
-    suffix = "f32" if n_qp.dtype == torch.float32 else "f64"
-    q_out, ph_out = _outputs(plan, n_qp, n_ph)
-    head = [_ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
-            _ptr(ph_out) if plan.update_phonons else None]
-    tail = [_ptr(tables.rho), _ptr(tables.ks), _ptr(tables.kr), *_pair_ptrs(tables),
-            plan.num_energy_bins, plan.num_omega, n_pix, float(dt),
-            int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream]
-    if gid is None:
-        name, err = "collision_step", getattr(lib, f"qp_collision_step_{suffix}")(*head, *tail)
-    else:
-        name = "collision_step_gid"
-        err = getattr(lib, f"qp_collision_step_gid_{suffix}")(*head, _ptr(gid), *tail)
-    if err != 0:
-        raise RuntimeError(f"collision kernel launch failed with CUDA error {err}")
-    _count(name, gen)
-    return q_out, ph_out
+    return table_step("collision_step", "collision_step", MAX_KERNEL_BINS,
+                      plan, tables, n_qp, n_ph, dt, gen)
 
 
 def collision_step_analytic(
@@ -251,30 +300,5 @@ def collision_step_analytic(
     """
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
-    if n_qp.device.type != "cuda":
-        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
-    a = analytic
-    _check_inputs(plan, n_qp, n_ph, gen, (
-        ("g2", a.g2), ("E", a.E), ("inv_E", a.inv_E), ("e2", a.e2), ("zi", a.zi),
-        ("dEa_s", a.dEa_s), ("dEb_s", a.dEb_s), ("dEa2_r", a.dEa2_r), ("dEb2_r", a.dEb2_r)))
-    n_pix = n_qp.shape[1] * n_qp.shape[2]
-    if a.g2.numel() != n_pix:
-        raise ValueError(f"the Δ² plane holds {a.g2.numel()} pixels, the state {n_pix}")
-    lib = load_kernels()
-    fn = getattr(lib, f"qp_collision_step_analytic_{'f32' if n_qp.dtype == torch.float32 else 'f64'}")
-    q_out, ph_out = _outputs(plan, n_qp, n_ph)
-    scat, rec = plan.enable_scattering, plan.enable_recombination
-    err = fn(
-        _ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out),
-        _ptr(ph_out) if plan.update_phonons else None,
-        _ptr(a.g2), _ptr(a.E), _ptr(a.inv_E), _ptr(a.e2), _ptr(a.zi),
-        _ptr(a.dEa_s) if scat else None, _ptr(a.dEb_s) if scat else None,
-        _ptr(a.dEa2_r) if rec else None, _ptr(a.dEb2_r) if rec else None,
-        *_pair_ptrs(tables),
-        plan.num_energy_bins, plan.num_omega, n_pix, float(dt), float(a.gamma),
-        int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"analytic collision kernel launch failed with CUDA error {err}")
-    _count("collision_step_analytic", gen)
-    return q_out, ph_out
+    return analytic_step("collision_step", "collision_step", MAX_KERNEL_BINS,
+                         plan, analytic, tables, n_qp, n_ph, dt, gen)

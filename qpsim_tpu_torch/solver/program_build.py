@@ -16,8 +16,10 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   uniform one (or none) keeps ``gap`` in the collisions and the Pauli ρ.
 * collisions — ``collision_backend='auto'`` runs the CUDA kernel wrappers,
   which launch their kernels for CUDA tensors and run the plain versions
-  for CPU tensors: K3 with per-gap tables for G ≤ 8 unique gaps (gap ids
-  when G > 1), K4 from the per-pixel Δ² for G > 8 (no per-gap stacks);
+  for CPU tensors (:func:`collision_kernel_for`): with per-gap tables for
+  G ≤ 8 unique gaps (gap ids when G > 1) K3 up to 64 bins and K5 up to
+  256, from the per-pixel Δ² for G > 8 (no per-gap stacks) K4 and K6;
+  beyond 256 bins the plain versions on the CPU, an error on CUDA.
   ``'kernel'`` does the same but raises on the CPU; ``'plain'`` runs the
   plain per-gap gather version everywhere (the JAX package's ``'xla'``),
   which refuses stacks above 4 GB.
@@ -38,7 +40,13 @@ import torch
 from ..ops.collisions import (
     build_analytic_plan,
     build_collision_plan_arrays,
+    collision_step_analytic_plain,
     collision_step_plain,
+)
+from ..ops.collisions_blocked_cuda import (
+    MAX_BLOCKED_BINS,
+    collision_step_blocked,
+    collision_step_blocked_analytic,
 )
 from ..ops.collisions_cuda import (
     MAX_GAP_IDS,
@@ -59,7 +67,32 @@ from ..ops.phonon_map import PhononFrequencyMap, build_phonon_frequency_map
 from .diffusion_backends import choose_backend
 from .pauli import make_pauli_stats_fn
 
-__all__ = ["EngineProgram", "build_engine_program"]
+__all__ = ["EngineProgram", "build_engine_program", "collision_kernel_for"]
+
+
+def collision_kernel_for(ne: int, n_gaps: int) -> str | None:
+    """The collision kernel for NE bins and G unique gaps, as ``qpsim_tpu`` dispatches.
+
+    "K3" (uniform gap) or "K3_gid" (G ≤ 8 gap ids) up to 64 bins, "K5" /
+    "K5_gid" from 65 to 256; continuous maps (G > 8) "K4" up to 64 bins,
+    "K6" to 256.  None above 256 bins, where only the plain versions run
+    (the JAX package runs its XLA integrator there).
+    """
+    if ne > MAX_BLOCKED_BINS:
+        return None
+    if n_gaps > MAX_GAP_IDS:
+        return "K4" if ne <= MAX_KERNEL_BINS else "K6"
+    kernel = "K3" if ne <= MAX_KERNEL_BINS else "K5"
+    return kernel if n_gaps == 1 else f"{kernel}_gid"
+
+
+#: each code's wrapper; the table wrappers take the gap-id form from
+#: ``plan.gap_id``, the analytic ones (K4, K6) also take the Δ² tables
+_KERNEL_STEPS: dict[str, Callable] = {
+    "K3": collision_step, "K3_gid": collision_step,
+    "K5": collision_step_blocked, "K5_gid": collision_step_blocked,
+    "K4": collision_step_analytic, "K6": collision_step_blocked_analytic,
+}
 
 
 @dataclass
@@ -125,13 +158,14 @@ def build_engine_program(
     gap_id = np.zeros((ny, nx), dtype=np.int32)
     gap_id[mask] = gap_lookup.astype(np.int32)
     # continuous gap maps (more gaps than the gap-id tables take): exact
-    # per-pixel constants from Δ² (K4), no per-gap stacks
+    # per-pixel constants from Δ² (K4, K6), no per-gap stacks
     analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
-    if use_kernel and device.type == "cuda" and num_energy_bins > MAX_KERNEL_BINS:
+    kernel = collision_kernel_for(num_energy_bins, int(unique_gaps.size)) if use_kernel else None
+    if use_kernel and kernel is None and device.type == "cuda":
         raise NotImplementedError(
             f"{num_energy_bins} energy bins: the collision kernels hold at most "
-            f"{MAX_KERNEL_BINS}; the blocked kernels for more bins (K5, and K6 for "
-            "continuous gap maps) are not ported yet (ROADMAP.md, queue 2, K5/K6)."
+            f"{MAX_BLOCKED_BINS}; the integrator beyond them is not ported to the "
+            "card (ROADMAP.md, queue 1 item 14: NE > 256 on CUDA)."
         )
 
     # --- diffusion backend -------------------------------------------------
@@ -201,7 +235,7 @@ def build_engine_program(
             pixel_chunk=pixel_chunk,
             gap_id=gap_id,
         )
-    tables = build_kernel_tables(plan) if use_kernel else None
+    tables = build_kernel_tables(plan) if kernel is not None else None
 
     rho_state = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
     rho_state[:, mask] = rho_per_pixel
@@ -217,12 +251,14 @@ def build_engine_program(
     np_t = numpy_dtype(dtype)
 
     def make_col(dt_col: float):
-        if analytic:
-            return lambda q, ph, grow=None: collision_step_analytic(
-                plan, atab, tables, q, ph, dt_col, grow
+        if kernel is not None:
+            step = _KERNEL_STEPS[kernel]
+            consts = (plan, atab, tables) if analytic else (plan, tables)
+            return lambda q, ph, grow=None: step(*consts, q, ph, dt_col, grow)
+        if analytic:  # beyond the kernels' bins, on the CPU
+            return lambda q, ph, grow=None: collision_step_analytic_plain(
+                plan, atab, q, ph, dt_col, grow
             )
-        if use_kernel:
-            return lambda q, ph, grow=None: collision_step(plan, tables, q, ph, dt_col, grow)
         return lambda q, ph, grow=None: collision_step_plain(plan, q, ph, dt_col, grow)
 
     no_gen = (None, False, False)

@@ -7,9 +7,9 @@ compiled by its own ``nvcc`` process, all started together, and the
 objects are then linked into the library.  The library is
 built at first use from the sources in the checkout into
 ``build/qpsim_tpu_torch/`` at the checkout root, named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as is.  A missing ``nvcc`` or a failed build raises: there is no
-fallback.
+sources, their headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as is.  A missing
+``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    # the headers the sources include count too
+    for src in sorted(_sources() + list(_CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(repr(_NVCC_FLAGS).encode())
@@ -124,21 +125,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument and return types of every C entry point (pointers as c_void_p)."""
     P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"qp_collision_step_{suffix}")
-        # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
-        # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
-        fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
-        fn.restype = I
-        fn = getattr(lib, f"qp_collision_step_gid_{suffix}")
-        # as above with gid after ph_out
-        fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
-        fn.restype = I
-        fn = getattr(lib, f"qp_collision_step_analytic_{suffix}")
-        # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
-        # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
-        # n_pix, dt, gamma, update_phonons, stream
-        fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
-        fn.restype = I
+        # K3 and K5 (collision_step / collision_blocked) share their arguments,
+        # as do K4 and K6 (…_analytic)
+        for family in ("collision_step", "collision_blocked"):
+            fn = getattr(lib, f"qp_{family}_{suffix}")
+            # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
+            # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
+            fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
+            fn.restype = I
+            fn = getattr(lib, f"qp_{family}_gid_{suffix}")
+            # as above with gid after ph_out
+            fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
+            fn.restype = I
+            fn = getattr(lib, f"qp_{family}_analytic_{suffix}")
+            # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
+            # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
+            # n_pix, dt, gamma, update_phonons, stream
+            fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
+            fn.restype = I
         for half in ("x", "y"):
             fn = getattr(lib, f"qp_adi_{half}_{suffix}")
             # u, out, w_scratch, 7 planes, scale, nb, nbp, ny, nx, alpha, stream

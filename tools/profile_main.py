@@ -2,13 +2,16 @@
 """Where a path's time goes, on one CUDA GPU.
 
 Run from the root of a checkout:
-    python3 tools/profile_main.py [--path coupled|gapmap|scalar] [--out DIR]
+    python3 tools/profile_main.py [--path coupled|gapmap|ne100|scalar] [--out DIR]
 
 ``--path coupled`` (the default) drives the configuration of
 ``chip_smoke.py`` phase 4 (1024² intrinsic rectangle × 16 energy bins,
 100 steps, float32, merged stepping, pulse generation); ``--path gapmap``
 the same configuration with each gap map of phase 4b in turn (the trap,
-through K3 with gap ids, and the gradient, through K4); ``--path scalar``
+through K3 with gap ids, and the gradient, through K4); ``--path ne100``
+the uniform run of phase 4c (the same film at 100 energy bins, NW = 299,
+through K5: 40 steps stored at the start and the end, and every 20 for
+the second timing); ``--path scalar``
 the scalar path of phase 6 (full 1024² film, energy_gap=0, float32), here
 2000 steps stored every 500.  All go through
 ``qpsim_tpu_torch.run_2d_crank_nicolson``, and the script prints, for
@@ -45,8 +48,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import GAP_MAPS, film, main_path_kwargs, scalar_kwargs  # noqa: E402
 
 
-def _coupled(**extra):
-    return lambda: dict(main_path_kwargs(1024), dt=0.05, total_time=5.0, **extra)
+def _coupled(total_time=5.0, **extra):
+    return lambda: dict(main_path_kwargs(1024), dt=0.05, total_time=total_time, **extra)
 
 
 #: per path, its configurations: (name, steps, the two store_every values,
@@ -55,6 +58,7 @@ PATHS = {
     "coupled": [("coupled", 100, (25, 100), _coupled())],
     "gapmap": [(f"gapmap_{name}", 100, (25, 100), _coupled(gap_expression=expr))
                for name, expr in GAP_MAPS.items()],
+    "ne100": [("ne100", 40, (40, 20), _coupled(2.0, num_energy_bins=100))],
     "scalar": [("scalar", 2000, (500, 2000), lambda: scalar_kwargs(
         film(1024, 1024), dt=0.1, steps=2000, store_every=500))],
 }
