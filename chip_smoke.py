@@ -17,7 +17,11 @@ a non-zero exit:
    full films with mixed faces, and the Thomas solve (K10); beyond 64
    bins the blocked collision step (K5) on a uniform gap and with gap
    ids, and its analytic form (K6), at NE = 65 (split ω diagonals), 72
-   (ω rows shared by a difference and a sum), 100 and 256;
+   (ω rows shared by a difference and a sum), 100 and 256; the offset
+   walks, explicit entry points: K8 (uniform and G = 3 gap ids) at NE =
+   16, 72, 100 and 256, K9 at 16, 72 and the split 66 (there also against
+   K3's plain version), and the line solve K7 (Thomas and Wang K = 32,
+   one plane and NB planes, B = 1000);
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
@@ -35,6 +39,13 @@ a non-zero exit:
    on 512² — with exact launch counts and no K3/K4 launch; then K5,
    K5-gid and K6 timed against their plain versions at 1024² × 100, and
    K5 at 256 bins;
+4d. the explicit entry points at full width, float32: each called once
+   with exact launch counts — K8 at 1024² × 100 on phase 4c's inputs
+   (uniform and gap ids) and at 1024² × 256, K9 at 1024² × 72 and × 16,
+   K7's ``solve_lines`` on 16 × 1024 lines of 1024 (Thomas and K = 32)
+   and ``build_adi_step`` on phase 4's rectangle × 16; then each against
+   its plain version and timed beside K5 (100, 72 bins), K3 (16 bins)
+   and K2's fused step (agreeing to 1e-10 in float64);
 5. the same physics on a 128² grid in float64 for 20 steps, kernels
    against the plain path end to end, uniform and with both gap maps;
    then at 100 bins on 64² for 10 steps (K5, K5-gid, K6);
@@ -78,6 +89,7 @@ TOL = {("collision_step", F64): 1e-10, ("collision_step", F32): 5e-7,
        ("collision_step_analytic", F64): 1e-10, ("collision_step_analytic", F32): 5e-6,
        ("adi", F64): 1e-10, ("adi", F32): 5e-6,
        ("adi_sep", F64): 1e-10, ("adi_sep", F32): 5e-6,
+       ("adi_lines", F64): 1e-10, ("adi_lines", F32): 5e-6,
        ("thomas", F64): 1e-10, ("thomas", F32): 5e-6}
 
 
@@ -279,6 +291,42 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
     return kernel, plain, plan, tensors, q.to(dtype), ph.to(dtype), gen.to(dtype)
 
 
+def walk_step(form, ne, n, *, kind="uniform", phonons=True, seed=0, dt=0.025):
+    """K8 (``form`` "loop") or K9 ("rows") on :func:`collision_setup`'s
+    physics at the same ``seed``: the same gaps, gap ids and K tables, so
+    it takes that function's state; built for the card."""
+    from qpsim_tpu_torch.ops.collisions_loop_cuda import build_collision_step_loop
+    from qpsim_tpu_torch.ops.collisions_rows_cuda import build_collision_step_rows
+    from qpsim_tpu_torch.ops.dos import dynes_density_of_states
+    from qpsim_tpu_torch.ops.kernels import recombination_kernel_base, scattering_kernel_base
+
+    E, dE, pm = phonon_map(ne)
+    rng = np.random.default_rng(seed)
+    gaps = (180.0,) if kind == "uniform" else (160.0, 170.0, 180.0)
+    gid = None if kind == "uniform" else rng.integers(0, len(gaps), (n, n))
+    stack = lambda fn: np.stack([fn(E, g, 440.0, 1.2) for g in gaps])
+    rho_g = np.stack([dynes_density_of_states(E, g, 0.0) for g in gaps])
+    args = dict(E_bins=E, dE=dE, pmap=pm, dt=dt, update_phonons=phonons, device="cuda")
+    if form == "rows":  # uniform gap only
+        return build_collision_step_rows(rho=rho_g[0], K_s0=stack(scattering_kernel_base)[0],
+                                         K_r0=stack(recombination_kernel_base)[0], **args)
+    return build_collision_step_loop(rho=rho_g, K_s0=stack(scattering_kernel_base),
+                                     K_r0=stack(recombination_kernel_base), gap_id=gid, **args)
+
+
+def line_system(nb, n, batch, nbp, dtype, seed=4):
+    """K7's inputs: diagonally dominant (NB, N, B) lines (α = 1), NBp planes, a
+    decoupled interval boundary inside the first chunk, a per-bin scale."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-0.3, -0.1, (nbp, n, batch))
+    hi = rng.uniform(-0.3, -0.1, (nbp, n, batch))
+    di = rng.uniform(2.0, 3.0, (nbp, n, batch))
+    lo[:, 0] = hi[:, -1] = lo[:, 17] = hi[:, 16] = 0.0
+    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    return (as_t(rng.uniform(-1.0, 1.0, (nb, n, batch))), as_t(lo), as_t(di), as_t(hi),
+            as_t(rng.uniform(1.0, 1.5, nb)))
+
+
 def rectangle(n):
     from qpsim_tpu_torch.geometry.mask import create_intrinsic_geometry, mask_from_lists
     from qpsim_tpu_torch.models.params import BoundaryCondition
@@ -304,10 +352,9 @@ def donut(n):
     return mask, edges, bcs
 
 
-def adi_planes(geometry, dtype, nb=16, seed=1, per_pixel=False):
-    """K2's planes and a random state: per-bin D(E) (one plane), or with
+def adi_operator(geometry, nb=16, seed=1, per_pixel=False):
+    """The ADI operator of ``geometry``: per-bin D(E) (one plane), or with
     ``per_pixel`` a D(E, x) from a random continuous gap plane (NB planes)."""
-    from qpsim_tpu_torch.ops.adi_cuda import AdiPlanes
     from qpsim_tpu_torch.ops.diffusion import build_directional_stencils, fold_diffusion
     from qpsim_tpu_torch.ops.dos import diffusion_coefficient_of_energy
     from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
@@ -319,8 +366,15 @@ def adi_planes(geometry, dtype, nb=16, seed=1, per_pixel=False):
         D = diffusion_coefficient_of_energy(6.0, E[:, None, None], gap[None])
     else:
         D = diffusion_coefficient_of_energy(6.0, E, 180.0)  # per-bin D(E)
-    op = fold_diffusion(*build_directional_stencils(mask, edges, bcs, 1.0), mask, 1.0, D)
-    planes = AdiPlanes.from_operator(op, "cuda", dtype)
+    return fold_diffusion(*build_directional_stencils(mask, edges, bcs, 1.0), mask, 1.0, D)
+
+
+def adi_planes(geometry, dtype, nb=16, seed=1, per_pixel=False):
+    """K2's planes of :func:`adi_operator` and a random state."""
+    from qpsim_tpu_torch.ops.adi_cuda import AdiPlanes
+
+    planes = AdiPlanes.from_operator(adi_operator(geometry, nb, seed, per_pixel), "cuda", dtype)
+    mask = geometry[0]
     u = np.random.default_rng(seed).uniform(0.0, 1e-5, (nb, *mask.shape)) * mask[None]
     return planes, torch.as_tensor(u, dtype=dtype, device="cuda")
 
@@ -435,15 +489,19 @@ def phase_build() -> None:
     name = None
     for line in ptxas_report().splitlines():
         m = re.search(
-            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel"
+            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel|adi_lines_kernel"
             r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
         b = re.search(r"Compiling entry function '.*?(blocked_collision_kernel)I([fd])NS_\d+(\w+?Consts)", line)
+        o = re.search(r"Compiling entry function '.*?(offset_walk_kernel)I([fd])Lb([01])E", line)
         if m:
             gid = "" if m.group(3) is None else f", gap ids {'on' if m.group(3) == '1' else 'off'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{gid}>"
         elif b:
             name = f"{b.group(1)}<{'float' if b.group(2) == 'f' else 'double'}, {b.group(3)}>"
+        elif o:
+            stage = "phonon values staged" if o.group(3) == "1" else "unstaged"
+            name = f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, {stage}>"
         elif "Compiling entry function" in line:
             name = None
         elif name and ("stack frame" in line or "Used" in line):
@@ -452,6 +510,13 @@ def phase_build() -> None:
     for ne in (65, 100, 256):
         print(f"  blocked_collision_kernel dynamic shared memory per block at NE={ne}: "
               f"{2 * ne * 32 * 4} B (float), {2 * ne * 32 * 8} B (double)")
+    # the offset walk stages q, partner and one phonon value per column (K8:
+    # NE − 1 offsets and 2NE − 1 anti-diagonals) where that fits 227 KB
+    for ne in (16, 72, 100, 256):
+        rows = 2 * ne + (ne - 1) + (2 * ne - 1)
+        forms = [f"{rows * 32 * size} B ({t})" if rows * 32 * size <= 232_448
+                 else f"{2 * ne * 32 * size} B ({t}, unstaged)" for t, size in (("float", 4), ("double", 8))]
+        print(f"  offset_walk_kernel (K8) dynamic shared memory per block at NE={ne}: {', '.join(forms)}")
     sys.stdout.flush()
 
 
@@ -536,6 +601,62 @@ def phase_kernels_vs_plain() -> None:
             got = k10.thomas(*system)
             torch.cuda.synchronize()
             check(f"thomas {lines} lines × {n} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
+    check_offset_walks()
+    check_adi_lines()
+
+
+def check_offset_walks() -> None:
+    """K8 (uniform, G = 3 gap ids) at NE 16, 72 (ω rows shared by a difference
+    and a sum), 100 and 256 (float64 there: the unstaged form); K9 at 16, 72
+    and the split 66, where it also meets K3's plain version; with and
+    without phonons, each against its plain version on collision_setup's state."""
+    from qpsim_tpu_torch.ops.collisions_loop_cuda import build_collision_step_loop
+    from qpsim_tpu_torch.ops.collisions_loop_cuda import collision_step_loop_plain as walk_plain
+
+    for ne in (65, 66):  # split ω diagonals: the K8 builder declines, as the JAX one does
+        E, dE, pm = phonon_map(ne)
+        if build_collision_step_loop(E_bins=E, dE=dE, rho=np.ones(ne), K_s0=np.eye(ne), K_r0=None,
+                                     pmap=pm, dt=0.025, device="cuda") is not None:
+            raise AssertionError(f"the K8 builder must return None at NE={ne}")
+        print(f"  collision_step_loop builder at NE={ne}: None (a split ω diagonal) ok")
+    for form, cases in (("loop", [(16, 128), (72, 128), (100, 128), (256, 64)]),
+                        ("rows", [(16, 128), (72, 128), (66, 128)])):
+        for ne, n in cases:
+            for kind in (("uniform", "gid") if form == "loop" else ("uniform",)):
+                for dtype in (F64, F32):
+                    _, k3_plain, _, _, q, ph, _ = collision_setup(
+                        ne, n, dtype, kind=kind, blocked=ne > 64, pixel_chunk=1024)
+                    for phonons in (True, False):
+                        step = walk_step(form, ne, n, kind=kind, phonons=phonons)
+                        ref = walk_plain(step, q, ph)
+                        got = step(q, ph)
+                        torch.cuda.synchronize()
+                        err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
+                        tag = f"{step.counter} NE={ne} {n}² {str(dtype)[6:]} phonons={phonons}"
+                        check(tag, err, blocked_tol(dtype, ne))
+                        if form == "rows" and ne == 66 and phonons:
+                            k3 = k3_plain(q, ph, 0.025, None)
+                            err = max(scaled_err(got[0], k3[0]), scaled_err(got[1], k3[1]))
+                            check(f"{tag} against K3's plain version (split diagonal)", err,
+                                  blocked_tol(dtype, ne))
+                    del q, ph, ref, got
+    torch.cuda.empty_cache()
+
+
+def check_adi_lines() -> None:
+    """K7: Thomas (chunks 1) and the Wang partition (K = 32) on 16 × 1024-row
+    lines, B = 1000 (not a multiple of 32), one plane and NB planes."""
+    from qpsim_tpu_torch.ops.adi_cuda import solve_lines, solve_lines_plain
+
+    for chunks in (1, 32):
+        for nbp in (1, 16):
+            for dtype in (F64, F32):
+                system = line_system(16, 1024, 1000, nbp, dtype)
+                ref = solve_lines_plain(*system, alpha=1.0, chunks=chunks)
+                got = solve_lines(*system, alpha=1.0, chunks=chunks)
+                torch.cuda.synchronize()
+                check(f"adi_lines K={chunks} 16×1024×1000 nbp={nbp} {str(dtype)[6:]}",
+                      scaled_err(got, ref), TOL[("adi_lines", dtype)])
 
 
 def timed_run(kw: dict, steps: int):
@@ -568,7 +689,13 @@ def coupled_expect(segments, collision: str) -> dict:
     expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
     expect[f"{collision}_with_gen"] = steps
     return expect | {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0,
-                     "thomas": 0}
+                     "thomas": 0} | {k: 0 for k in EXPLICIT_COUNTERS}
+
+
+#: the counters of the explicit entry points (K8, K9, K7), which no path of
+#: ``run_2d_crank_nicolson`` launches
+EXPLICIT_COUNTERS = ("collision_step_loop", "collision_step_loop_gid", "collision_step_rows",
+                     "adi_lines")
 
 
 def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, calls: int = 3) -> dict:
@@ -776,6 +903,125 @@ def phase_blocked_path(card: str) -> list[dict]:
           f"{plain_once:.3f} ms (one call) — float32, {card}", flush=True)
     del kern, plan, tensors, q, ph, gen
     torch.cuda.empty_cache()
+    return rows
+
+
+def phase_explicit_entry_points(card: str) -> list[dict]:
+    print("== 4d explicit entry points at full width, float32: K8 (1024² × 100, uniform and gap ids, "
+          "and × 256), K9 (1024² × 72 and × 16), K7 (16 × 1024 lines of 1024; the unfused ADI step "
+          "on phase 4's rectangle × 16)", flush=True)
+    from qpsim_tpu_torch.ops.adi_cuda import (
+        AdiPlanes,
+        adi_step,
+        build_adi_step,
+        solve_lines,
+        solve_lines_plain,
+    )
+    from qpsim_tpu_torch.ops.collisions_loop_cuda import collision_step_loop_plain as walk_plain
+
+    dt = 0.05
+    alpha = 0.5 * dt
+    # the inputs, made before the counted drive: K8 on K5's phase-4c inputs
+    # (the same physics and state), K9 on K5's at 72 bins and K3's at 16
+    k5 = {kind: collision_setup(100, 1024, F32, kind=kind, blocked=True) for kind in ("uniform", "gid")}
+    k8 = {kind: walk_step("loop", 100, 1024, kind=kind, dt=dt) for kind in k5}
+    _, _, plan256, _, q256, ph256, _ = collision_setup(256, 1024, F32, blocked=True)
+    k8_256 = walk_step("loop", 256, 1024, dt=dt)
+    near = {ne: collision_setup(ne, 1024, F32, blocked=ne > 64) for ne in (72, 16)}
+    k9 = {ne: walk_step("rows", ne, 1024, dt=dt) for ne in near}
+    op = adi_operator(rectangle(1024))
+    planes, u = adi_planes(rectangle(1024), F32)
+    y_lines = (planes.ay_lo, planes.ay_diag, planes.ay_hi, planes.scale)
+    k7_step = build_adi_step(op, dt, F32, device="cuda")
+
+    # the drive: each entry point once, counted
+    reset_counts()
+    ms_256 = timed_once(lambda: k8_256(q256, ph256))[1]
+    for kind, step in k8.items():
+        step(k5[kind][4], k5[kind][5])
+    for ne, step in k9.items():
+        step(near[ne][4], near[ne][5])
+    for chunks in (1, None):
+        solve_lines(u, *y_lines, alpha=alpha, chunks=chunks)
+    k7_step(u)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("explicit entry points", counts, {k: 0 for k in counts} | {
+        "collision_step_loop": 2, "collision_step_loop_gid": 1, "collision_step_rows": 2,
+        "adi_lines": 4})
+    b = bound(*collision_work(plan256, q256, ph256, None, k8_256.tables(F32).kernel_tensors()), F32)
+    print(f"  collision_step_loop NE=256 (NW 767) at 1024²: kernel {ms_256:.4f} ms (one launch), bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) — float32, {card}", flush=True)
+    del q256, ph256, plan256, k8_256
+
+    rows = []
+    walks = [(k8[kind], k5[kind], BLOCKED_KINDS[kind], "pallas_collisions_loop.py:99", 100)
+             for kind in k8]
+    walks += [(k9[ne], near[ne], (BLOCKED_KINDS if ne > 64 else COLLISION_KINDS)["uniform"],
+               "pallas_collisions_rows.py:92", ne) for ne in (72, 16)]
+    for step, (beside, _, plan, _, q, ph, _), beside_name, replaces, ne in walks:
+        # the plain walk: one timed call at 100 and 72 bins (seconds), three at 16
+        ref, plain_ms = timed_once(lambda: walk_plain(step, q, ph))
+        if ne == 16:
+            plain_ms = time_ms(lambda: walk_plain(step, q, ph), 3)
+        got = step(q, ph)
+        torch.cuda.synchronize()
+        tag = f"{step.counter} NE={ne} 1024² float32"
+        check(f"{tag}, q", scaled_err(got[0], ref[0]), blocked_tol(F32, ne))
+        check(f"{tag}, ph", scaled_err(got[1], ref[1]), blocked_tol(F32, ne))
+        reps = 20 if ne == 16 else 5
+        ms = time_ms(lambda: step(q, ph), reps)
+        beside_ms = time_ms(lambda: beside(q, ph, dt, None), reps)
+        row = dict(
+            name=step.counter, route="cuda", source="qpsim_tpu_torch/csrc/offset_walk.cu",
+            replaces=f"qpsim_tpu/ops/{replaces}", launches=counts[step.counter],
+            max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])), ms=ms, plain_ms=plain_ms,
+            **bound(*collision_work(plan, q, ph, None, step.tables(F32).kernel_tensors()), F32),
+            library_ms=None,
+        )
+        print(f"  {tag} (NW {plan.num_omega}): kernel {ms:.4f} ms beside {beside_name} {beside_ms:.4f} ms "
+              f"on the same inputs (no gen), plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) — {card}", flush=True)
+        if ne != 16:  # K9 at 16 bins is printed, the 72-bin launch is its row
+            rows.append(row)
+        del ref, got
+    del k5, k8, near, k9
+    torch.cuda.empty_cache()
+
+    # K7: the y lines of the rectangle, the auto chunk count (K = 32) and Thomas
+    for chunks in (None, 1):
+        ref, got = solve_lines_plain(u, *y_lines, alpha=alpha, chunks=chunks), solve_lines(
+            u, *y_lines, alpha=alpha, chunks=chunks)
+        torch.cuda.synchronize()
+        tag = f"adi_lines K={32 if chunks is None else chunks} 16 × 1024 lines of 1024 float32"
+        check(tag, scaled_err(got, ref), TOL[("adi_lines", F32)])
+        row = dict(
+            name="adi_lines", route="cuda", source="qpsim_tpu_torch/csrc/adi_lines.cu",
+            replaces="qpsim_tpu/ops/pallas_adi.py:131", launches=counts["adi_lines"],
+            max_abs_err=abs_err(got, ref),
+            ms=time_ms(lambda: solve_lines(u, *y_lines, alpha=alpha, chunks=chunks), 20),
+            plain_ms=time_ms(lambda: solve_lines_plain(u, *y_lines, alpha=alpha, chunks=chunks), 3),
+            **bound(nbytes(u, u, *y_lines), 8 * u.numel(), F32), library_ms=None,
+        )
+        print(f"  {tag}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) — {card}", flush=True)
+        if chunks is None:  # the step's choice is the row; Thomas is printed
+            rows.append(row)
+    # the unfused step (two K7 launches) beside K2's fused step on the same operator
+    got, ref = k7_step(u), adi_step(u, planes, alpha)
+    torch.cuda.synchronize()
+    check("build_adi_step vs adi_step (K2) 1024²×16 float32", scaled_err(got, ref), TOL[("adi", F32)])
+    step_ms = time_ms(lambda: k7_step(u), 20)
+    k2_ms = time_ms(lambda: adi_step(u, planes, alpha), 20)
+    planes64 = AdiPlanes.from_operator(op, "cuda", F64)
+    u64 = u.double()
+    check("build_adi_step vs adi_step (K2) 1024²×16 float64",
+          scaled_err(build_adi_step(op, dt, F64, device="cuda")(u64), adi_step(u64, planes64, alpha)),
+          TOL[("adi", F64)])
+    print(f"  build_adi_step (2 adi_lines launches + torch stencils and swaps) {step_ms:.4f} ms/step "
+          f"beside adi_step (K2, 2 launches) {k2_ms:.4f} ms/step, rectangle 1024² × 16, float32 — {card}",
+          flush=True)
+    print_rows(rows, "see above", card)
     return rows
 
 
@@ -1038,6 +1284,7 @@ def main() -> int:
     rows = timed_phase(phase_main_path, card)
     rows += timed_phase(phase_gap_maps, card)
     rows += timed_phase(phase_blocked_path, card)
+    rows += timed_phase(phase_explicit_entry_points, card)
     timed_phase(phase_end_to_end_f64)
     rows += timed_phase(phase_scalar_path, card)
     rows.append(timed_phase(phase_other_diffusion_paths, card))

@@ -25,6 +25,7 @@ __all__ = [
     "split_operator_from_numpy",
     "collision_tables_from_numpy",
     "analytic_tables_from_numpy",
+    "phonon_map_from_numpy",
     "state_to_torch",
     "state_to_numpy",
 ]
@@ -75,7 +76,7 @@ def collision_tables_from_numpy(
         rho=np.asarray(rho, dtype=np.float64),
         K_r0=None if K_r0 is None else np.asarray(K_r0, dtype=np.float64),
         K_s0=None if K_s0 is None else np.asarray(K_s0, dtype=np.float64),
-        pmap=_pmap(omega_bins, idx_diff, idx_sum, diff_sign),
+        pmap=phonon_map_from_numpy(omega_bins, idx_diff, idx_sum, diff_sign),
         enable_recombination=enable_recombination,
         enable_scattering=enable_scattering,
         update_phonons=update_phonons,
@@ -110,7 +111,7 @@ def analytic_tables_from_numpy(
         E_bins=np.asarray(E_bins, dtype=np.float64),
         dE=dE,
         gap_plane=np.asarray(gap_plane, dtype=np.float64),
-        pmap=_pmap(omega_bins, idx_diff, idx_sum, diff_sign),
+        pmap=phonon_map_from_numpy(omega_bins, idx_diff, idx_sum, diff_sign),
         tau_s=tau_s,
         tau_r=tau_r,
         T_c=T_c,
@@ -122,7 +123,9 @@ def analytic_tables_from_numpy(
     )
 
 
-def _pmap(omega_bins, idx_diff, idx_sum, diff_sign) -> PhononFrequencyMap:
+def phonon_map_from_numpy(omega_bins, idx_diff, idx_sum, diff_sign) -> PhononFrequencyMap:
+    """A port ``PhononFrequencyMap`` from the maps of a ``qpsim_tpu`` one
+    (its one-hot scatter matrices rebuilt from the index maps)."""
     omega_bins = np.array(omega_bins, dtype=np.float64)
     idx_diff = np.array(idx_diff, dtype=np.int32)
     idx_sum = np.array(idx_sum, dtype=np.int32)

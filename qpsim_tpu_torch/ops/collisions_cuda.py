@@ -53,13 +53,16 @@ __all__ = [
 #: it), and how many of them took a generation plane: ``collision_step`` is
 #: K3 on a uniform gap, ``collision_step_gid`` K3 with per-pixel gap ids,
 #: ``collision_step_analytic`` K4; ``collision_step_blocked[_gid]`` is K5
-#: and ``collision_step_blocked_analytic`` K6 (``ops.collisions_blocked_cuda``)
+#: and ``collision_step_blocked_analytic`` K6 (``ops.collisions_blocked_cuda``);
+#: ``collision_step_loop[_gid]`` is K8 and ``collision_step_rows`` K9, the
+#: offset walks (``ops.collisions_loop_cuda``, ``ops.collisions_rows_cuda``),
+#: which take no generation plane
 LAUNCHES = {
     f"{name}{form}{gen}": 0
     for name in ("collision_step", "collision_step_blocked")
     for form in ("", "_gid", "_analytic")
     for gen in ("", "_with_gen")
-}
+} | {"collision_step_loop": 0, "collision_step_loop_gid": 0, "collision_step_rows": 0}
 
 #: energy bins the kernels' per-thread arrays hold (kMaxBins in the source)
 MAX_KERNEL_BINS = 64

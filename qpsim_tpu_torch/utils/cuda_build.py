@@ -156,4 +156,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # a, b, c, r, x, w_scratch, n, batch, stream
         fn.argtypes = [P] * 6 + [I, I, P]
         fn.restype = I
+        fn = getattr(lib, f"qp_offset_walk_{suffix}")
+        # q_in, ph_in, q_out, ph_out, gid, rho, e_up, e_dn, a_up, a_dn, scat_k,
+        # scat_row, n_scat, rtab, rec_s, rec_row, s_ptr, n_rec, row_ptr,
+        # row_code, ne, nw, n_pix, dt, update_phonons, stream
+        fn.argtypes = [P] * 12 + [I] + [P] * 4 + [I] + [P] * 2 + [I, I, LL, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"qp_adi_lines_{suffix}")
+        # rhs, lo, di, hi, scale, out, a_scratch, c_scratch, nb, nbp, n, batch, k, alpha, stream
+        fn.argtypes = [P] * 8 + [I] * 5 + [D, P]
+        fn.restype = I
     return lib
