@@ -15,13 +15,14 @@ a non-zero exit:
    gap plane, the fused ADI halves (K2) with one plane and with NB
    per-pixel planes, the separable ADI halves (K1) at NB = 1 and 16 on
    full films with mixed faces, and the Thomas solve (K10); beyond 64
-   bins the blocked collision step (K5) on a uniform gap and with gap
-   ids, and its analytic form (K6), at NE = 65 (split ω diagonals), 72
-   (ω rows shared by a difference and a sum), 100 and 256; the offset
-   walks, explicit entry points: K8 (uniform and G = 3 gap ids) at NE =
-   16, 72, 100 and 256, K9 at 16, 72 and the split 66 (there also against
-   K3's plain version), and the line solve K7 (Thomas and Wang K = 32,
-   one plane and NB planes, B = 1000);
+   bins the collision step on the column walk (K5) on a uniform gap and
+   with gap ids, and its analytic form (K6), at NE = 65 (split ω
+   diagonals), 72 (ω rows shared by a difference and a sum), 100 and 256;
+   the offset walks, explicit entry points on the same kernel: K8
+   (uniform and G = 3 gap ids) at NE = 16, 72, 100 and 256 and with G = 9
+   ids at 16, K9 at 16, 72 and the split 66 (there also against K3's plain
+   version), and the line solve K7 (Thomas and Wang K = 32, one plane and
+   NB planes, B = 1000);
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
@@ -31,14 +32,16 @@ a non-zero exit:
 4b. gap maps at the same width: the coupled path with a quasiparticle
    trap (two gaps: K3 with gap ids) and with a gap gradient (a distinct
    gap per pixel: K4), both through per-pixel D(E, x) on K2's NB planes,
-   with exact launch counts, timed as in phase 4; then K3-gid, K4 and K2
-   on NB planes timed against their plain versions at 1024² × 16;
+   with exact launch counts, timed as in phase 4 over two calls; then
+   K3-gid, K4 and K2 on NB planes timed against their plain versions at
+   1024² × 16;
 4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 40
    steps stored at the start and the end — uniform on the 1024²
-   rectangle through K5, the trap (K5 with gap ids) and a gradient (K6)
-   on 512² — with exact launch counts and no K3/K4 launch; then K5,
-   K5-gid and K6 timed against their plain versions at 1024² × 100, and
-   K5 at 256 bins;
+   rectangle through K5 (two timed calls), the trap (K5 with gap ids) and
+   a gradient (K6) on 512² (one each) — with exact launch counts and no
+   K3/K4 launch; then K5,
+   K5-gid (random ids, and the trap disc's coherent ids) and K6 timed
+   against their plain versions at 1024² × 100, and K5 at 256 bins;
 4d. the explicit entry points at full width, float32: each called once
    with exact launch counts — K8 at 1024² × 100 on phase 4c's inputs
    (uniform and gap ids) and at 1024² × 256, K9 at 1024² × 72 and × 16,
@@ -232,14 +235,16 @@ def phonon_map(ne):
 
 def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, seed=0,
                     blocked=False, pixel_chunk=4096):
-    """A collision kernel, its plain version and a random state at NE bins on an n×n grid.
+    """A collision kernel, its plain version and a random state at NE bins on an
+    n×n grid (an (ny, nx) grid where ``n`` is a pair).
 
     ``kind`` "uniform": one gap (K3); "gid": per-gap tables for G = 3 gaps
-    and random gap ids (K3 with gap ids); "analytic": a random continuous
-    gap plane (K4); with ``blocked`` the same forms through K5 / K6.  The
-    state is drawn on the card from ``seed``.  Returns (kernel_step,
-    plain_step, plan, table tensors, q, ph, gen); each step is
-    ``step(q, ph, dt, gen)``.
+    and random gap ids (K3 with gap ids); "trap": G = 2, the ids of
+    ``GAP_MAPS_100["trap"]``'s disc (coherent, as a trap map's are);
+    "analytic": a random continuous gap plane (K4); with ``blocked`` the
+    same forms through K5 / K6 on their column tables.  The state is drawn
+    on the card from ``seed``.  Returns (kernel_step, plain_step, plan,
+    table tensors, q, ph, gen); each step is ``step(q, ph, dt, gen)``.
     """
     from qpsim_tpu_torch.ops import collisions_blocked_cuda as kb
     from qpsim_tpu_torch.ops import collisions_cuda as kc
@@ -249,23 +254,29 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
 
     E, dE, pm = phonon_map(ne)
     rng = np.random.default_rng(seed)
+    shape = (n, n) if isinstance(n, int) else tuple(n)
     if kind == "analytic":
-        plane = rng.uniform(150.0, 195.0, (n, n))
+        plane = rng.uniform(150.0, 195.0, shape)
         plan, tab = build_analytic_plan(
             E_bins=E, dE=dE, gap_plane=plane, pmap=pm, tau_s=440.0, tau_r=440.0, T_c=1.2,
             dynes_gamma=gamma, update_phonons=phonons, device="cuda", dtype=dtype,
             pixel_chunk=pixel_chunk)
-        tables = kc.build_kernel_tables(plan)
         rho = np.stack([dynes_density_of_states(E, g, gamma) for g in (150.0, 195.0)]).mean(0)
+        if blocked:
+            tables = kb.build_column_tables(plan, tab)
+            tensors = tables.kernel_tensors()
+        else:
+            tables = kc.build_kernel_tables(plan)
+            tensors = (tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi, tab.dEa_s, tab.dEb_s, tab.dEa2_r,
+                       tab.dEb2_r, tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr,
+                       tables.row_code)
         step = kb.collision_step_blocked_analytic if blocked else kc.collision_step_analytic
         kernel = lambda q, ph, dt, g: step(plan, tab, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_analytic_plain(plan, tab, q, ph, dt, g)
-        tensors = (tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi, tab.dEa_s, tab.dEb_s, tab.dEa2_r,
-                   tab.dEb2_r, tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr,
-                   tables.row_code)
     else:
-        gaps = (180.0,) if kind == "uniform" else (160.0, 170.0, 180.0)
-        gid = None if kind == "uniform" else rng.integers(0, len(gaps), (n, n))
+        gaps = {"uniform": (180.0,), "gid": (160.0, 170.0, 180.0), "trap": (160.0, 180.0)}[kind]
+        gid = {"uniform": None, "gid": rng.integers(0, len(gaps), shape),
+               "trap": trap_ids(n) if kind == "trap" else None}[kind]
         stack = lambda fn: np.stack([fn(E, g, 440.0, 1.2) for g in gaps])
         rho_g = np.stack([dynes_density_of_states(E, g, gamma) for g in gaps])
         plan = build_collision_plan_arrays(
@@ -273,28 +284,51 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
             K_s0=stack(scattering_kernel_base), pmap=pm, enable_recombination=True,
             enable_scattering=True, update_phonons=phonons, device="cuda", dtype=dtype, gap_id=gid,
             pixel_chunk=pixel_chunk)
-        tables = kc.build_kernel_tables(plan)
         rho = rho_g.mean(0)
+        if blocked:
+            tables = kb.build_column_tables(plan)
+            tensors = tables.kernel_tensors()
+        else:
+            tables = kc.build_kernel_tables(plan)
+            tensors = (plan.gap_id, tables.rho, tables.ks, tables.kr, tables.idx_diff,
+                       tables.idx_sum, tables.sign, tables.row_ptr, tables.row_code)
         step = kb.collision_step_blocked if blocked else kc.collision_step
         kernel = lambda q, ph, dt, g: step(plan, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_plain(plan, q, ph, dt, g)
-        tensors = (plan.gap_id, tables.rho, tables.ks, tables.kr, tables.idx_diff, tables.idx_sum,
-                   tables.sign, tables.row_ptr, tables.row_code)
     draw = torch.Generator(device="cuda").manual_seed(seed)
     uniform = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
         shape, generator=draw, device="cuda", dtype=F64)
     as_t = lambda a: torch.as_tensor(a, dtype=F64, device="cuda")
-    q = uniform(0.0, 2e-3, (ne, n, n)) * as_t(rho)[:, None, None]
+    q = uniform(0.0, 2e-3, (ne, *shape)) * as_t(rho)[:, None, None]
     ph = as_t(thermal_phonon_occupation(pm.omega_bins, 0.25))[:, None, None] * uniform(
-        0.5, 2.0, (pm.num_omega, n, n))
-    gen = uniform(0.0, 1e-6, (n, n))
+        0.5, 2.0, (pm.num_omega, *shape))
+    gen = uniform(0.0, 1e-6, shape)
     return kernel, plain, plan, tensors, q.to(dtype), ph.to(dtype), gen.to(dtype)
+
+
+def trap_ids(n):
+    """The gap ids of ``GAP_MAPS_100["trap"]`` on an n×n film: the disc
+    (x − ½)² + (y − ½)² < 0.04 at pixel centres takes the lower gap, id 0
+    in ``np.unique`` order, the rest id 1."""
+    c = (np.arange(n) + 0.5) / n
+    return (((c[None, :] - 0.5) ** 2 + (c[:, None] - 0.5) ** 2) >= 0.04).astype(np.int64)
+
+
+def column_counts(ne):
+    """(scattering, recombination) columns of K9's grouping at NE bins (K5/K6's)."""
+    _, _, pm = phonon_map(ne)
+    i, j = np.meshgrid(np.arange(ne), np.arange(ne), indexing="ij")
+    low = i > j
+    n_scat = len(set(zip((i - j)[low], pm.idx_diff[low])))
+    n_rec = len(set(zip((i + j).ravel(), pm.idx_sum.ravel())))
+    return n_scat, n_rec
 
 
 def walk_step(form, ne, n, *, kind="uniform", phonons=True, seed=0, dt=0.025):
     """K8 (``form`` "loop") or K9 ("rows") on :func:`collision_setup`'s
     physics at the same ``seed``: the same gaps, gap ids and K tables, so
-    it takes that function's state; built for the card."""
+    it takes that function's state; built for the card.  ``kind`` "gid9"
+    gives K8 nine gaps and random ids."""
     from qpsim_tpu_torch.ops.collisions_loop_cuda import build_collision_step_loop
     from qpsim_tpu_torch.ops.collisions_rows_cuda import build_collision_step_rows
     from qpsim_tpu_torch.ops.dos import dynes_density_of_states
@@ -302,7 +336,8 @@ def walk_step(form, ne, n, *, kind="uniform", phonons=True, seed=0, dt=0.025):
 
     E, dE, pm = phonon_map(ne)
     rng = np.random.default_rng(seed)
-    gaps = (180.0,) if kind == "uniform" else (160.0, 170.0, 180.0)
+    gaps = {"uniform": (180.0,), "gid": (160.0, 170.0, 180.0),
+            "gid9": tuple(150.0 + 5.0 * g for g in range(9))}[kind]
     gid = None if kind == "uniform" else rng.integers(0, len(gaps), (n, n))
     stack = lambda fn: np.stack([fn(E, g, 440.0, 1.2) for g in gaps])
     rho_g = np.stack([dynes_density_of_states(E, g, 0.0) for g in gaps])
@@ -492,31 +527,31 @@ def phase_build() -> None:
             r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel|adi_lines_kernel"
             r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
-        b = re.search(r"Compiling entry function '.*?(blocked_collision_kernel)I([fd])NS_\d+(\w+?Consts)", line)
-        o = re.search(r"Compiling entry function '.*?(offset_walk_kernel)I([fd])Lb([01])E", line)
+        o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ENS_\d+"
+                      r"(TableConsts|AnalyticConsts)I[fd]E", line)
         if m:
             gid = "" if m.group(3) is None else f", gap ids {'on' if m.group(3) == '1' else 'off'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{gid}>"
-        elif b:
-            name = f"{b.group(1)}<{'float' if b.group(2) == 'f' else 'double'}, {b.group(3)}>"
         elif o:
-            stage = "phonon values staged" if o.group(3) == "1" else "unstaged"
-            name = f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, {stage}>"
+            name = (f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, P={o.group(3)}, "
+                    f"{o.group(4)}>")
         elif "Compiling entry function" in line:
             name = None
         elif name and ("stack frame" in line or "Used" in line):
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
-    # the blocked kernels' dynamic shared memory: q and partner of a 32-pixel tile
-    for ne in (65, 100, 256):
-        print(f"  blocked_collision_kernel dynamic shared memory per block at NE={ne}: "
-              f"{2 * ne * 32 * 4} B (float), {2 * ne * 32 * 8} B (double)")
-    # the offset walk stages q, partner and one phonon value per column (K8:
-    # NE − 1 offsets and 2NE − 1 anti-diagonals) where that fits 227 KB
-    for ne in (16, 72, 100, 256):
-        rows = 2 * ne + (ne - 1) + (2 * ne - 1)
-        forms = [f"{rows * 32 * size} B ({t})" if rows * 32 * size <= 232_448
-                 else f"{2 * ne * 32 * size} B ({t}, unstaged)" for t, size in (("float", 4), ("double", 8))]
-        print(f"  offset_walk_kernel (K8) dynamic shared memory per block at NE={ne}: {', '.join(forms)}")
+    # the column walk's pixels per lane at 1024² and its dynamic shared
+    # memory per block (q and partner of the tile), at K5/K6's columns
+    from qpsim_tpu_torch.ops.column_walk import blocks_per_sm, column_pixels
+
+    for ne in (65, 72, 100, 256):
+        n_scat, n_rec = column_counts(ne)
+        forms = []
+        for dtype, size in ((F32, 4), (F64, 8)):
+            pixels = column_pixels(dtype, ne, 1024 * 1024)
+            smem = 2 * ne * 32 * pixels * size
+            forms.append(f"{str(dtype)[6:]} P={pixels} {smem} B ({blocks_per_sm(smem)} block(s) "
+                         "of 8 warps per SM by shared memory)")
+        print(f"  column_walk_kernel at NE={ne} ({n_scat} + {n_rec} columns): {'; '.join(forms)}")
     sys.stdout.flush()
 
 
@@ -539,26 +574,7 @@ def phase_kernels_vs_plain() -> None:
                             extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
                             check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
                                   f"phonons={phonons}", err, TOL[(name, dtype)])
-    # K5, K5 with gap ids, K6: split ω diagonals (65), ω rows shared by a
-    # difference and a sum (72), the slice's 100 bins, the 256-bin envelope;
-    # with and without gen at 100 bins, with gen (the stepping's case) at
-    # the others
-    for kind, name in BLOCKED_KINDS.items():
-        for ne, n in ((65, 128), (72, 128), (100, 128), (256, 64)):
-            for dtype in (F64, F32):
-                for phonons in (True, False):
-                    for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
-                        kern, plain, _, _, q, ph, gen = collision_setup(
-                            ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma, blocked=True,
-                            pixel_chunk=1024)
-                        for g in ((None, gen) if ne == 100 else (gen,)):
-                            ref = plain(q, ph, 0.025, g)
-                            got = kern(q, ph, 0.025, g)
-                            torch.cuda.synchronize()
-                            err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
-                            extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
-                            check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
-                                  f"phonons={phonons}", err, blocked_tol(dtype, ne))
+    check_blocked()
     for name, geometry in (("rectangle 1024²", rectangle(1024)), ("donut 256²", donut(256))):
         for per_pixel in (False, True):
             for dtype in (F64, F32):
@@ -605,11 +621,41 @@ def phase_kernels_vs_plain() -> None:
     check_adi_lines()
 
 
+def check_blocked() -> None:
+    """K5, K5 with gap ids, K6 on the column walk: split ω diagonals (65), ω
+    rows shared by a difference and a sum (72, on a ragged last tile: 45²
+    pixels, an odd count, at one pixel per lane, and 46 × 45, an even one,
+    at two), the slice's 100 bins, the 256-bin envelope; with and without
+    gen at 100 bins, with gen (the stepping's case) at the others."""
+    from qpsim_tpu_torch.ops.column_walk import column_pixels
+
+    for kind, name in BLOCKED_KINDS.items():
+        for ne, n in ((65, 128), (72, 45), (72, (46, 45)), (100, 128), (256, 64)):
+            n_pix = n * n if isinstance(n, int) else n[0] * n[1]
+            grid = f"{n}²" if isinstance(n, int) else f"{n[0]}×{n[1]}"
+            for dtype in (F64, F32):
+                for phonons in (True, False):
+                    for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
+                        kern, plain, _, _, q, ph, gen = collision_setup(
+                            ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma, blocked=True,
+                            pixel_chunk=1024)
+                        for g in ((None, gen) if ne == 100 else (gen,)):
+                            ref = plain(q, ph, 0.025, g)
+                            got = kern(q, ph, 0.025, g)
+                            torch.cuda.synchronize()
+                            err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
+                            extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
+                            check(f"{name} NE={ne} {grid} P={column_pixels(dtype, ne, n_pix)} "
+                                  f"{str(dtype)[6:]}{extra} gen={g is not None} phonons={phonons}",
+                                  err, blocked_tol(dtype, ne))
+
+
 def check_offset_walks() -> None:
     """K8 (uniform, G = 3 gap ids) at NE 16, 72 (ω rows shared by a difference
-    and a sum), 100 and 256 (float64 there: the unstaged form); K9 at 16, 72
-    and the split 66, where it also meets K3's plain version; with and
-    without phonons, each against its plain version on collision_setup's state."""
+    and a sum), 100 and 256, and with G =
+    9 ids at 16; K9 at 16, 72 and the split 66, where it also meets K3's
+    plain version; with and without phonons, each against its plain version
+    on collision_setup's state."""
     from qpsim_tpu_torch.ops.collisions_loop_cuda import build_collision_step_loop
     from qpsim_tpu_torch.ops.collisions_loop_cuda import collision_step_loop_plain as walk_plain
 
@@ -622,17 +668,20 @@ def check_offset_walks() -> None:
     for form, cases in (("loop", [(16, 128), (72, 128), (100, 128), (256, 64)]),
                         ("rows", [(16, 128), (72, 128), (66, 128)])):
         for ne, n in cases:
-            for kind in (("uniform", "gid") if form == "loop" else ("uniform",)):
+            for kind in ((("uniform", "gid") + (("gid9",) if ne == 16 else ())) if form == "loop"
+                         else ("uniform",)):
                 for dtype in (F64, F32):
                     _, k3_plain, _, _, q, ph, _ = collision_setup(
-                        ne, n, dtype, kind=kind, blocked=ne > 64, pixel_chunk=1024)
+                        ne, n, dtype, kind="gid" if kind == "gid9" else kind, blocked=ne > 64,
+                        pixel_chunk=1024)
                     for phonons in (True, False):
                         step = walk_step(form, ne, n, kind=kind, phonons=phonons)
                         ref = walk_plain(step, q, ph)
                         got = step(q, ph)
                         torch.cuda.synchronize()
                         err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
-                        tag = f"{step.counter} NE={ne} {n}² {str(dtype)[6:]} phonons={phonons}"
+                        tag = (f"{step.counter}{' G=9' if kind == 'gid9' else ''} NE={ne} {n}² "
+                               f"{str(dtype)[6:]} phonons={phonons}")
                         check(tag, err, blocked_tol(dtype, ne))
                         if form == "rows" and ne == 66 and phonons:
                             k3 = k3_plain(q, ph, 0.025, None)
@@ -728,7 +777,9 @@ def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, ca
               f"stored frame, {steps} steps); set-up {su:.3f} s (call to first stored frame); "
               f"whole call {wh / steps:.3f} ms/step (CUDA events)")
     med = float(np.median([r[0] for r in runs]))
-    print(f"  {label} end to end: steady state median {med:.3f} ms/step over {len(runs)} runs "
+    which = f"median {med:.3f} ms/step over {len(runs)} runs" if len(runs) > 1 else \
+        f"{med:.3f} ms/step, one run (no median)"
+    print(f"  {label} end to end: steady state {which} "
           f"(range {min(r[0] for r in runs):.3f}–{max(r[0] for r in runs):.3f}); set-up "
           f"{min(r[1] for r in runs):.3f}–{max(r[1] for r in runs):.3f} s; peak device memory "
           f"{peak_gib:.2f} GiB — {card}", flush=True)
@@ -751,8 +802,9 @@ def collision_row(kind, line, launches, dt, *, ne=16, blocked=False):
 
     K3/K4 (NE = 16): the plain version timed over 3 calls after a warm-up;
     K5/K6 (``blocked``): its one reference call is timed (seconds at 100 bins).
+    ``kind`` "trap" is the gap-id form on the trap disc's coherent ids.
     """
-    name = (BLOCKED_KINDS if blocked else COLLISION_KINDS)[kind]
+    name = (BLOCKED_KINDS if blocked else COLLISION_KINDS)["gid" if kind == "trap" else kind]
     kern, plain, plan, tensors, q, ph, gen = collision_setup(ne, 1024, F32, kind=kind, blocked=blocked)
     ref, plain_once = timed_once(lambda: plain(q, ph, dt, gen))
     got = kern(q, ph, dt, gen)
@@ -761,10 +813,10 @@ def collision_row(kind, line, launches, dt, *, ne=16, blocked=False):
     check(f"{name} NE={ne} 1024² float32 gen=True phonons=True, q", scaled_err(got[0], ref[0]), tol)
     check(f"{name} NE={ne} 1024² float32 gen=True phonons=True, ph", scaled_err(got[1], ref[1]), tol)
     n_bytes, flops = collision_work(plan, q, ph, gen, tensors, analytic=kind == "analytic")
-    source, pallas = (("collisions_blocked.cu", "pallas_collisions_blocked.py") if blocked
+    source, pallas = (("offset_walk.cu", "pallas_collisions_blocked.py") if blocked
                       else ("collisions.cu", "pallas_collisions.py"))
     return dict(
-        name=name, route="cuda", source=f"qpsim_tpu_torch/csrc/{source}",
+        name=name + ("_trap_ids" if kind == "trap" else ""), route="cuda", source=f"qpsim_tpu_torch/csrc/{source}",
         replaces=f"qpsim_tpu/ops/{pallas}:{line}", launches=launches,
         max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
         ms=time_ms(lambda: kern(q, ph, dt, gen), 5 if blocked else 20),
@@ -830,7 +882,9 @@ def phase_gap_maps(card: str) -> list[dict]:
     for map_name, collision in (("trap", "collision_step_gid"), ("gradient", "collision_step_analytic")):
         kw = dict(main_path_kwargs(1024), dt=dt, total_time=5.0, store_every=25,
                   gap_expression=GAP_MAPS[map_name])
-        counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card)
+        # two timed calls each (three on the uniform gap): the script's time
+        # budget holds the 100-bin path's checks
+        counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card, calls=2)
 
     rows = [collision_row("gid", 169, counts["trap"]["collision_step_gid"], dt),
             collision_row("analytic", 429, counts["gradient"]["collision_step_analytic"], dt)]
@@ -875,12 +929,14 @@ def phase_blocked_path(card: str) -> list[dict]:
         kw_map = dict(main_path_kwargs(512), num_energy_bins=100, dt=dt, total_time=dt * steps,
                       store_every=steps, gap_expression=GAP_MAPS_100[map_name])
         counts[map_name] = run_coupled_timed(f"{map_name} map 512² × 100", kw_map, collision, card,
-                                             calls=2)
+                                             calls=1)
 
     # each form at 1024² × 100 against its plain version, then their times
     rows = [collision_row("uniform", 101, counts["uniform"]["collision_step_blocked"], dt,
                           ne=100, blocked=True),
             collision_row("gid", 101, counts["trap"]["collision_step_blocked_gid"], dt,
+                          ne=100, blocked=True),
+            collision_row("trap", 101, counts["trap"]["collision_step_blocked_gid"], dt,
                           ne=100, blocked=True),
             collision_row("analytic", 972, counts["gradient"]["collision_step_blocked_analytic"], dt,
                           ne=100, blocked=True)]

@@ -1,5 +1,5 @@
 // Update rules shared by the collision kernels (collisions.cu: K3, K4;
-// collisions_blocked.cu: K5, K6): the positivity-preserving QP relaxation
+// offset_walk.cu: K5, K6, K8, K9): the positivity-preserving QP relaxation
 // and the frozen-coefficient phonon solve of the plain version
 // (qpsim_tpu_torch/ops/collisions.py, _relaxation_update and
 // _affine_growth_update), with CUDA's own expm1.

@@ -48,7 +48,7 @@
 // (E² − Δ² cancels near the threshold).  Partner = ρ·max(1 − q·(1/ρ), 0).
 //
 // The update rules and the closed-form ρ live in collision_math.cuh, shared
-// with the blocked kernels (collisions_blocked.cu).  expm1 is CUDA's own
+// with the column walk (offset_walk.cu: K5, K6, K8, K9).  expm1 is CUDA's own
 // (the TPU kernels needed a Taylor substitute).
 //
 // Design: one thread per pixel on the (NE, P) layout with the pixel index

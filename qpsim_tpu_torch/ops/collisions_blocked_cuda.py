@@ -1,4 +1,4 @@
-"""The collision substep beyond 64 energy bins: wrappers of ``csrc/collisions_blocked.cu``.
+"""The collision substep beyond 64 energy bins: K5 and K6 on the column walk of ``csrc/offset_walk.cu``.
 
 Port of ``qpsim_tpu.ops.pallas_collisions_blocked``:
 
@@ -14,11 +14,15 @@ They compute the same function as K3 and K4
 (:mod:`qpsim_tpu_torch.ops.collisions_cuda`), for up to
 :data:`MAX_BLOCKED_BINS` bins, so their plain versions are K3's and K4's
 (:func:`~qpsim_tpu_torch.ops.collisions.collision_step_plain`,
-:func:`~qpsim_tpu_torch.ops.collisions.collision_step_analytic_plain`),
-and they take the same tables
-(:func:`~qpsim_tpu_torch.ops.collisions_cuda.build_kernel_tables`).  For tensors
-on the CPU a wrapper runs that plain version; for CUDA tensors it launches
-its kernel or raises — it never falls back.  Launches are counted in
+:func:`~qpsim_tpu_torch.ops.collisions.collision_step_analytic_plain`).
+On the card they walk the TPU kernel's energy offsets and anti-diagonals
+in K9's column form (one column per (offset, ω row) and (anti-diagonal, ω
+row) group, :func:`~qpsim_tpu_torch.ops.collisions_rows_cuda.columns`), so
+split ω diagonals stay exact, with the dt·g plane fused; the tables come
+from :func:`build_column_tables`, once per program, and the launch from
+:mod:`qpsim_tpu_torch.ops.column_walk`.  For tensors on the CPU
+a wrapper runs its plain version; for CUDA tensors it launches the kernel
+or raises — it never falls back.  Launches are counted in
 :data:`~qpsim_tpu_torch.ops.collisions_cuda.LAUNCHES`.
 """
 
@@ -32,10 +36,13 @@ from .collisions import (
     collision_step_analytic_plain,
     collision_step_plain,
 )
-from .collisions_cuda import CollisionKernelTables, analytic_step, table_step
+from .collisions_cuda import MAX_GAP_IDS, check_inputs, count_launch
+from .collisions_rows_cuda import columns
+from .column_walk import ColumnTables, column_tables, launch_column_walk
 
 __all__ = [
     "MAX_BLOCKED_BINS",
+    "build_column_tables",
     "collision_step_blocked",
     "collision_step_blocked_analytic",
 ]
@@ -48,9 +55,67 @@ __all__ = [
 MAX_BLOCKED_BINS = 256
 
 
+def _host(t: torch.Tensor | None):
+    return None if t is None else t.detach().to("cpu", torch.float64).numpy()
+
+
+def build_column_tables(plan: CollisionPlan, analytic: AnalyticTables | None = None) -> ColumnTables:
+    """K5's (``analytic`` None) or K6's column tables for ``plan``, on the
+    plan's device and dtype, built in float64 on the host.
+
+    K5 re-indexes dE·K^s₀ and 2dE·K^r₀ per gap and reads an int32 copy of
+    the plan's gap ids; K6 re-indexes the (a, b) parts of ``analytic``'s Δ²-affine constants.
+    """
+    ne = plan.num_energy_bins
+    dev, dtype = plan.emit_mask.device, plan.emit_mask.dtype
+    scat_on, rec_on = plan.enable_scattering, plan.enable_recombination
+    group = lambda ks, kr: columns(ks if scat_on else None, kr if rec_on else None,
+                                   plan.idx_diff_np, plan.idx_sum_np, ne)
+    shared = dict(num_energy_bins=ne, num_omega=plan.num_omega, device=dev, dtype=dtype)
+    if analytic is None:
+        if plan.rho is None:
+            raise ValueError("an analytic plan runs the analytic collision kernel")
+        if plan.num_gaps > MAX_GAP_IDS:
+            raise ValueError(
+                f"{plan.num_gaps} unique gaps: the gap-id kernel takes at most {MAX_GAP_IDS} "
+                "(continuous gap maps run the analytic kernel)"
+            )
+        ks = _host(plan.K_s0) * plan.dE if scat_on else None
+        kr = _host(plan.K_r0) * (2.0 * plan.dE) if rec_on else None
+        scat_k, scat_row, scat, rec_s, rec_row, rec = group(ks, kr)
+        return column_tables(scat_k=scat_k, scat_row=scat_row, scat=scat, rec_s=rec_s,
+                             rec_row=rec_row, rec=rec, rho=_host(plan.rho), gap_id=plan.gap_id,
+                             **shared)
+    a = analytic
+    stack = lambda t: None if t is None else _host(t)[None]
+    scat_k, scat_row, scat, rec_s, rec_row, rec = group(stack(a.dEa_s), stack(a.dEa2_r))
+    slopes = group(stack(a.dEb_s), stack(a.dEb2_r))  # the same columns
+    scat_b, rec_b = slopes[2], slopes[5]
+    return column_tables(scat_k=scat_k, scat_row=scat_row, scat=scat, rec_s=rec_s, rec_row=rec_row,
+                         rec=rec, scat_b=scat_b, rec_b=rec_b, analytic=a, **shared)
+
+
+def _launch(name: str, plan: CollisionPlan, tables, n_qp, n_ph, dt, gen, analytic=None):
+    if n_qp.device.type != "cuda":
+        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
+    if not isinstance(tables, ColumnTables) or (tables.analytic is None) != (analytic is None):
+        raise TypeError(f"{name} takes the column tables of build_column_tables(plan"
+                        f"{'' if analytic is None else ', analytic'})")
+    named = (("scat", tables.scat), ("rec", tables.rec), ("rho", tables.rho))
+    if analytic is not None:
+        named += (("g2", analytic.g2), ("E", analytic.E), ("e2", analytic.e2), ("zi", analytic.zi))
+    check_inputs(plan, n_qp, n_ph, gen, named, MAX_BLOCKED_BINS)
+    n_pix = n_qp.shape[1] * n_qp.shape[2]
+    if analytic is not None and analytic.g2.numel() != n_pix:
+        raise ValueError(f"the Δ² plane holds {analytic.g2.numel()} pixels, the state {n_pix}")
+    out = launch_column_walk(tables, n_qp, n_ph, dt, gen, plan.update_phonons)
+    count_launch(name, gen)
+    return out
+
+
 def collision_step_blocked(
     plan: CollisionPlan,
-    tables: CollisionKernelTables,
+    tables: ColumnTables,
     n_qp: torch.Tensor,
     n_ph: torch.Tensor,
     dt: float,
@@ -58,19 +123,20 @@ def collision_step_blocked(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One collision substep through K5 (plain version on the CPU).
 
-    Same contract as :func:`~qpsim_tpu_torch.ops.collisions_cuda.collision_step`;
-    a plan with per-pixel gap ids launches the gap-id form.
+    Same contract as :func:`~qpsim_tpu_torch.ops.collisions_cuda.collision_step`,
+    with ``tables`` from :func:`build_column_tables`; a plan with per-pixel
+    gap ids launches the gap-id form (``collision_step_blocked_gid``).
     """
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
-    return table_step("collision_blocked", "collision_step_blocked", MAX_BLOCKED_BINS,
-                      plan, tables, n_qp, n_ph, dt, gen)
+    name = "collision_step_blocked" if plan.gap_id is None else "collision_step_blocked_gid"
+    return _launch(name, plan, tables, n_qp, n_ph, dt, gen)
 
 
 def collision_step_blocked_analytic(
     plan: CollisionPlan,
     analytic: AnalyticTables,
-    tables: CollisionKernelTables,
+    tables: ColumnTables,
     n_qp: torch.Tensor,
     n_ph: torch.Tensor,
     dt: float,
@@ -79,9 +145,9 @@ def collision_step_blocked_analytic(
     """One analytic-gap collision substep through K6 (plain version on the CPU).
 
     Same contract as
-    :func:`~qpsim_tpu_torch.ops.collisions_cuda.collision_step_analytic`.
+    :func:`~qpsim_tpu_torch.ops.collisions_cuda.collision_step_analytic`,
+    with ``tables`` from :func:`build_column_tables` (plan, analytic).
     """
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
-    return analytic_step("collision_blocked", "collision_step_blocked", MAX_BLOCKED_BINS,
-                         plan, analytic, tables, n_qp, n_ph, dt, gen)
+    return _launch("collision_step_blocked_analytic", plan, tables, n_qp, n_ph, dt, gen, analytic)

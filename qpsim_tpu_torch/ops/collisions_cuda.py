@@ -47,6 +47,8 @@ __all__ = [
     "collision_step_analytic",
     "collision_step_analytic_plain",
     "collision_step_plain",
+    "check_inputs",
+    "count_launch",
 ]
 
 #: launches of each collision kernel since import (or since the caller reset
@@ -149,7 +151,10 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_inputs(plan, n_qp, n_ph, gen, named_tables, max_bins: int) -> None:
+def check_inputs(plan, n_qp, n_ph, gen, named_tables, max_bins: int) -> None:
+    """Refuse a collision kernel's inputs that do not match ``plan``: shapes,
+    dtype, device, contiguity of the states, ``gen`` and ``named_tables``
+    ((name, tensor) pairs, None skipped), and more than ``max_bins`` bins."""
     if not plan.active:
         raise ValueError("collision kernel called with no collision channel enabled")
     if n_qp.dtype not in (torch.float32, torch.float64):
@@ -184,7 +189,8 @@ def _pair_ptrs(tables: CollisionKernelTables) -> list:
     return [_ptr(t) for t in (tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr, tables.row_code)]
 
 
-def _count(name: str, gen) -> None:
+def count_launch(name: str, gen) -> None:
+    """Count one launch of ``name`` in :data:`LAUNCHES` (and of ``name_with_gen`` with a gen plane)."""
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}_with_gen"] += gen is not None
 
@@ -193,20 +199,14 @@ def _suffix(n_qp: torch.Tensor) -> str:
     return "f32" if n_qp.dtype == torch.float32 else "f64"
 
 
-def table_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
-               tables: CollisionKernelTables, n_qp, n_ph, dt: float, gen):
-    """Launch a per-gap-table collision kernel (K3 or K5) on CUDA tensors.
-
-    ``entry`` is the C entry's family (``qp_<entry>[_gid]_<f32|f64>``),
-    ``name`` its launch counter (``<name>[_gid]``), ``max_bins`` the bins
-    the kernel holds.
-    """
+def _table_step(plan: CollisionPlan, tables: CollisionKernelTables, n_qp, n_ph, dt: float, gen):
+    """Launch K3 (``qp_collision_step[_gid]_<f32|f64>``) on CUDA tensors."""
     if n_qp.device.type != "cuda":
         raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
     if tables.rho is None:
         raise ValueError("an analytic plan runs the analytic collision kernel")
-    _check_inputs(plan, n_qp, n_ph, gen,
-                  (("rho", tables.rho), ("ks", tables.ks), ("kr", tables.kr)), max_bins)
+    check_inputs(plan, n_qp, n_ph, gen,
+                  (("rho", tables.rho), ("ks", tables.ks), ("kr", tables.kr)), MAX_KERNEL_BINS)
     n_pix = n_qp.shape[1] * n_qp.shape[2]
     gid = plan.gap_id
     if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
@@ -219,34 +219,32 @@ def table_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
     tail = [_ptr(tables.rho), _ptr(tables.ks), _ptr(tables.kr), *_pair_ptrs(tables),
             plan.num_energy_bins, plan.num_omega, n_pix, float(dt),
             int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream]
+    name = "collision_step" if gid is None else "collision_step_gid"
     if gid is None:
-        err = getattr(lib, f"qp_{entry}_{_suffix(n_qp)}")(*head, *tail)
+        err = getattr(lib, f"qp_collision_step_{_suffix(n_qp)}")(*head, *tail)
     else:
-        name = f"{name}_gid"
-        err = getattr(lib, f"qp_{entry}_gid_{_suffix(n_qp)}")(*head, _ptr(gid), *tail)
+        err = getattr(lib, f"qp_collision_step_gid_{_suffix(n_qp)}")(*head, _ptr(gid), *tail)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    _count(name, gen)
+    count_launch(name, gen)
     return q_out, ph_out
 
 
-def analytic_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
-                  analytic: AnalyticTables, tables: CollisionKernelTables, n_qp, n_ph,
-                  dt: float, gen):
-    """Launch an analytic-gap collision kernel (K4 or K6) on CUDA tensors;
-    arguments as :func:`table_step` (entry ``qp_<entry>_analytic_<f32|f64>``)."""
+def _analytic_step(plan: CollisionPlan, analytic: AnalyticTables, tables: CollisionKernelTables,
+                   n_qp, n_ph, dt: float, gen):
+    """Launch K4 (``qp_collision_step_analytic_<f32|f64>``) on CUDA tensors."""
     if n_qp.device.type != "cuda":
         raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
     a = analytic
-    _check_inputs(plan, n_qp, n_ph, gen, (
+    check_inputs(plan, n_qp, n_ph, gen, (
         ("g2", a.g2), ("E", a.E), ("inv_E", a.inv_E), ("e2", a.e2), ("zi", a.zi),
         ("dEa_s", a.dEa_s), ("dEb_s", a.dEb_s), ("dEa2_r", a.dEa2_r), ("dEb2_r", a.dEb2_r)),
-        max_bins)
+        MAX_KERNEL_BINS)
     n_pix = n_qp.shape[1] * n_qp.shape[2]
     if a.g2.numel() != n_pix:
         raise ValueError(f"the Δ² plane holds {a.g2.numel()} pixels, the state {n_pix}")
     lib = load_kernels()
-    fn = getattr(lib, f"qp_{entry}_analytic_{_suffix(n_qp)}")
+    fn = getattr(lib, f"qp_collision_step_analytic_{_suffix(n_qp)}")
     q_out, ph_out = _outputs(plan, n_qp, n_ph)
     scat, rec = plan.enable_scattering, plan.enable_recombination
     err = fn(
@@ -260,8 +258,8 @@ def analytic_step(entry: str, name: str, max_bins: int, plan: CollisionPlan,
         int(plan.update_phonons), torch.cuda.current_stream(n_qp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{name}_analytic kernel launch failed with CUDA error {err}")
-    _count(f"{name}_analytic", gen)
+        raise RuntimeError(f"collision_step_analytic kernel launch failed with CUDA error {err}")
+    count_launch("collision_step_analytic", gen)
     return q_out, ph_out
 
 
@@ -283,8 +281,7 @@ def collision_step(
     """
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
-    return table_step("collision_step", "collision_step", MAX_KERNEL_BINS,
-                      plan, tables, n_qp, n_ph, dt, gen)
+    return _table_step(plan, tables, n_qp, n_ph, dt, gen)
 
 
 def collision_step_analytic(
@@ -303,5 +300,4 @@ def collision_step_analytic(
     """
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
-    return analytic_step("collision_step", "collision_step", MAX_KERNEL_BINS,
-                         plan, analytic, tables, n_qp, n_ph, dt, gen)
+    return _analytic_step(plan, analytic, tables, n_qp, n_ph, dt, gen)

@@ -1,4 +1,4 @@
-"""The collision substep walked by energy offset: K8, and the column form it shares with K9.
+"""The collision substep walked by energy-offset columns: K8, and the column form it shares with K9.
 
 Port of ``qpsim_tpu.ops.pallas_collisions_loop.build_pallas_collision_step_loop``
 (K8), an explicit entry point of the JAX package that its ``auto``
@@ -17,16 +17,18 @@ as **columns**: a scattering column has an offset k, an ω row and four
 (the JAX builder's ``_offset_tables`` and ``_antidiag_table``, so it
 returns ``None`` where a diagonal splits two ω bins); K9
 (:mod:`qpsim_tpu_torch.ops.collisions_rows_cuda`) one per (offset, ω row)
-and (anti-diagonal, ω row) group.  Both run the CUDA kernel
-``csrc/offset_walk.cu`` on CUDA tensors and the plain column walk
-(:func:`collision_step_loop_plain`) on CPU tensors.  They compute the
-collision substep of K3
-(:func:`~qpsim_tpu_torch.ops.collisions.collision_step_plain`) without a
-generation plane.
+and (anti-diagonal, ω row) group.  On CUDA tensors both launch the column
+walk of :mod:`qpsim_tpu_torch.ops.column_walk` (``csrc/offset_walk.cu``,
+which K5 and K6 launch too), on CPU tensors they run the plain column walk
+(:func:`collision_step_loop_plain`).  They compute the collision substep
+of K3 (:func:`~qpsim_tpu_torch.ops.collisions.collision_step_plain`)
+without a generation plane.
 
-The host tables are built in float64, as the JAX builders build theirs,
-and moved to the device once per dtype.  The host helpers below are the
-JAX package's (``pallas_collisions._uniform_pair_rows``, ``_grid_uniform``;
+The kernel reads e_dn and a_dn only (e_up[i] = e_dn[i+k], a_up[i] =
+a_dn[i+k]), packed as one (G, NE, C, 2) table.  The host tables are built
+in float64, as the JAX builders build theirs, and moved to the device once
+per dtype.  The host helpers below are the JAX package's
+(``pallas_collisions._uniform_pair_rows``, ``_grid_uniform``;
 ``pallas_collisions_loop._round_up``, ``_offset_tables``,
 ``_antidiag_table``), copied unchanged and pinned equal to them by
 ``tests/test_torch_offset_walks.py``.
@@ -39,24 +41,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.cuda_build import load_kernels
 from .collisions import _affine_growth_update, _relaxation_update
-from .collisions_cuda import LAUNCHES, MAX_GAP_IDS
+from .collisions_cuda import LAUNCHES
+from .column_walk import ColumnTables, column_tables, launch_column_walk, row_lists
 from .phonon_map import PhononFrequencyMap
 
 __all__ = [
-    "MAX_SHARED_BYTES",
     "OffsetWalk",
     "WalkStep",
     "build_collision_step_loop",
     "collision_step_loop_plain",
 ]
 
-#: dynamic shared memory a block may opt into on the H100 (227 KB); q and
-#: partner of a 32-pixel tile must fit it: NE ≤ 907 in float32, 453 in float64
-MAX_SHARED_BYTES = 232_448
-
-_TILE = 32  # pixels per block of csrc/offset_walk.cu
 _RHO_FLOOR = 1e-30
 
 
@@ -138,7 +134,7 @@ class OffsetWalk:
 
     ``scat`` holds (e_up, e_dn, a_up, a_dn), each (G, NE, Cs), scaled by dE;
     ``rec`` R (G, NE, Cr), scaled by 2dE; either is None when its channel is
-    off.  Recombination columns are sorted by anti-diagonal.  ``gap_id`` is
+    off.  Columns are sorted by offset and by anti-diagonal.  ``gap_id`` is
     the dense (Ny·Nx,) plane of gap ids (None on a uniform gap).
     """
 
@@ -156,69 +152,10 @@ class OffsetWalk:
     gap_id: np.ndarray | None
 
     def row_lists(self) -> tuple[np.ndarray, np.ndarray]:
-        """(row_ptr, row_code): each ω row's columns, code = column·2 + kind
-        (0 scattering, 1 recombination), in column order within a row."""
-        rows = [np.zeros(0, np.int64)]
-        codes = [np.zeros(0, np.int64)]
-        if self.scat is not None:
-            rows.append(self.scat_row.astype(np.int64))
-            codes.append(np.arange(self.scat_row.size, dtype=np.int64) * 2)
-        if self.rec is not None:
-            rows.append(self.rec_row.astype(np.int64))
-            codes.append(np.arange(self.rec_row.size, dtype=np.int64) * 2 + 1)
-        row, code = np.concatenate(rows), np.concatenate(codes)
-        order = np.argsort(row, kind="stable")
-        row_ptr = np.zeros(self.num_omega + 1, dtype=np.int32)
-        row_ptr[1:] = np.cumsum(np.bincount(row, minlength=self.num_omega))
-        return row_ptr, code[order].astype(np.int32)
-
-    def s_ptr(self) -> np.ndarray:
-        """(2NE,) the first recombination column of each anti-diagonal s
-        (one past the last column at s = 2NE − 1)."""
-        return np.searchsorted(self.rec_s, np.arange(2 * self.num_energy_bins)).astype(np.int32)
-
-
-@dataclass
-class WalkTables:
-    """An :class:`OffsetWalk` on the device, in the state dtype."""
-
-    rho: torch.Tensor  # (G, NE)
-    scat: tuple[torch.Tensor, ...] | None  # e_up, e_dn, a_up, a_dn (G, NE, Cs)
-    scat_k: torch.Tensor  # int32
-    scat_row: torch.Tensor
-    rec: torch.Tensor | None  # (G, NE, Cr)
-    rec_s: torch.Tensor
-    rec_row: torch.Tensor
-    s_ptr: torch.Tensor
-    row_ptr: torch.Tensor
-    row_code: torch.Tensor
-    touched: torch.Tensor  # (NW,) bool: rows some column lands on
-    gid: torch.Tensor | None  # (Ny·Nx,) uint8, the kernel's
-    gid_index: torch.Tensor | None  # the same as int64, the plain version's
-
-    @classmethod
-    def build(cls, walk: OffsetWalk, device, dtype: torch.dtype) -> "WalkTables":
-        as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-        ints = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=device)
-        row_ptr, row_code = walk.row_lists()
-        gid = None if walk.gap_id is None else torch.as_tensor(walk.gap_id, device=device)
-        return cls(
-            rho=as_dev(walk.rho),
-            scat=None if walk.scat is None else tuple(as_dev(t) for t in walk.scat),
-            scat_k=ints(walk.scat_k), scat_row=ints(walk.scat_row),
-            rec=None if walk.rec is None else as_dev(walk.rec),
-            rec_s=ints(walk.rec_s), rec_row=ints(walk.rec_row), s_ptr=ints(walk.s_ptr()),
-            row_ptr=ints(row_ptr), row_code=ints(row_code),
-            touched=torch.as_tensor(np.diff(row_ptr) > 0, device=device),
-            gid=None if gid is None else gid.to(torch.uint8),
-            gid_index=None if gid is None else gid.to(torch.int64),
-        )
-
-    def kernel_tensors(self) -> list:
-        """Every table the kernel reads (for byte counts)."""
-        return [t for t in (self.rho, *(self.scat or ()), self.scat_k, self.scat_row, self.rec,
-                            self.rec_s, self.rec_row, self.s_ptr, self.row_ptr, self.row_code,
-                            self.gid) if t is not None]
+        """(row_ptr, row_code) of :func:`~qpsim_tpu_torch.ops.column_walk.row_lists`
+        for this walk's channels."""
+        return row_lists(self.num_omega, None if self.scat is None else self.scat_row,
+                          None if self.rec is None else self.rec_row)
 
 
 def collision_step_loop_plain(step: WalkStep, n_qp: torch.Tensor,
@@ -230,7 +167,7 @@ def collision_step_loop_plain(step: WalkStep, n_qp: torch.Tensor,
     ne, nw = walk.num_energy_bins, walk.num_omega
     q = n_qp.reshape(ne, -1)
     ph = n_ph.reshape(nw, -1)
-    gid = tables.gid_index
+    gid = None if tables.gid is None else tables.gid.long()
     # a (G, NE[, C]) table as (NE, 1) on a uniform gap, (NE, P) per pixel
     per_px = (lambda t: t[0, :, None]) if gid is None else (lambda t: t[gid].T)
     rho = per_px(tables.rho)
@@ -242,19 +179,19 @@ def collision_step_loop_plain(step: WalkStep, n_qp: torch.Tensor,
         a_ph = torch.zeros_like(ph)
         b_ph = torch.zeros_like(ph)
     if tables.scat is not None:
-        e_up, e_dn, a_up, a_dn = tables.scat
         for c, (k, row) in enumerate(zip(walk.scat_k.tolist(), walk.scat_row.tolist())):
             n = ne - k
             d = ph[row]
             em = 1.0 + d  # emission: 1 + n_ph; absorption: n_ph
-            eu, au = per_px(e_up[:, :, c])[:n], per_px(a_up[:, :, c])[:n]
-            loss[k:] += per_px(e_dn[:, :, c])[k:] * em * partner[:n]  # emission i → i−k
-            gain[k:] += per_px(a_dn[:, :, c])[k:] * d * q[:n]  # absorption i−k → i
-            loss[:n] += au * d * partner[k:]  # absorption i → i+k
-            gain[:n] += eu * em * q[k:]  # emission i+k → i
+            # the column's pairs (m, m−k), m ≥ k: K[m, m−k] and K[m−k, m]
+            ed, ad = per_px(tables.scat[:, :, c, 0])[k:], per_px(tables.scat[:, :, c, 1])[k:]
+            loss[k:] += ed * em * partner[:n]  # emission i → i−k
+            gain[k:] += ad * d * q[:n]  # absorption i−k → i
+            loss[:n] += ad * d * partner[k:]  # absorption i → i+k
+            gain[:n] += ed * em * q[k:]  # emission i+k → i
             if phonons:
-                p_em = (eu * q[k:] * partner[:n]).sum(0)
-                p_ab = (au * q[:n] * partner[k:]).sum(0)
+                p_em = (ed * q[k:] * partner[:n]).sum(0)
+                p_ab = (ad * q[:n] * partner[k:]).sum(0)
                 a_ph[row] += p_em
                 b_ph[row] += p_em - p_ab
     if tables.rec is not None:
@@ -281,39 +218,6 @@ def collision_step_loop_plain(step: WalkStep, n_qp: torch.Tensor,
     return q_new, ph_new.reshape(n_ph.shape)
 
 
-def _launch(walk: OffsetWalk, tables: WalkTables, counter: str, n_qp, n_ph):
-    if n_qp.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"offset-walk kernel takes float32 or float64, got {n_qp.dtype}")
-    ne, nw = walk.num_energy_bins, walk.num_omega
-    state_bytes = 2 * ne * _TILE * n_qp.element_size()
-    if state_bytes > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"offset-walk kernel: {ne} bins of a 32-pixel tile take {state_bytes} B of shared "
-            f"memory, a block holds {MAX_SHARED_BYTES}"
-        )
-    n_pix = n_qp.shape[1] * n_qp.shape[2]
-    lib = load_kernels()
-    fn = lib.qp_offset_walk_f32 if n_qp.dtype == torch.float32 else lib.qp_offset_walk_f64
-    q_out = torch.empty_like(n_qp)
-    ph_out = torch.empty_like(n_ph) if walk.update_phonons else n_ph
-    ptr = lambda t: None if t is None else t.data_ptr()
-    scat = tables.scat or (None,) * 4
-    err = fn(
-        n_qp.data_ptr(), n_ph.data_ptr(), q_out.data_ptr(),
-        ph_out.data_ptr() if walk.update_phonons else None,
-        ptr(tables.gid), tables.rho.data_ptr(), *map(ptr, scat),
-        tables.scat_k.data_ptr(), tables.scat_row.data_ptr(), int(tables.scat_k.numel()),
-        ptr(tables.rec), tables.rec_s.data_ptr(), tables.rec_row.data_ptr(), tables.s_ptr.data_ptr(),
-        int(tables.rec_s.numel()), tables.row_ptr.data_ptr(), tables.row_code.data_ptr(),
-        ne, nw, n_pix, float(walk.dt), int(walk.update_phonons),
-        torch.cuda.current_stream(n_qp.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{counter} kernel launch failed with CUDA error {err}")
-    LAUNCHES[counter] += 1
-    return q_out, ph_out
-
-
 class WalkStep:
     """``step(n_qp, n_ph) -> (n_qp, n_ph)`` of an :class:`OffsetWalk`.
 
@@ -327,14 +231,19 @@ class WalkStep:
         self.walk = walk
         self.device = torch.device(device)
         self.counter = counter
-        self._tables: dict[torch.dtype, WalkTables] = {}
+        self._tables: dict[torch.dtype, ColumnTables] = {}
 
-    def tables(self, dtype: torch.dtype) -> WalkTables:
+    def tables(self, dtype: torch.dtype) -> ColumnTables:
         if dtype not in self._tables:
-            self._tables[dtype] = WalkTables.build(self.walk, self.device, dtype)
+            w = self.walk
+            self._tables[dtype] = column_tables(
+                num_energy_bins=w.num_energy_bins, num_omega=w.num_omega, scat_k=w.scat_k,
+                scat_row=w.scat_row, scat=w.scat, rec_s=w.rec_s, rec_row=w.rec_row, rec=w.rec,
+                device=self.device, dtype=dtype, rho=w.rho, gap_id=w.gap_id,
+            )
         return self._tables[dtype]
 
-    def _checked(self, n_qp: torch.Tensor, n_ph: torch.Tensor) -> WalkTables:
+    def _checked(self, n_qp: torch.Tensor, n_ph: torch.Tensor) -> ColumnTables:
         dev = self.device
         for name, t in (("n_qp", n_qp), ("n_ph", n_ph)):
             if t.device.type != dev.type or (dev.index is not None and t.device.index != dev.index):
@@ -355,9 +264,9 @@ class WalkStep:
         if n_qp.device.type == "cpu":
             return collision_step_loop_plain(self, n_qp, n_ph)
         tables = self._checked(n_qp, n_ph)
-        if n_qp.device.type != "cuda":
-            raise ValueError(f"offset-walk kernel runs on CUDA tensors, got {n_qp.device}")
-        return _launch(self.walk, tables, self.counter, n_qp, n_ph)
+        out = launch_column_walk(tables, n_qp, n_ph, self.walk.dt, None, self.walk.update_phonons)
+        LAUNCHES[self.counter] += 1
+        return out
 
 
 def _identity(n_qp, n_ph):
@@ -383,10 +292,10 @@ def build_collision_step_loop(
     Nx) and (NW, Ny, Nx); ``None`` for NE < 2 or where an ω diagonal splits
     (``_uniform_pair_rows``); the identity with neither channel on.  A gap
     map passes ``rho``/``K_s0``/``K_r0`` stacked (G, NE)/(G, NE, NE) with
-    the dense (Ny, Nx) ``gap_id`` plane (0 on masked-out cells), G ≤
-    :data:`~qpsim_tpu_torch.ops.collisions_cuda.MAX_GAP_IDS` (uint8 ids, as
-    K3 and K5); such a step counts its launches as
-    ``collision_step_loop_gid``, a uniform gap as ``collision_step_loop``.
+    the dense (Ny, Nx) ``gap_id`` plane (0 on masked-out cells), any G (the
+    kernel reads int32 ids); such a step
+    counts its launches as ``collision_step_loop_gid``, a uniform gap as
+    ``collision_step_loop``.
     """
     e = np.asarray(E_bins, dtype=np.float64)
     ne = int(e.size)
@@ -403,8 +312,6 @@ def build_collision_step_loop(
         rho_g = rho_g[None]
     n_gaps = rho_g.shape[0]
     multi_gap = gap_id is not None and n_gaps > 1
-    if multi_gap and n_gaps > MAX_GAP_IDS:
-        raise ValueError(f"{n_gaps} unique gaps: the gap-id kernel takes at most {MAX_GAP_IDS}")
     used = n_gaps if multi_gap else 1  # without ids every pixel takes gap 0's tables
     stack = lambda K: np.asarray(K, dtype=np.float64).reshape(n_gaps, ne, ne)[:used]
     gid = None
@@ -412,7 +319,6 @@ def build_collision_step_loop(
         gid = np.asarray(gap_id).reshape(-1)
         if gid.size and (gid.min() < 0 or gid.max() >= n_gaps):
             raise ValueError(f"gap ids must lie in [0, {n_gaps})")
-        gid = gid.astype(np.uint8)
     scat = None
     if K_s0 is not None:
         tabs = [_offset_tables(K, ne, ne, ne) for K in stack(K_s0)]

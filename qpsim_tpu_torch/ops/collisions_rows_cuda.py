@@ -6,8 +6,10 @@ auto-dispatched).  It walks the offsets and anti-diagonals as K8 does
 (:mod:`qpsim_tpu_torch.ops.collisions_loop_cuda`), but keeps one column per
 (offset, ω row) and (anti-diagonal, ω row) group, so a diagonal whose pairs
 the ω grid splits over two bins becomes two columns and stays exact.  The
-same CUDA kernel (``csrc/offset_walk.cu``) runs both; this module builds
-K9's columns.  Uniform gap only.
+same CUDA kernel (``csrc/offset_walk.cu``, launched through
+:mod:`qpsim_tpu_torch.ops.column_walk`) runs both; this module builds
+K9's columns (:func:`columns`, also K5's and K6's grouping).  Uniform gap
+only.
 
 The grouping (:func:`_scattering_columns`, :func:`_recombination_columns`)
 is the JAX builder's (``pallas_collisions_rows.py:136-178``), copied with
@@ -31,6 +33,7 @@ from .phonon_map import PhononFrequencyMap
 __all__ = [
     "MAX_ROWS_BINS",
     "build_collision_step_rows",
+    "columns",
     "collision_step_rows_plain",
     "rows_walk",
 ]
@@ -87,27 +90,43 @@ def _recombination_columns(K_r0: np.ndarray, idx_sum: np.ndarray, ne: int, ne_pa
 collision_step_rows_plain = collision_step_loop_plain
 
 
+def columns(K_s0, K_r0, idx_diff, idx_sum, ne: int):
+    """K9's grouping of per-gap stacks ``K_s0``/``K_r0`` (G, NE, NE), either
+    None when its channel is off: ``(scat_k, scat_row, scat, rec_s, rec_row,
+    rec)`` with ``scat`` the four (G, NE, Cs) tables of
+    :func:`_scattering_columns` and ``rec`` (G, NE, Cr), unscaled.  The
+    grouping depends only on the ω maps, so every gap has the same columns."""
+    idx_diff, idx_sum = np.asarray(idx_diff), np.asarray(idx_sum)
+    empty = np.zeros(0, np.int64)
+    scat_k = scat_row = rec_s = rec_row = empty
+    scat = rec = None
+    if K_s0 is not None:
+        per_gap = [_scattering_columns(K, idx_diff, ne, ne) for K in np.asarray(K_s0, np.float64)]
+        cols = per_gap[0][0]
+        scat_k, scat_row = (np.asarray([c[i] for c in cols], np.int64) for i in (0, 1))
+        scat = tuple(np.stack([tabs[i] for _, tabs in per_gap]) for i in range(4))
+    if K_r0 is not None:
+        per_gap = [_recombination_columns(K, idx_sum, ne, ne) for K in np.asarray(K_r0, np.float64)]
+        cols = per_gap[0][0]
+        rec_s, rec_row = (np.asarray([c[i] for c in cols], np.int64) for i in (0, 1))
+        rec = np.stack([r_tab for _, r_tab in per_gap])
+    return scat_k, scat_row, scat, rec_s, rec_row, rec
+
+
 def rows_walk(*, E_bins, dE, rho, K_s0, K_r0, pmap: PhononFrequencyMap, dt,
               update_phonons=True) -> OffsetWalk:
     """K9's column form at any NE ≥ 2 on a uniform grid (no bin cap)."""
     e = np.asarray(E_bins, dtype=np.float64)
     ne = int(e.size)
-    idx_diff, idx_sum = np.asarray(pmap.idx_diff), np.asarray(pmap.idx_sum)
-    empty = np.zeros(0, np.int64)
-    scat_k = scat_row = rec_s = rec_row = empty
-    scat = rec = None
-    if K_s0 is not None:
-        cols, tabs = _scattering_columns(K_s0, idx_diff, ne, ne)
-        scat_k, scat_row = (np.asarray([c[i] for c in cols], np.int64) for i in (0, 1))
-        scat = tuple(float(dE) * t[None] for t in tabs)
-    if K_r0 is not None:
-        cols, r_tab = _recombination_columns(K_r0, idx_sum, ne, ne)
-        rec_s, rec_row = (np.asarray([c[i] for c in cols], np.int64) for i in (0, 1))
-        rec = (2.0 * float(dE)) * r_tab[None]
+    stack = lambda K: None if K is None else np.asarray(K, dtype=np.float64)[None]
+    scat_k, scat_row, scat, rec_s, rec_row, rec = columns(
+        stack(K_s0), stack(K_r0), pmap.idx_diff, pmap.idx_sum, ne)
     return OffsetWalk(
         num_energy_bins=ne, num_omega=pmap.num_omega, dt=float(dt),
         update_phonons=bool(update_phonons), rho=np.asarray(rho, dtype=np.float64)[None],
-        scat_k=scat_k, scat_row=scat_row, scat=scat, rec_s=rec_s, rec_row=rec_row, rec=rec,
+        scat_k=scat_k, scat_row=scat_row,
+        scat=None if scat is None else tuple(float(dE) * t for t in scat),
+        rec_s=rec_s, rec_row=rec_row, rec=None if rec is None else (2.0 * float(dE)) * rec,
         gap_id=None,
     )
 

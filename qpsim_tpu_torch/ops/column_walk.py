@@ -1,0 +1,234 @@
+"""The column walk's device tables and launch: ``csrc/offset_walk.cu``, shared by K5, K6, K8 and K9.
+
+The collision substep in column form (see
+:mod:`qpsim_tpu_torch.ops.collisions_loop_cuda` for the columns): a
+scattering column has an offset k ≥ 1, an ω row and, for every bin m ≥ k
+whose pair (m, m − k) lies in the column's group, (K[m, m−k], K[m−k, m])·dE;
+a recombination column an anti-diagonal s, an ω row and 2dE·K^r₀[i, s−i].
+K8 groups by offset and anti-diagonal
+(:mod:`~qpsim_tpu_torch.ops.collisions_loop_cuda`), K9, K5 and K6 by
+(offset, ω row) and (anti-diagonal, ω row)
+(:func:`~qpsim_tpu_torch.ops.collisions_rows_cuda.columns`).  This module
+moves such host tables to the device (:func:`column_tables`), picks the
+launch's pixels per lane (:func:`column_pixels`) and launches the kernel
+(:func:`launch_column_walk`).  Gap ids are read as int32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..utils.cuda_build import load_kernels
+from .collisions import AnalyticTables
+
+__all__ = [
+    "MAX_SHARED_BYTES",
+    "ColumnTables",
+    "blocks_per_sm",
+    "column_pixels",
+    "column_tables",
+    "launch_column_walk",
+    "row_lists",
+]
+
+#: dynamic shared memory a block may opt into on the H100 (227 KB); q and
+#: partner of a tile must fit it: NE ≤ 907 in float32, 453 in float64 at
+#: one pixel per lane
+MAX_SHARED_BYTES = 232_448
+
+
+def row_lists(num_omega: int, scat_row: np.ndarray | None, rec_row: np.ndarray | None):
+    """(row_ptr, row_code): each ω row's columns, code = column·2 + kind
+    (0 scattering, 1 recombination; a channel is off when its rows are
+    None), in column order within a row."""
+    rows = [np.zeros(0, np.int64)]
+    codes = [np.zeros(0, np.int64)]
+    if scat_row is not None:
+        rows.append(np.asarray(scat_row, np.int64))
+        codes.append(np.arange(len(scat_row), dtype=np.int64) * 2)
+    if rec_row is not None:
+        rows.append(np.asarray(rec_row, np.int64))
+        codes.append(np.arange(len(rec_row), dtype=np.int64) * 2 + 1)
+    row, code = np.concatenate(rows), np.concatenate(codes)
+    order = np.argsort(row, kind="stable")
+    row_ptr = np.zeros(num_omega + 1, dtype=np.int32)
+    row_ptr[1:] = np.cumsum(np.bincount(row, minlength=num_omega))
+    return row_ptr, code[order].astype(np.int32)
+
+
+@dataclass
+class ColumnTables:
+    """The column walk's device tables, in the state dtype (``csrc/offset_walk.cu``).
+
+    Table form (K5, K8, K9): ``rho`` (G, NE), ``scat`` (G, NE, Cs, 2) =
+    (e_dn, a_dn), ``rec`` (G, NE, Cr), ``gid`` the (Ny·Nx,) int32 gap ids
+    (None on a uniform gap).  Analytic form (K6): ``analytic`` gives Δ²
+    and the Dynes constants, ``scat`` is (NE, Cs, 4) = (a, a', b, b') with
+    e_dn = relu(a − b·Δ²), a_dn = relu(a' − b'·Δ²), ``rec`` (NE, Cr, 2) =
+    (a_r, b_r) with R = a_r + b_r·Δ².  ``scat_t``/``rec_t`` are the same
+    tables with the bin and column axes swapped, which the kernel's phonon
+    side walks.  ``k_count[m]`` counts the scattering columns of offset ≤
+    m, ``s_ptr[s]`` is the first recombination column of anti-diagonal s,
+    ``row_ptr``/``row_code`` list each ω row's columns, ``touched`` marks
+    the rows some column lands on.
+    """
+
+    num_energy_bins: int
+    num_omega: int
+    rho: torch.Tensor | None
+    scat: torch.Tensor | None
+    rec: torch.Tensor | None
+    scat_t: torch.Tensor | None
+    rec_t: torch.Tensor | None
+    scat_k: torch.Tensor  # int32
+    scat_row: torch.Tensor
+    k_count: torch.Tensor
+    rec_s: torch.Tensor
+    rec_row: torch.Tensor
+    s_ptr: torch.Tensor
+    row_ptr: torch.Tensor
+    row_code: torch.Tensor
+    touched: torch.Tensor  # (NW,) bool
+    gid: torch.Tensor | None
+    analytic: AnalyticTables | None = None
+
+    @property
+    def n_scat(self) -> int:
+        return 0 if self.scat is None else int(self.scat_k.numel())
+
+    @property
+    def n_rec(self) -> int:
+        return 0 if self.rec is None else int(self.rec_s.numel())
+
+    def kernel_tensors(self) -> list:
+        """Every table the kernel reads (for byte counts), the swapped copies
+        ``scat_t``/``rec_t`` apart: they repeat ``scat``/``rec``."""
+        a = self.analytic
+        extra = () if a is None else (a.g2, a.E, a.inv_E, a.e2, a.zi)
+        return [t for t in (self.rho, self.scat, self.rec, self.scat_k, self.scat_row, self.k_count,
+                            self.rec_s, self.rec_row, self.s_ptr, self.row_ptr, self.row_code,
+                            self.gid, *extra) if t is not None]
+
+
+def column_tables(*, num_energy_bins: int, num_omega: int, scat_k, scat_row, scat, rec_s, rec_row,
+                  rec, device, dtype: torch.dtype, rho=None, gap_id=None, scat_b=None, rec_b=None,
+                  analytic: AnalyticTables | None = None) -> ColumnTables:
+    """:class:`ColumnTables` from host tables in float64.
+
+    ``scat`` is the four (G, NE, Cs) tables (e_up, e_dn, a_up, a_dn) and
+    ``rec`` (G, NE, Cr), each None when its channel is off; with
+    ``analytic`` they are the Δ²-free parts (G = 1) and ``scat_b``/``rec_b``
+    the Δ² slopes.  ``gap_id`` (an array or tensor of Ny·Nx ids, None on a
+    uniform gap) is copied to the device as int32.  Columns must be sorted
+    by offset and by anti-diagonal.
+    """
+    ne = int(num_energy_bins)
+    as_dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    ints = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+    scat_k = np.asarray(scat_k, np.int64)
+    rec_s = np.asarray(rec_s, np.int64)
+    if np.any(np.diff(scat_k) < 0) or np.any(np.diff(rec_s) < 0):
+        raise ValueError("columns must be sorted by offset and by anti-diagonal")
+    if analytic is None:  # (G, NE, C, 2), (G, NE, C); bins and columns swapped: axes 1, 2
+        scat_d = None if scat is None else np.stack([scat[1], scat[3]], axis=-1)
+        rec_d = rec
+        swap = lambda a: None if a is None else np.swapaxes(a, 1, 2)
+    else:  # (NE, C, 4), (NE, C, 2): axes 0, 1
+        scat_d = None if scat is None else np.stack([scat[1][0], scat[3][0], scat_b[1][0],
+                                                     scat_b[3][0]], axis=-1)
+        rec_d = None if rec is None else np.stack([rec[0], rec_b[0]], axis=-1)
+        swap = lambda a: None if a is None else np.swapaxes(a, 0, 1)
+    row_ptr, row_code = row_lists(num_omega, None if scat is None else scat_row,
+                                  None if rec is None else rec_row)
+    gid = None
+    if gap_id is not None:
+        gid = torch.as_tensor(gap_id, device=device).reshape(-1).to(torch.int32).contiguous()
+    return ColumnTables(
+        num_energy_bins=ne, num_omega=int(num_omega),
+        rho=None if rho is None else as_dev(rho),
+        scat=None if scat_d is None else as_dev(scat_d),
+        rec=None if rec_d is None else as_dev(rec_d),
+        scat_t=None if scat_d is None else as_dev(swap(scat_d)),
+        rec_t=None if rec_d is None else as_dev(swap(rec_d)),
+        scat_k=ints(scat_k), scat_row=ints(scat_row),
+        k_count=ints(np.searchsorted(scat_k, np.arange(ne), side="right")),
+        rec_s=ints(rec_s), rec_row=ints(rec_row),
+        s_ptr=ints(np.searchsorted(rec_s, np.arange(2 * ne))),
+        row_ptr=ints(row_ptr), row_code=ints(row_code),
+        touched=torch.as_tensor(np.diff(row_ptr) > 0, device=device),
+        gid=gid, analytic=analytic,
+    )
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of 256 threads an H100 SM holds by shared memory (228 KB, 1 KB
+    reserved per block) and threads (2048)."""
+    return min(8, 233_472 // (smem + 1024))
+
+
+def column_pixels(dtype: torch.dtype, ne: int, n_pix: int) -> int:
+    """Pixels per lane of the column walk's launch, the rule measured with
+    ``tools/column_walk_levers.py``: 2 while the tile (q and partner of 64
+    pixels) still leaves 3 blocks per SM and the pixel count is even, else 1."""
+    size = 4 if dtype == torch.float32 else 8
+    state = 2 * ne * 64 * size
+    if n_pix % 2 == 0 and blocks_per_sm(state) >= 3:
+        return 2
+    if state // 2 <= MAX_SHARED_BYTES:
+        return 1
+    raise ValueError(
+        f"column walk: q and partner of {ne} bins take {2 * ne * 32 * size} B of shared memory "
+        f"for a 32-pixel tile, a block holds {MAX_SHARED_BYTES}"
+    )
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def launch_column_walk(tables: ColumnTables, n_qp: torch.Tensor, n_ph: torch.Tensor, dt: float,
+                       gen: torch.Tensor | None, update_phonons: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/offset_walk.cu`` on CUDA tensors (inputs checked by the
+    caller) and return (q_out, ph_out), at :func:`column_pixels` pixels per
+    lane.  Counting is the caller's."""
+    if n_qp.device.type != "cuda":
+        raise ValueError(f"column walk kernel runs on CUDA tensors, got {n_qp.device}")
+    if n_qp.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"column walk kernel takes float32 or float64, got {n_qp.dtype}")
+    ne, nw = tables.num_energy_bins, tables.num_omega
+    n_scat, n_rec = tables.n_scat, tables.n_rec
+    for name, t in (("scat", tables.scat), ("rec", tables.rec), ("rho", tables.rho)):
+        if t is not None and (t.device != n_qp.device or t.dtype != n_qp.dtype):
+            raise ValueError(f"table {name} is {t.dtype} on {t.device}, the state {n_qp.dtype} "
+                             f"on {n_qp.device}")
+    n_pix = n_qp.shape[1] * n_qp.shape[2]
+    gid = tables.gid
+    if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
+                            or gid.dtype != torch.int32 or not gid.is_contiguous()):
+        raise ValueError(f"gap ids must be {n_pix} contiguous int32 entries on {n_qp.device}")
+    pixels = column_pixels(n_qp.dtype, ne, n_pix)
+    if n_ph.data_ptr() % (2 * n_ph.element_size()):
+        pixels = 1  # a pair of column values is one load: pair-aligned rows only
+    lib = load_kernels()
+    fn = lib.qp_column_walk_f32 if n_qp.dtype == torch.float32 else lib.qp_column_walk_f64
+    q_out = torch.empty_like(n_qp)
+    ph_out = torch.empty_like(n_ph) if update_phonons else n_ph
+    a = tables.analytic
+    err = fn(
+        _ptr(n_qp), _ptr(n_ph), _ptr(gen), _ptr(q_out), _ptr(ph_out) if update_phonons else None,
+        _ptr(gid), _ptr(tables.rho), _ptr(tables.scat), _ptr(tables.scat_t), _ptr(tables.rec),
+        _ptr(tables.rec_t),
+        *((None,) * 5 if a is None else map(_ptr, (a.g2, a.E, a.inv_E, a.e2, a.zi))),
+        0.0 if a is None else float(a.gamma),
+        _ptr(tables.scat_k), _ptr(tables.scat_row), _ptr(tables.k_count), n_scat,
+        _ptr(tables.rec_s), _ptr(tables.rec_row), _ptr(tables.s_ptr), n_rec,
+        _ptr(tables.row_ptr), _ptr(tables.row_code),
+        ne, nw, n_pix, float(dt), int(update_phonons), int(pixels),
+        torch.cuda.current_stream(n_qp.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"column walk kernel launch (P={pixels}) failed with CUDA error {err}")
+    return q_out, ph_out

@@ -270,14 +270,19 @@ class CudaADI(ADIDiffusion):
 def choose_backend(
     op: SplitOperator, device, dtype: torch.dtype, preference: str = "auto", *, coupled: bool = False
 ):
-    """Pick a diffusion backend: 'auto', 'dense', 'adi', 'wang' or 'cg'.
+    """Pick a diffusion backend: 'auto', 'dense', 'adi', 'wang', 'cg' or 'pallas'.
 
     'auto' is dense at ≤ 4096 interior cells; above that it is
-    :class:`CudaADI` on a CUDA device and plain ADI on the CPU.
+    :class:`CudaADI` on a CUDA device and plain ADI on the CPU.  'pallas'
+    (the JAX package's name) is :class:`CudaADI` and needs a CUDA device.
     ``coupled=True`` means the step is composed with collision substeps,
     which keeps multi-bin operators off K1 (as in the JAX package).
     """
     device = torch.device(device)
+    if preference == "pallas":
+        if device.type != "cuda":
+            raise ValueError(f"diffusion_backend='pallas' requested but it needs a CUDA device, got {device}")
+        return CudaADI(op, device, dtype, coupled=coupled)
     if preference == "dense":
         return DenseSpectralDiffusion(op, device, dtype)
     if preference == "adi":

@@ -125,10 +125,12 @@ def run_2d_crank_nicolson(
     * ``dtype`` — ``torch.float32`` (default on CUDA) or ``torch.float64``
       (default on the CPU).
     * ``collision_backend`` — 'auto' (the CUDA kernel for CUDA tensors, the
-      plain version on the CPU), 'kernel' (raises on the CPU) or 'plain'.
+      plain version on the CPU), 'kernel' (raises on the CPU) or 'plain';
+      the JAX package's 'pallas' and 'xla' are aliases of the last two.
     * ``diffusion_backend`` — 'auto' (dense spectral CN at ≤ 4096 interior
       cells, else the CUDA ADI kernels on CUDA and plain ADI on the CPU),
-      'dense', 'adi', 'wang' or 'cg'.
+      'dense', 'adi', 'wang', 'cg' or 'pallas' (the CUDA ADI kernels; raises
+      on the CPU).
     * ``strang_mode`` — 'auto' (= 'merged'), 'exact' or 'merged'.
     * ``snapshot_detail`` — 'full' or 'integrated' (reduced on the device).
 

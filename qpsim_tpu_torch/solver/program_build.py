@@ -21,8 +21,11 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   256, from the per-pixel Δ² for G > 8 (no per-gap stacks) K4 and K6;
   beyond 256 bins the plain versions on the CPU, an error on CUDA.
   ``'kernel'`` does the same but raises on the CPU; ``'plain'`` runs the
-  plain per-gap gather version everywhere (the JAX package's ``'xla'``),
-  which refuses stacks above 4 GB.
+  plain per-gap gather version everywhere, which refuses stacks above 4
+  GB.  The JAX package's names are aliases: ``'pallas'`` is ``'kernel'``
+  (beyond 256 bins with the JAX package's ``ValueError``), ``'xla'`` is
+  ``'plain'``.  K3/K4 read the pair tables of ``build_kernel_tables``,
+  K5/K6 the column tables of ``build_column_tables``, both built here once.
 * diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
 * generation (constant, pulse) — the dt·g plane is fused into the
   collision substep that opens each step, as the TPU kernels'
@@ -45,6 +48,7 @@ from ..ops.collisions import (
 )
 from ..ops.collisions_blocked_cuda import (
     MAX_BLOCKED_BINS,
+    build_column_tables,
     collision_step_blocked,
     collision_step_blocked_analytic,
 )
@@ -86,12 +90,18 @@ def collision_kernel_for(ne: int, n_gaps: int) -> str | None:
     return kernel if n_gaps == 1 else f"{kernel}_gid"
 
 
-#: each code's wrapper; the table wrappers take the gap-id form from
-#: ``plan.gap_id``, the analytic ones (K4, K6) also take the Δ² tables
-_KERNEL_STEPS: dict[str, Callable] = {
-    "K3": collision_step, "K3_gid": collision_step,
-    "K5": collision_step_blocked, "K5_gid": collision_step_blocked,
-    "K4": collision_step_analytic, "K6": collision_step_blocked_analytic,
+#: each code's (wrapper, table builder): K3/K4 read the pair tables of
+#: ``build_kernel_tables(plan)``, K5/K6 the column tables of
+#: ``build_column_tables(plan, analytic)``; the table wrappers take the
+#: gap-id form from ``plan.gap_id``, the analytic ones (K4, K6) also take
+#: the Δ² tables
+_KERNEL_STEPS: dict[str, tuple[Callable, Callable]] = {
+    "K3": (collision_step, lambda plan, _: build_kernel_tables(plan)),
+    "K3_gid": (collision_step, lambda plan, _: build_kernel_tables(plan)),
+    "K4": (collision_step_analytic, lambda plan, _: build_kernel_tables(plan)),
+    "K5": (collision_step_blocked, build_column_tables),
+    "K5_gid": (collision_step_blocked, build_column_tables),
+    "K6": (collision_step_blocked_analytic, build_column_tables),
 }
 
 
@@ -138,13 +148,15 @@ def build_engine_program(
     ny, nx = mask.shape
     n_spatial = int(mask.sum())
     collisions_on = bool(enable_recombination or enable_scattering)
-    if collision_backend not in ("auto", "kernel", "plain"):
+    if collision_backend not in ("auto", "kernel", "plain", "pallas", "xla"):
         raise ValueError(
-            f"Unknown collision backend: {collision_backend!r} (use 'auto', 'kernel' or 'plain')"
+            f"Unknown collision backend: {collision_backend!r} (use 'auto', 'kernel' or 'plain'; "
+            "'pallas' and 'xla' are the JAX package's names for 'kernel' and 'plain')"
         )
-    use_kernel = collisions_on and collision_backend != "plain"
-    if use_kernel and collision_backend == "kernel" and device.type != "cuda":
-        raise ValueError("collision_backend='kernel' needs a CUDA device")
+    requested = collision_backend in ("kernel", "pallas")
+    use_kernel = collisions_on and collision_backend not in ("plain", "xla")
+    if use_kernel and requested and device.type != "cuda":
+        raise ValueError(f"collision_backend={collision_backend!r} needs a CUDA device")
 
     # --- gap map ---------------------------------------------------------------
     if nonuniform_gap:
@@ -161,6 +173,11 @@ def build_engine_program(
     # per-pixel constants from Δ² (K4, K6), no per-gap stacks
     analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
     kernel = collision_kernel_for(num_energy_bins, int(unique_gaps.size)) if use_kernel else None
+    if use_kernel and kernel is None and collision_backend == "pallas":
+        raise ValueError(
+            "collision_backend='pallas' requested but the configuration is outside the kernel's "
+            f"envelope (2-{MAX_BLOCKED_BINS} bins)"
+        )
     if use_kernel and kernel is None and device.type == "cuda":
         raise NotImplementedError(
             f"{num_energy_bins} energy bins: the collision kernels hold at most "
@@ -235,7 +252,10 @@ def build_engine_program(
             pixel_chunk=pixel_chunk,
             gap_id=gap_id,
         )
-    tables = build_kernel_tables(plan) if kernel is not None else None
+    step = tables = None
+    if kernel is not None:
+        step, build_tables = _KERNEL_STEPS[kernel]
+        tables = build_tables(plan, atab)
 
     rho_state = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
     rho_state[:, mask] = rho_per_pixel
@@ -251,8 +271,7 @@ def build_engine_program(
     np_t = numpy_dtype(dtype)
 
     def make_col(dt_col: float):
-        if kernel is not None:
-            step = _KERNEL_STEPS[kernel]
+        if step is not None:
             consts = (plan, atab, tables) if analytic else (plan, tables)
             return lambda q, ph, grow=None: step(*consts, q, ph, dt_col, grow)
         if analytic:  # beyond the kernels' bins, on the CPU

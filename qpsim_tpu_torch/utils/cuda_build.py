@@ -125,24 +125,21 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Argument and return types of every C entry point (pointers as c_void_p)."""
     P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     for suffix in ("f32", "f64"):
-        # K3 and K5 (collision_step / collision_blocked) share their arguments,
-        # as do K4 and K6 (…_analytic)
-        for family in ("collision_step", "collision_blocked"):
-            fn = getattr(lib, f"qp_{family}_{suffix}")
-            # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
-            # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
-            fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
-            fn.restype = I
-            fn = getattr(lib, f"qp_{family}_gid_{suffix}")
-            # as above with gid after ph_out
-            fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
-            fn.restype = I
-            fn = getattr(lib, f"qp_{family}_analytic_{suffix}")
-            # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
-            # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
-            # n_pix, dt, gamma, update_phonons, stream
-            fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
-            fn.restype = I
+        fn = getattr(lib, f"qp_collision_step_{suffix}")
+        # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
+        # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
+        fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"qp_collision_step_gid_{suffix}")
+        # as above with gid after ph_out
+        fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
+        fn.restype = I
+        fn = getattr(lib, f"qp_collision_step_analytic_{suffix}")
+        # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
+        # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
+        # n_pix, dt, gamma, update_phonons, stream
+        fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
+        fn.restype = I
         for half in ("x", "y"):
             fn = getattr(lib, f"qp_adi_{half}_{suffix}")
             # u, out, w_scratch, 7 planes, scale, nb, nbp, ny, nx, alpha, stream
@@ -156,11 +153,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # a, b, c, r, x, w_scratch, n, batch, stream
         fn.argtypes = [P] * 6 + [I, I, P]
         fn.restype = I
-        fn = getattr(lib, f"qp_offset_walk_{suffix}")
-        # q_in, ph_in, q_out, ph_out, gid, rho, e_up, e_dn, a_up, a_dn, scat_k,
-        # scat_row, n_scat, rtab, rec_s, rec_row, s_ptr, n_rec, row_ptr,
-        # row_code, ne, nw, n_pix, dt, update_phonons, stream
-        fn.argtypes = [P] * 12 + [I] + [P] * 4 + [I] + [P] * 2 + [I, I, LL, D, I, P]
+        fn = getattr(lib, f"qp_column_walk_{suffix}")
+        # q_in, ph_in, gen, q_out, ph_out, gid, rho, scat, scat_t, rec,
+        # rec_t, g2, e_bins, inv_e, e2, zim, gamma, scat_k, scat_row,
+        # k_count, n_scat, rec_s, rec_row, s_ptr, n_rec, row_ptr, row_code,
+        # ne, nw, n_pix, dt, update_phonons, pixels, stream
+        fn.argtypes = ([P] * 16 + [D] + [P] * 3 + [I] + [P] * 3 + [I] + [P] * 2
+                       + [I, I, LL, D, I, I, P])
         fn.restype = I
         fn = getattr(lib, f"qp_adi_lines_{suffix}")
         # rhs, lo, di, hi, scale, out, a_scratch, c_scratch, nb, nbp, n, batch, k, alpha, stream

@@ -1,0 +1,160 @@
+"""``qpsim_tpu_torch/csrc/offset_walk.cu`` (the column walk of K5, K6, K8, K9) in NumPy.
+
+The kernel's tile layout and walk, on the wrapper's real tables
+(:class:`qpsim_tpu_torch.ops.column_walk.ColumnTables`): tiles of
+32·P pixels, each of the warp's 32 lanes owning P neighbouring pixels; q
+(+ dt·g) and partner staged [NE][32·P], zeros in a ragged tile's idle
+pixels; the columns' phonon values read per pixel; the warp-uniform gap-id
+test (one table base when all of the tile's ids agree, a per-pixel gather
+otherwise); bins and ω rows strided over 8 warps; per bin the scattering
+columns with k ≤ i, then those with i + k < NE, then the recombination
+columns of s ∈ [i, i + NE), from the [bin][column] tables; per ω row its
+column list in order, from the [column][bin] copies.  Each
+lane's walk is vectorised over the tile's pixels, which changes no sum's
+order.  Imported by the CPU tests of K5/K6 and K8/K9.
+"""
+
+import numpy as np
+
+WARPS = 8
+
+
+def relax(n, gain, loss, dt):
+    mu = np.maximum(loss, 0.0)
+    p_term = np.maximum(gain + (mu - loss) * n, 0.0)
+    coeff = np.where(mu < 1e-14, dt, -np.expm1(-mu * dt) / np.maximum(mu, 1e-14))
+    return np.maximum(np.exp(-mu * dt) * n + coeff * p_term, 0.0)
+
+
+def affine(y, a, b, dt):
+    x = np.clip(b * dt, -80.0, 80.0)
+    tiny = np.abs(b) < 1e-14
+    coeff = np.where(tiny, dt, np.expm1(x) / np.where(tiny, 1.0, b))
+    return np.maximum(np.exp(x) * y + coeff * a, 0.0)
+
+
+def analytic_rho(d2, e, inv_e, e2, zim, gamma):
+    """(ρ, 1/ρ) in collision_math.cuh's order."""
+    if gamma == 0.0:
+        r2 = e2 - d2
+        t = 1.0 / np.sqrt(np.maximum(r2, 1e-30))
+        return np.where(r2 > 0, e * t, 0.0), np.where(r2 > 0, (r2 * t) * inv_e, 0.0)
+    zr = e2 - d2
+    r = np.sqrt(zr * zr + zim * zim)
+    s = np.sqrt(np.maximum(0.5 * (r + zr), 0.0))
+    tq = -np.sqrt(np.maximum(0.5 * (r - zr), 0.0))
+    rho = np.maximum((e * s - gamma * tq) / np.maximum(r, 1e-30), 0.0)
+    return rho, np.where(rho > 1e-30, 1.0 / np.maximum(rho, 1e-30), 0.0)
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def transcribe(tables, q, ph, gen, dt, update_phonons, pixels):
+    """One substep of the kernel at ``pixels`` per lane: (q_out, ph_out) as (NE, …), (NW, …)."""
+    ne, nw = tables.num_energy_bins, tables.num_omega
+    tile = 32 * pixels
+    scat, rec, rho = _np(tables.scat), _np(tables.rec), _np(tables.rho)
+    scat_t, rec_t = _np(tables.scat_t), _np(tables.rec_t)  # the phonon side's copies
+    scat_k, scat_row, k_count, rec_s, rec_row, s_ptr, row_ptr, row_code = (
+        _np(t) for t in (tables.scat_k, tables.scat_row, tables.k_count, tables.rec_s,
+                         tables.rec_row, tables.s_ptr, tables.row_ptr, tables.row_code))
+    n_scat, n_rec = tables.n_scat, tables.n_rec
+    a = tables.analytic
+    qf, phf = np.asarray(q).reshape(ne, -1), np.asarray(ph).reshape(nw, -1)
+    n_pix = qf.shape[1]
+    g_flat = np.zeros(n_pix) if gen is None else np.asarray(gen).reshape(-1)
+    if a is None:
+        keys = np.zeros(n_pix, np.int64) if tables.gid is None else _np(tables.gid).astype(np.int64)
+    else:
+        keys = _np(a.g2)
+        e_b, inv_e, e2, zim = (_np(t) for t in (a.E, a.inv_E, a.e2, a.zi))
+    q_out, ph_out = np.empty_like(qf), phf.copy()
+    for t0 in range(0, n_pix, tile):
+        p = t0 + np.arange(tile)
+        valid = p < n_pix
+        pc = np.minimum(p, n_pix - 1)  # idle pixels take the last pixel's key
+        key = keys[pc]
+        # staging, zeros in idle pixels
+        sq = np.where(valid, qf[:, pc] + g_flat[pc], 0.0)
+        if a is None:
+            r = rho[key].T  # (NE, tile)
+            sp = r * np.maximum(1.0 - sq / np.maximum(r, 1e-30), 0.0)
+        else:
+            rh, inv = analytic_rho(key[None], e_b[:, None], inv_e[:, None], e2[:, None],
+                                   zim[:, None], a.gamma)
+            sp = rh * np.maximum(1.0 - sq * inv, 0.0)
+        sp = np.where(valid, sp, 0.0)
+        sd = np.where(valid, phf[scat_row[:n_scat]][:, pc], 0.0)
+        ss = np.where(valid, phf[rec_row[:n_rec]][:, pc], 0.0)
+        # the warp-uniform test over the lanes' P pixels
+        if a is None and tables.gid is not None:
+            lanes = key.reshape(32, pixels)
+            mixed = not np.all((lanes == lanes[:, :1]).all(1) & (lanes[:, 0] == lanes[0, 0]))
+            base = key if mixed else np.full(tile, lanes[0, 0])
+        else:
+            base = key
+
+        def scat_at(m, c, by_column=False):
+            if a is None:
+                v = scat_t[base, c, m] if by_column else scat[base, m, c]
+                return v[:, 0], v[:, 1]
+            ea, aa, eb, ab = scat_t[c, m] if by_column else scat[m, c]
+            return np.maximum(ea - eb * key, 0.0), np.maximum(aa - ab * key, 0.0)
+
+        def rec_at(i, c, by_column=False):
+            if a is None:
+                return rec_t[base, c, i] if by_column else rec[base, i, c]
+            ra, rb = rec_t[c, i] if by_column else rec[i, c]
+            return ra + rb * key
+
+        for w in range(WARPS):
+            for i in range(w, ne, WARPS):
+                loss, gain = np.zeros(tile), np.zeros(tile)
+                if n_scat:
+                    for c in range(k_count[i]):
+                        j, d = i - scat_k[c], sd[c]
+                        e, ab = scat_at(i, c)
+                        loss = loss + e * (1.0 + d) * sp[j]
+                        gain = gain + ab * d * sq[j]
+                    for c in range(k_count[ne - 1 - i]):
+                        m, d = i + scat_k[c], sd[c]
+                        e, ab = scat_at(m, c)
+                        loss = loss + ab * d * sp[m]
+                        gain = gain + e * (1.0 + d) * sq[m]
+                if n_rec:
+                    for c in range(s_ptr[i], s_ptr[i + ne]):
+                        j, sv = rec_s[c] - i, ss[c]
+                        r = rec_at(i, c)
+                        loss = loss + r * (1.0 + sv) * sq[j]
+                        gain = gain + r * sv * sp[j]
+                q_out[i, p[valid]] = relax(sq[i], sp[i] * gain, loss, dt)[valid]
+        if not update_phonons:
+            continue
+        for w in range(WARPS):
+            for row in range(w, nw, WARPS):
+                e0, e1 = row_ptr[row], row_ptr[row + 1]
+                if e0 == e1:
+                    continue  # untouched: stays as it is
+                acc_a, acc_b = np.zeros(tile), np.zeros(tile)
+                for code in row_code[e0:e1]:
+                    c = int(code) >> 1
+                    if int(code) & 1 == 0:
+                        k = scat_k[c]
+                        em, ab = np.zeros(tile), np.zeros(tile)
+                        for m in range(k, ne):
+                            ke, ka = scat_at(m, c, by_column=True)
+                            em = em + ke * sq[m] * sp[m - k]
+                            ab = ab + ka * sq[m - k] * sp[m]
+                        acc_a, acc_b = acc_a + em, acc_b + (em - ab)
+                    else:
+                        s = rec_s[c]
+                        rc, pb = np.zeros(tile), np.zeros(tile)
+                        for i in range(max(0, s - ne + 1), min(ne - 1, s) + 1):
+                            kr = 0.5 * rec_at(i, c, by_column=True)
+                            rc = rc + kr * sq[i] * sq[s - i]
+                            pb = pb + kr * sp[i] * sp[s - i]
+                        acc_a, acc_b = acc_a + rc, acc_b + (rc - pb)
+                ph_out[row, p[valid]] = affine(phf[row, pc], acc_a, acc_b, dt)[valid]
+    return q_out.reshape(np.shape(q)), (ph_out.reshape(np.shape(ph)) if update_phonons else np.asarray(ph))

@@ -9,10 +9,12 @@ K4's, the same function over more bins):
   own tolerances (``tests/test_collisions.py``: q 1e-12, n_ph 1e-9);
 * at NE = 65, where a pair diagonal splits two ω bins and the JAX blocked
   builder declines, against the JAX XLA integrator it runs instead;
-* the CUDA kernel's tables and walk (``csrc/collisions_blocked.cu``: 32-pixel
-  tiles staged [NE][32], bins and ω rows strided over the warps) through a
-  NumPy transcription, at NE = 72, whose ω rows carry differences and
-  sums together, and at NE = 65;
+* the CUDA kernel's tables and walk (``csrc/offset_walk.cu``: K9's
+  columns per gap, tiles of 32·P pixels staged [NE][32·P], bins and ω rows
+  strided over the warps, the warp-uniform gap-id test) through the NumPy
+  transcription of ``tests/column_walk_transcription.py``, at NE = 72,
+  whose ω rows carry differences and sums together, and at NE = 65; the
+  column grouping equal to K9's per gap;
 * ``run_2d_crank_nicolson`` at NE = 72 on a 12-cell strip, uniform gap,
   a trap and a gradient, against the JAX engine on its blocked kernels
   (mass 1e-9, frames 1e-8, as ``tests/test_engine.py`` holds them);
@@ -56,13 +58,18 @@ from qpsim_tpu_torch.interop import (  # noqa: E402
 from qpsim_tpu_torch.models import params as tp  # noqa: E402
 from qpsim_tpu_torch.ops import collisions_cuda  # noqa: E402
 from qpsim_tpu_torch.ops.collisions import collision_step_analytic_plain, collision_step_plain  # noqa: E402
+from qpsim_tpu_torch.ops import collisions_rows_cuda as t_rows  # noqa: E402
 from qpsim_tpu_torch.ops.collisions_blocked_cuda import (  # noqa: E402
     MAX_BLOCKED_BINS,
+    build_column_tables,
     collision_step_blocked,
     collision_step_blocked_analytic,
 )
+from qpsim_tpu_torch.ops.column_walk import column_pixels  # noqa: E402
 from qpsim_tpu_torch.solver import engine as t_engine  # noqa: E402
 from qpsim_tpu_torch.solver.program_build import collision_kernel_for  # noqa: E402
+
+from column_walk_transcription import transcribe  # noqa: E402
 
 NY, NX = 2, 4
 DT = 0.02
@@ -148,11 +155,11 @@ def test_blocked_gap_ids_match_jax_blocked_interpret():
 # ---------------------------------------------------------------- (c) K6
 
 
-def _analytic_setup(ne, gamma, *, phonons=True, seed=0):
+def _analytic_setup(ne, gamma, *, phonons=True, seed=0, ny=NY, nx=NX):
     E, dE = build_energy_grid(180.0, 1.0, 4.0, ne)
     pm = build_phonon_frequency_map(E)
     rng = np.random.default_rng(seed)
-    plane = rng.uniform(140.0, 195.0, (NY, NX))
+    plane = rng.uniform(140.0, 195.0, (ny, nx))
     plan, tab = analytic_tables_from_numpy(
         E_bins=E, dE=dE, gap_plane=plane, omega_bins=pm.omega_bins, idx_diff=pm.idx_diff,
         idx_sum=pm.idx_sum, diff_sign=pm.diff_sign, tau_s=TAU_S, tau_r=TAU_R, T_c=T_C,
@@ -160,9 +167,9 @@ def _analytic_setup(ne, gamma, *, phonons=True, seed=0):
         pixel_chunk=5,
     )
     rho = np.stack([dynes_density_of_states(E, g, gamma) for g in plane.reshape(-1)]).T
-    q = rng.uniform(0, 2e-3, (ne, NY, NX)) * rho.reshape(ne, NY, NX)
+    q = rng.uniform(0, 2e-3, (ne, ny, nx)) * rho.reshape(ne, ny, nx)
     ph = thermal_phonon_occupation(pm.omega_bins, 0.25)[:, None, None] * rng.uniform(
-        0.5, 2.0, (pm.num_omega, NY, NX))
+        0.5, 2.0, (pm.num_omega, ny, nx))
     return dict(E=E, dE=dE, pm=pm, plane=plane, plan=plan, tab=tab, q=q, ph=ph)
 
 
@@ -203,122 +210,9 @@ def test_split_omega_diagonals_match_the_xla_integrator(gen):
 # ---------------------------------------------------------------- the kernel's walk
 
 
-def _blocked_transcription(tables, plan, q, ph, gen, dt, consts):
-    """``csrc/collisions_blocked.cu`` in NumPy: 32-pixel tiles, the tile's q
-    and partner staged [NE][32] (zeros in a ragged tile's idle lanes), bins
-    and ω rows strided over 8 warps, each lane's pair walk vectorised over
-    the tile.  ``consts(lo, hi)`` gives (scat, rec2, partner) for pixels
-    lo..hi: scat(ij) and rec2(ij) per-pixel vectors, partner(i, q)."""
-    tile, warps = 32, 8
-    idx_diff, idx_sum, sgn = tables.idx_diff.numpy(), tables.idx_sum.numpy(), tables.sign.numpy()
-    row_ptr, row_code = tables.row_ptr.numpy(), tables.row_code.numpy()
-    ne, nw = plan.num_energy_bins, plan.num_omega
-    qf, phf = q.reshape(ne, -1), ph.reshape(nw, -1)
-    n_pix = qf.shape[1]
-    q_out, ph_out = np.empty_like(qf), phf.copy()
-    for lo in range(0, n_pix, tile):
-        hi = min(lo + tile, n_pix)
-        scat, rec2, partner = consts(lo, hi)
-        sq, sp = np.zeros((ne, tile)), np.zeros((ne, tile))
-        for w in range(warps):
-            for i in range(w, ne, warps):
-                qi = qf[i, lo:hi] + (0.0 if gen is None else gen.reshape(-1)[lo:hi])
-                sq[i, : hi - lo], sp[i, : hi - lo] = qi, partner(i, qi)
-        sq, sp, p = sq[:, : hi - lo], sp[:, : hi - lo], phf[:, lo:hi]
-        for w in range(warps):
-            for i in range(w, ne, warps):
-                gain_s = loss_s = gain_r = loss_r = 0.0
-                for j in range(ne):
-                    ij, ji = i * ne + j, j * ne + i
-                    if plan.enable_scattering:
-                        if sgn[ij] != 0:
-                            n = p[idx_diff[ij]]
-                            loss_s = loss_s + scat(ij) * ((1.0 + n) if sgn[ij] > 0 else n) * sp[j]
-                        if sgn[ji] != 0:
-                            n = p[idx_diff[ji]]
-                            gain_s = gain_s + scat(ji) * ((1.0 + n) if sgn[ji] > 0 else n) * sq[j]
-                    if plan.enable_recombination:
-                        sv = p[idx_sum[ij]]
-                        loss_r = loss_r + rec2(ij) * (1.0 + sv) * sq[j]
-                        gain_r = gain_r + rec2(ij) * sv * sp[j]
-                gain = sp[i] * gain_s + sp[i] * gain_r
-                loss = loss_s + loss_r + np.zeros(hi - lo)
-                mu = np.maximum(loss, 0.0)
-                p_term = np.maximum(gain + (mu - loss) * sq[i], 0.0)
-                coeff = np.where(mu < 1e-14, dt, -np.expm1(-mu * dt) / np.maximum(mu, 1e-14))
-                q_out[i, lo:hi] = np.maximum(np.exp(-mu * dt) * sq[i] + coeff * p_term, 0.0)
-        if not plan.update_phonons:
-            continue
-        for w in range(warps):
-            for row in range(w, nw, warps):
-                a = b = np.zeros(hi - lo)
-                for code in row_code[row_ptr[row] : row_ptr[row + 1]]:
-                    pair, kind = int(code) >> 2, int(code) & 3
-                    i, j = divmod(pair, ne)
-                    if kind == 2:
-                        k = 0.5 * rec2(pair)
-                        rec = k * sq[i] * sq[j]
-                        a, b = a + rec, b + (rec - k * sp[i] * sp[j])
-                    else:
-                        v = scat(pair) * sq[i] * sp[j]
-                        a, b = (a + v, b + v) if kind == 0 else (a, b - v)
-                x = np.clip(b * dt, -80.0, 80.0)
-                tiny = np.abs(b) < 1e-14
-                c = np.where(tiny, dt, np.expm1(x) / np.where(tiny, 1.0, b))
-                ph_out[row, lo:hi] = np.maximum(np.exp(x) * p[row] + c * a, 0.0)
-    return q_out.reshape(q.shape), ph_out.reshape(ph.shape)
-
-
-def _table_consts(tables, plan):
-    """K5's TableConsts: each pixel's tables by its gap id."""
-    ne = plan.num_energy_bins
-    gid = np.zeros(0, np.int64) if plan.gap_id is None else plan.gap_id.numpy().astype(np.int64)
-    rho = tables.rho.numpy().reshape(-1, ne)
-    ks = None if tables.ks is None else tables.ks.numpy().reshape(-1, ne * ne)
-    kr = None if tables.kr is None else tables.kr.numpy().reshape(-1, ne * ne)
-
-    def consts(lo, hi):
-        g = gid[lo:hi] if gid.size else np.zeros(hi - lo, np.int64)
-
-        def partner(i, qi):
-            r = rho[g, i]
-            return r * np.maximum(1.0 - qi / np.maximum(r, 1e-30), 0.0)
-
-        return (lambda ij: ks[g, ij]), (lambda ij: kr[g, ij]), partner
-
-    return consts
-
-
-def _analytic_consts(tab):
-    """K6's AnalyticConsts: constants and ρ from each pixel's Δ²."""
-    e, inv_e, e2, zim = (t.numpy() for t in (tab.E, tab.inv_E, tab.e2, tab.zi))
-    flat = lambda t: None if t is None else t.numpy().reshape(-1)
-    a_s, b_s, a_r, b_r = flat(tab.dEa_s), flat(tab.dEb_s), flat(tab.dEa2_r), flat(tab.dEb2_r)
-    g2, gamma = tab.g2.numpy(), tab.gamma
-
-    def consts(lo, hi):
-        d2 = g2[lo:hi]
-
-        def partner(i, qi):
-            if gamma == 0.0:
-                r2 = e2[i] - d2
-                t = 1.0 / np.sqrt(np.maximum(r2, 1e-30))
-                rho = np.where(r2 > 0, e[i] * t, 0.0)
-                inv = np.where(r2 > 0, (r2 * t) * inv_e[i], 0.0)
-            else:
-                zr = e2[i] - d2
-                r = np.sqrt(zr * zr + zim[i] * zim[i])
-                s = np.sqrt(np.maximum(0.5 * (r + zr), 0.0))
-                tq = -np.sqrt(np.maximum(0.5 * (r - zr), 0.0))
-                rho = np.maximum((e[i] * s - gamma * tq) / np.maximum(r, 1e-30), 0.0)
-                inv = np.where(rho > 1e-30, 1.0 / np.maximum(rho, 1e-30), 0.0)
-            return rho * np.maximum(1.0 - qi * inv, 0.0)
-
-        scat = lambda ij: np.maximum(a_s[ij] - b_s[ij] * d2, 0.0)
-        rec2 = lambda ij: a_r[ij] + b_r[ij] * d2
-        return scat, rec2, partner
-
-    return consts
+def _pixels(tables, n_pix):
+    """The pixels per lane of the float32 launch (the main path's)."""
+    return column_pixels(torch.float32, tables.num_energy_bins, n_pix)
 
 
 @pytest.mark.parametrize(
@@ -327,27 +221,59 @@ def _analytic_consts(tab):
     ids=["shared_rows_gen", "split_diagonals", "gap_ids_gen"],
 )
 def test_blocked_kernel_walk_reproduces_plain_version(ne, gaps, gen):
-    # 37 pixels: one full 32-pixel tile and a ragged one
-    s = _setup(ne, gaps=gaps, seed=ne, ny=1, nx=37)
+    tile = 32 * column_pixels(torch.float32, ne, 2)
+    # two tiles, the second ragged; with gap ids the first tile's ids agree
+    # (one table base) and the second's are mixed (a per-pixel gather)
+    s = _setup(ne, gaps=gaps, seed=ne, ny=1, nx=tile + 38)
     plan = s["plan"]
+    if len(gaps) > 1:
+        gid = plan.gap_id.numpy()
+        gid[:tile] = 1
+        assert len(np.unique(gid[tile:])) == 3
     if ne == 72:  # ω rows that carry both a difference and a sum
         assert plan.num_omega < 3 * ne - 1
         assert np.intersect1d(s["pm"].idx_diff[s["pm"].diff_sign != 0], s["pm"].idx_sum).size > 0
     g = np.random.default_rng(4).uniform(0, 1e-6, s["q"].shape[1:]) if gen else None
-    tables = collisions_cuda.build_kernel_tables(plan)
+    tables = build_column_tables(plan)
+    if ne == 65:  # a split diagonal: more columns than offsets / anti-diagonals
+        assert tables.n_scat > ne - 1 or tables.n_rec > 2 * ne - 1
     want = _port(collision_step_plain, plan, q=s["q"], ph=s["ph"], gen=g)
-    got = _blocked_transcription(tables, plan, s["q"], s["ph"], g, DT, _table_consts(tables, plan))
+    got = transcribe(tables, s["q"], s["ph"], g, DT, plan.update_phonons, _pixels(tables, tile + 38))
     _close(got, want, 1e-12, 1e-12)
 
 
 @pytest.mark.parametrize("gamma", [0.0, 0.12], ids=["bcs", "dynes"])
 def test_blocked_analytic_kernel_walk_reproduces_plain_version(gamma):
-    s = _analytic_setup(72, gamma, seed=9)
-    tables = collisions_cuda.build_kernel_tables(s["plan"])
-    g = np.random.default_rng(6).uniform(0, 1e-6, (NY, NX))
+    s = _analytic_setup(72, gamma, seed=9, ny=1, nx=38)  # one ragged tile
+    tables = build_column_tables(s["plan"], s["tab"])
+    g = np.random.default_rng(6).uniform(0, 1e-6, (1, 38))
     want = _port(collision_step_analytic_plain, s["plan"], s["tab"], q=s["q"], ph=s["ph"], gen=g)
-    got = _blocked_transcription(tables, s["plan"], s["q"], s["ph"], g, DT, _analytic_consts(s["tab"]))
+    got = transcribe(tables, s["q"], s["ph"], g, DT, True, _pixels(tables, 38))
     _close(got, want, 1e-12, 1e-12)
+
+
+@pytest.mark.parametrize("ne", [65, 100])
+def test_blocked_column_grouping_equals_k9s_per_gap(ne):
+    s = _setup(ne, gaps=(150.0, 165.0, 180.0), seed=ne)
+    tables = build_column_tables(s["plan"])
+    pm = s["pm"]
+    for g in range(3):
+        cols, tabs = t_rows._scattering_columns(s["Ks"][g], pm.idx_diff, ne, ne)
+        np.testing.assert_array_equal(tables.scat_k.numpy(), [c[0] for c in cols])
+        np.testing.assert_array_equal(tables.scat_row.numpy(), [c[1] for c in cols])
+        np.testing.assert_allclose(tables.scat[g, :, :, 0].numpy(), s["dE"] * tabs[1], rtol=1e-15, atol=0)
+        np.testing.assert_allclose(tables.scat[g, :, :, 1].numpy(), s["dE"] * tabs[3], rtol=1e-15, atol=0)
+        cols, r_tab = t_rows._recombination_columns(s["Kr"][g], pm.idx_sum, ne, ne)
+        np.testing.assert_array_equal(tables.rec_s.numpy(), [c[0] for c in cols])
+        np.testing.assert_array_equal(tables.rec_row.numpy(), [c[1] for c in cols])
+        np.testing.assert_allclose(tables.rec[g].numpy(), 2.0 * s["dE"] * r_tab, rtol=1e-15, atol=0)
+    # the offset walk's e_up / a_up are e_dn / a_dn one offset further
+    k = tables.scat_k.numpy()
+    _, tabs = t_rows._scattering_columns(s["Ks"][0], pm.idx_diff, ne, ne)
+    for c in range(0, tables.n_scat, 17):
+        np.testing.assert_array_equal(tabs[0][: ne - k[c], c], tabs[1][k[c]:, c])
+        np.testing.assert_array_equal(tabs[2][: ne - k[c], c], tabs[3][k[c]:, c])
+    np.testing.assert_array_equal(tables.gid.numpy(), s["gid"].reshape(-1))  # the plan's ids
 
 
 def test_blocked_wrappers_run_plain_on_cpu_and_launch_nothing():
@@ -425,12 +351,12 @@ def test_engine_steps_through_the_dispatched_wrapper(monkeypatch, ne, gap_expres
     from qpsim_tpu_torch.solver import program_build
 
     calls = {}
-    for code, real in list(program_build._KERNEL_STEPS.items()):
+    for code, (real, build_tables) in list(program_build._KERNEL_STEPS.items()):
         def spy(*args, _real=real):
             calls[_real.__name__] = calls.get(_real.__name__, 0) + 1
             return _real(*args)
 
-        monkeypatch.setitem(program_build._KERNEL_STEPS, code, spy)
+        monkeypatch.setitem(program_build._KERNEL_STEPS, code, (spy, build_tables))
     extra = dict(gap_expression=gap_expression) if gap_expression else {}
     T.run_2d_crank_nicolson(**_strip_kwargs("torch", num_energy_bins=ne, **extra), device="cpu")
     assert list(calls) == [wrapper] and calls[wrapper] > 0
@@ -441,6 +367,9 @@ def test_beyond_the_cap_cuda_raises_and_the_cpu_runs_plain(monkeypatch):
     monkeypatch.setattr(t_engine, "_resolve_device", lambda device: torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="256.*ROADMAP"):
         T.run_2d_crank_nicolson(**kw, dtype=torch.float64)
+    # the JAX package's name for the kernel path raises its envelope error there
+    with pytest.raises(ValueError, match="collision_backend='pallas' requested but .*2-256 bins"):
+        T.run_2d_crank_nicolson(**kw, dtype=torch.float64, collision_backend="pallas")
     monkeypatch.undo()
     before = dict(collisions_cuda.LAUNCHES)
     out = T.run_2d_crank_nicolson(**kw, device="cpu")

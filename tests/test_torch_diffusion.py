@@ -130,7 +130,7 @@ def test_kernel_wrappers_run_the_plain_version_on_cpu():
     np.testing.assert_array_equal(step(u).numpy(), adi_cuda.adi_step_plain(u, planes, 0.025).numpy())
 
 
-def test_choose_backend_dispatch():
+def test_choose_backend_dispatch(monkeypatch):
     _, small, _ = _operator(16, 16, 2, masked=False, variable_d=False)
     _, big, _ = _operator(72, 72, 2, masked=False, variable_d=False)
     assert isinstance(tdb.choose_backend(small, "cpu", F64), tdb.DenseSpectralDiffusion)
@@ -140,6 +140,10 @@ def test_choose_backend_dispatch():
     assert type(tdb.choose_backend(small, "cpu", F64, "wang")) is tdb.PrefactoredWangADI
     assert type(tdb.choose_backend(small, "cpu", F64, "cg")) is tdb.CGDiffusion
     assert type(tdb.choose_backend(big, "cpu", F64, coupled=True)) is tdb.ADIDiffusion
-    for name in ("pallas", "kernel"):
-        with pytest.raises(ValueError, match="Unknown"):
-            tdb.choose_backend(small, "cpu", F64, name)
+    with pytest.raises(ValueError, match="Unknown"):
+        tdb.choose_backend(small, "cpu", F64, "kernel")
+    # 'pallas', the JAX package's name, is the CUDA ADI backend and needs the card
+    with pytest.raises(ValueError, match="CUDA"):
+        tdb.choose_backend(small, "cpu", F64, "pallas")
+    monkeypatch.setattr(tdb, "CudaADI", lambda op, device, dtype, coupled=False: ("CudaADI", device.type, coupled))
+    assert tdb.choose_backend(small, "cuda", F64, "pallas", coupled=True) == ("CudaADI", "cuda", True)

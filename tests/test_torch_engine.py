@@ -223,19 +223,27 @@ def test_deferred_features_raise(extra):
 
 def test_no_quiet_cpu_and_no_kernel_on_cpu():
     kw = _pauli_kwargs(initial_field=np.full((1, 4), 1e-5))
+    # the kernel paths, by the port's and the JAX package's names, raise on the CPU
+    for name in ("kernel", "pallas"):
+        with pytest.raises(ValueError, match="CUDA"):
+            T.run_2d_crank_nicolson(**kw, collision_backend=name, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        T.run_2d_crank_nicolson(**kw, collision_backend="kernel", device="cpu")
-    with pytest.raises(ValueError, match="Unknown collision backend"):
-        T.run_2d_crank_nicolson(**kw, collision_backend="xla", device="cpu")
+        T.run_2d_crank_nicolson(**kw, diffusion_backend="pallas", device="cpu")
+    for kind in ("collision", "diffusion"):
+        with pytest.raises(ValueError, match=f"Unknown {kind} backend"):
+            T.run_2d_crank_nicolson(**kw, **{f"{kind}_backend": "mosaic"}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.run_2d_crank_nicolson(**kw)  # the default device is "cuda"
-    # the CPU run launches no kernel and agrees with the explicit plain path
+    # the CPU run launches no kernel and agrees with the explicit plain path,
+    # also under the JAX package's name for it ('xla')
     before = (dict(collisions_cuda.LAUNCHES), dict(adi_cuda.LAUNCHES))
     a = T.run_2d_crank_nicolson(**kw, device="cpu")
     b = T.run_2d_crank_nicolson(**kw, device="cpu", collision_backend="plain")
+    c = T.run_2d_crank_nicolson(**kw, device="cpu", collision_backend="xla")
     assert (dict(collisions_cuda.LAUNCHES), dict(adi_cuda.LAUNCHES)) == before
     _assert_runs_match(a, b)
+    _assert_runs_match(c, b)
 
 
 def test_interop_round_trip():

@@ -7,15 +7,17 @@ column walk ``collision_step_loop_plain``:
 * against the JAX package's Pallas builders in interpret mode
   (``build_pallas_collision_step_loop``, ``build_pallas_collision_step_rows``)
   at that package's own tolerances (``tests/test_collisions.py``: q 1e-12,
-  n_ph 1e-9): K8 on a uniform gap and with G = 3 gap ids at NE 9 and 16,
-  K9 over the four channel combinations at NE 11 (a split ω diagonal);
+  n_ph 1e-9): K8 on a uniform gap and with G = 3 and G = 9 gap ids at NE
+  9 and 16, K9 over the four channel combinations at NE 11 (a split ω
+  diagonal); K8 with G = 300 against K3's plain version;
 * ``None`` exactly where the JAX builders return it;
 * the host helpers and tables copied from the JAX package, pinned equal;
 * each walk against K3's plain version (``collision_step_plain``), the same
   function, at NE 100 and at split diagonals;
-* the CUDA kernel's walk (``csrc/offset_walk.cu``: 32-pixel tiles staged
-  [NE][32], bins and ω rows strided over 8 warps, per-row column lists)
-  through a NumPy transcription;
+* the CUDA kernel's walk (``csrc/offset_walk.cu``: tiles of 32·P pixels
+  staged [NE][32·P], bins and ω rows strided over 8 warps, per-row column
+  lists) through the NumPy transcription of
+  ``tests/column_walk_transcription.py``;
 * the wrappers on the CPU launch nothing, and the modules import no JAX.
 """
 
@@ -48,7 +50,10 @@ from qpsim_tpu_torch.interop import (  # noqa: E402
 from qpsim_tpu_torch.ops import collisions_cuda  # noqa: E402
 from qpsim_tpu_torch.ops import collisions_loop_cuda as t_loop  # noqa: E402
 from qpsim_tpu_torch.ops import collisions_rows_cuda as t_rows  # noqa: E402
+from qpsim_tpu_torch.ops.column_walk import column_pixels  # noqa: E402
 from qpsim_tpu_torch.ops.collisions import collision_step_plain  # noqa: E402
+
+from column_walk_transcription import transcribe  # noqa: E402
 
 NY, NX = 2, 6
 DT = 0.02
@@ -184,10 +189,24 @@ def test_no_channel_is_the_identity(builder):
     assert out[0] is q and out[1] is ph
 
 
-def test_loop_gap_ids_beyond_the_limit_raise():
-    s = _setup(9, gaps=tuple(150.0 + 3.0 * g for g in range(9)), seed=1)
-    with pytest.raises(ValueError, match="at most 8"):
-        t_loop.build_collision_step_loop(**_args(s), pmap=s["tpm"], gap_id=s["gid"], device="cpu")
+def test_loop_nine_gap_ids_match_jax_loop_interpret():
+    # the JAX builder blends any number of gaps; so does the port
+    s = _setup(9, gaps=tuple(150.0 + 3.0 * g for g in range(9)), seed=1, ny=3, nx=8)
+    assert len(np.unique(s["gid"])) == 9
+    pal = j_loop.build_pallas_collision_step_loop(**_args(s), pmap=s["pm"], tile=128, interpret=True,
+                                                  gap_id=s["gid"])
+    step = t_loop.build_collision_step_loop(**_args(s), pmap=s["tpm"], gap_id=s["gid"], device="cpu")
+    assert step.counter == "collision_step_loop_gid"
+    want = [np.asarray(a) for a in pal(jnp.asarray(s["q"]), jnp.asarray(s["ph"]))]
+    _close(_run(step, s), want)
+
+
+def test_loop_300_gap_ids_equal_k3_plain_version():
+    # more gaps than one byte can name
+    s = _setup(9, gaps=tuple(140.0 + 0.1 * g for g in range(300)), seed=2, ny=4, nx=8)
+    step = t_loop.build_collision_step_loop(**_args(s), pmap=s["tpm"], gap_id=s["gid"], device="cpu")
+    np.testing.assert_array_equal(step.tables(torch.float64).gid.numpy(), s["gid"].reshape(-1))
+    _close(_run(step, s), _k3_plain(s), 1e-12, 1e-12)
 
 
 # ---------------------------------------------------------------- host helpers pinned equal
@@ -266,81 +285,10 @@ def test_walk_equals_k3_plain_version(ne, gaps, builder):
 
 
 def _walk_transcription(walk, tables, q, ph):
-    """``csrc/offset_walk.cu`` in NumPy: 32-pixel tiles, q and partner
-    staged [NE][32], the columns' phonon values staged [C][32], bins and ω
-    rows strided over 8 warps, each lane's walk vectorised over the tile."""
-    tile, warps = 32, 8
-    ne, nw, dt = walk.num_energy_bins, walk.num_omega, walk.dt
-    flat = lambda t: None if t is None else t.numpy().reshape(t.shape[0], -1)
-    rho = tables.rho.numpy()
-    eup, edn, aup, adn = (flat(t) for t in (tables.scat or (None,) * 4))
-    rtab = flat(tables.rec)
-    ns, nr = tables.scat_k.numel() if eup is not None else 0, tables.rec_s.numel() if rtab is not None else 0
-    scat_k, scat_row, rec_s, rec_row, s_ptr, row_ptr, row_code = (
-        t.numpy() for t in (tables.scat_k, tables.scat_row, tables.rec_s, tables.rec_row,
-                            tables.s_ptr, tables.row_ptr, tables.row_code))
-    qf, phf = q.reshape(ne, -1), ph.reshape(nw, -1)
-    n_pix = qf.shape[1]
-    gid = np.zeros(n_pix, np.int64) if tables.gid is None else tables.gid.numpy().astype(np.int64)
-    q_out, ph_out = np.empty_like(qf), phf.copy()
-    for lo in range(0, n_pix, tile):
-        hi = min(lo + tile, n_pix)
-        g = gid[lo:hi]
-        sq, sp = np.zeros((ne, hi - lo)), np.zeros((ne, hi - lo))
-        for w in range(warps):
-            for i in range(w, ne, warps):
-                qi, r = qf[i, lo:hi], rho[g, i]
-                sq[i], sp[i] = qi, r * np.maximum(1.0 - qi / np.maximum(r, 1e-30), 0.0)
-        sd, ss = phf[scat_row[:ns], lo:hi], phf[rec_row[:nr], lo:hi]
-        for w in range(warps):
-            for i in range(w, ne, warps):
-                loss = gain = np.zeros(hi - lo)
-                for c in range(ns):
-                    k, d = scat_k[c], sd[c]
-                    if i >= k:
-                        loss = loss + edn[g, i * ns + c] * (1.0 + d) * sp[i - k]
-                        gain = gain + adn[g, i * ns + c] * d * sq[i - k]
-                    if i + k < ne:
-                        loss = loss + aup[g, i * ns + c] * d * sp[i + k]
-                        gain = gain + eup[g, i * ns + c] * (1.0 + d) * sq[i + k]
-                for c in range(s_ptr[i], s_ptr[i + ne]) if nr else ():
-                    j, sv, r = rec_s[c] - i, ss[c], rtab[g, i * nr + c]
-                    loss = loss + r * (1.0 + sv) * sq[j]
-                    gain = gain + r * sv * sp[j]
-                gain = sp[i] * gain
-                mu = np.maximum(loss, 0.0)
-                p_term = np.maximum(gain + (mu - loss) * sq[i], 0.0)
-                coeff = np.where(mu < 1e-14, dt, -np.expm1(-mu * dt) / np.maximum(mu, 1e-14))
-                q_out[i, lo:hi] = np.maximum(np.exp(-mu * dt) * sq[i] + coeff * p_term, 0.0)
-        if not walk.update_phonons:
-            continue
-        for w in range(warps):
-            for row in range(w, nw, warps):
-                if row_ptr[row] == row_ptr[row + 1]:
-                    continue  # untouched: stays as it is
-                a = b = np.zeros(hi - lo)
-                for code in row_code[row_ptr[row] : row_ptr[row + 1]]:
-                    c = int(code) >> 1
-                    if int(code) & 1 == 0:
-                        k = scat_k[c]
-                        em = ab = np.zeros(hi - lo)
-                        for j in range(ne - k):
-                            em = em + eup[g, j * ns + c] * sq[j + k] * sp[j]
-                            ab = ab + aup[g, j * ns + c] * sq[j] * sp[j + k]
-                        a, b = a + em, b + (em - ab)
-                    else:
-                        s = rec_s[c]
-                        rec = pb = np.zeros(hi - lo)
-                        for i in range(max(0, s - ne + 1), min(ne - 1, s) + 1):
-                            kr = 0.5 * rtab[g, i * nr + c]
-                            rec = rec + kr * sq[i] * sq[s - i]
-                            pb = pb + kr * sp[i] * sp[s - i]
-                        a, b = a + rec, b + (rec - pb)
-                x = np.clip(b * dt, -80.0, 80.0)
-                tiny = np.abs(b) < 1e-14
-                cph = np.where(tiny, dt, np.expm1(x) / np.where(tiny, 1.0, b))
-                ph_out[row, lo:hi] = np.maximum(np.exp(x) * phf[row, lo:hi] + cph * a, 0.0)
-    return q_out.reshape(q.shape), (ph_out.reshape(ph.shape) if walk.update_phonons else ph)
+    """``csrc/offset_walk.cu`` in NumPy (``tests/column_walk_transcription.py``)
+    at the float32 launch's pixels per lane, without a generation plane."""
+    pixels = column_pixels(torch.float32, walk.num_energy_bins, np.size(q) // walk.num_energy_bins)
+    return transcribe(tables, q, ph, None, walk.dt, walk.update_phonons, pixels)
 
 
 @pytest.mark.parametrize(
@@ -352,8 +300,9 @@ def _walk_transcription(walk, tables, q, ph):
          "loop-72-shared_rows"],
 )
 def test_kernel_walk_reproduces_the_plain_version(ne, gaps, builder, scattering, recombination, phonons):
-    # 37 pixels: one full 32-pixel tile and a ragged one
-    s = _setup(ne, gaps=gaps, seed=ne + 1, ny=1, nx=37 if ne < 72 else 33)
+    # a full tile of 32·P pixels and a ragged one
+    tile = 32 * column_pixels(torch.float32, ne, 2)
+    s = _setup(ne, gaps=gaps, seed=ne + 1, ny=1, nx=tile + (38 if ne < 72 else 6))
     kw = _args(s, scattering=scattering, recombination=recombination, phonons=phonons)
     if builder == "loop":
         step = t_loop.build_collision_step_loop(**kw, pmap=s["tpm"], gap_id=s["gid"], device="cpu")
@@ -404,7 +353,8 @@ def test_steps_run_only_on_their_device():
 def test_offset_walk_modules_are_in_the_no_jax_scan_and_import_no_jax():
     port = Path(T.__file__).resolve().parent
     scanned = set(port.rglob("*.py"))  # the files tests/test_torch_host_layer.py scans
-    for rel in ("ops/collisions_loop_cuda.py", "ops/collisions_rows_cuda.py", "interop.py"):
+    for rel in ("ops/collisions_loop_cuda.py", "ops/collisions_rows_cuda.py", "ops/column_walk.py",
+                "interop.py"):
         path = port / rel
         assert path in scanned
         tree = ast.parse(path.read_text())
