@@ -8,13 +8,19 @@ a non-zero exit:
 
 1. environment — the card, torch/CUDA versions, the TF32 flags;
 2. build — compiles ``qpsim_tpu_torch/csrc/*.cu`` with nvcc (first use)
-   and prints each kernel's ptxas report;
+   and prints each kernel's ptxas report, and the launch plans of the
+   staged ADI kernels K1 and K2 (lines per block, chunks held at once,
+   shared bytes per block) at the paths' shapes;
 3. each kernel against its plain PyTorch version on the card, float64 and
    float32: the collision step (K3) on a uniform gap and with per-pixel
    gap ids (G = 3), the analytic-gap collision step (K4) on a continuous
    gap plane, the fused ADI halves (K2) with one plane and with NB
-   per-pixel planes, the separable ADI halves (K1) at NB = 1 and 16 on
-   full films with mixed faces, and the Thomas solve (K10); beyond 64
+   per-pixel planes on the rectangle and the masked donut, on 250 × 255
+   and 250 × 301 (ragged tiles; K = 1, and 32 chunks on 301 cells with the
+   last padded), on 24 × 16384 (the two-pass form for long rows) and on
+   8 × 16385 and 16385 × 8 (padded chunks in two passes), the separable ADI halves (K1) at NB = 1 and 16 on full films
+   with mixed faces, on 1030 × 1020 × 16 (ragged tiles, K = 2 and 4) and
+   on 16 × 65536 (two passes), and the Thomas solve (K10); beyond 64
    bins the collision step on the column walk (K5) on a uniform gap and
    with gap ids, and its analytic form (K6), at NE = 65 (split ω
    diagonals), 72 (ω rows shared by a difference and a sum), 100 and 256;
@@ -22,7 +28,8 @@ a non-zero exit:
    (uniform and G = 3 gap ids) at NE = 16, 72, 100 and 256 and with G = 9
    ids at 16, K9 at 16, 72 and the split 66 (there also against K3's plain
    version), and the line solve K7 (Thomas and Wang K = 32, one plane and
-   NB planes, B = 1000);
+   NB planes, B = 1000; Thomas asked for on lines of 16385, where the
+   kernel pads its chunks);
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
@@ -65,7 +72,10 @@ a non-zero exit:
    line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
-compared arrays.  Kernel timings use CUDA events after a warm-up.  Each
+compared arrays.  Kernel timings use CUDA events after a warm-up; K1's and
+K2's are taken over a CUDA graph of the timed calls, so that a kernel of
+tens of µs shows its own time and not the host's per-call cost; each row
+of the JSON line says which (``timing``: "graph" or "events").  Each
 kernel's ``bound_ms`` is the least time the card could take for the same
 work: the larger of its bytes (each input read once, each output written
 once) over 3.35 TB/s and its operations (counted from the algorithm,
@@ -206,6 +216,30 @@ def time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per call of ``reps`` calls captured in one CUDA graph (after a
+    warm-up call on a side stream): the card's time for the kernels without
+    the host's per-call cost, which a µs-scale kernel would otherwise show."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -524,14 +558,20 @@ def phase_build() -> None:
     name = None
     for line in ptxas_report().splitlines():
         m = re.search(
-            r"Compiling entry function '.*?(adi_sep_[xy]_kernel|adi_[xy]_kernel|adi_lines_kernel"
+            r"Compiling entry function '.*?(adi_sep_kernel|adi_kernel|adi_lines_kernel"
             r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
         o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ENS_\d+"
                       r"(TableConsts|AnalyticConsts)I[fd]E", line)
         if m:
-            gid = "" if m.group(3) is None else f", gap ids {'on' if m.group(3) == '1' else 'off'}"
-            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{gid}>"
+            flag = m.group(3)
+            if flag is None:
+                form = ""
+            elif m.group(1).startswith("adi"):
+                form = f", {'x' if flag == '1' else 'y'} half"
+            else:
+                form = f", gap ids {'on' if flag == '1' else 'off'}"
+            name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{form}>"
         elif o:
             name = (f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, P={o.group(3)}, "
                     f"{o.group(4)}>")
@@ -539,6 +579,21 @@ def phase_build() -> None:
             name = None
         elif name and ("stack frame" in line or "Used" in line):
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    # the staged ADI kernels' launch plans at the main paths' shapes (and
+    # the long-row form phase 3 checks): lines per block, chunks of a line
+    # held at once (fewer than K: two passes), dynamic shared bytes per block
+    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda
+    from qpsim_tpu_torch.ops.adi_sep import pick_chunks
+
+    for dtype in (F32, F64):
+        for nb, ny, nx in ((1, 1024, 1024), (16, 1024, 1024), (1, 16, 65536)):
+            plans = [f"{h} {adi_sep_cuda.kernel_plan(h, dtype, nb, ny, nx, pick_chunks(nx if h == 'x' else ny))}"
+                     for h in "xy"]
+            print(f"  adi_sep_kernel {str(dtype)[6:]} {nb}×{ny}×{nx}: {'; '.join(plans)}")
+        for nb, ny, nx in ((16, 1024, 1024), (100, 1024, 1024), (2, 24, 16384), (2, 8, 16385),
+                           (2, 16385, 8)):
+            plans = [f"{h} {adi_cuda.kernel_plan(h, dtype, nb, ny, nx)}" for h in "xy"]
+            print(f"  adi_kernel {str(dtype)[6:]} {nb}×{ny}×{nx}: {'; '.join(plans)}")
     # the column walk's pixels per lane at 1024² and its dynamic shared
     # memory per block (q and partner of the tile), at K5/K6's columns
     from qpsim_tpu_torch.ops.column_walk import blocks_per_sm, column_pixels
@@ -575,10 +630,24 @@ def phase_kernels_vs_plain() -> None:
                             check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
                                   f"phonons={phonons}", err, TOL[(name, dtype)])
     check_blocked()
-    for name, geometry in (("rectangle 1024²", rectangle(1024)), ("donut 256²", donut(256))):
-        for per_pixel in (False, True):
+    # K2: the main rectangle, the masked donut (zero coupling rows), each with
+    # one plane and NB planes; ragged tiles in both halves on 250 × 255 (K = 1
+    # along x, 2 along y) and 250 × 301 (K = 1 asked along x, 32 launched,
+    # the last chunk padded); 24 × 16384, long enough rows for the x half's
+    # two-pass form in both dtypes; lines of 16385 = 5·29·113 cells, whose
+    # 32 padded chunks take two passes (x half; y half in float64)
+    for name, geometry, nb, pixel_forms in (
+        ("rectangle 1024²", rectangle(1024), 16, (False, True)),
+        ("donut 256²", donut(256), 16, (False, True)),
+        ("film 250×255", film(250, 255, MIXED_FACES), 16, (False,)),
+        ("film 250×301", film(250, 301, MIXED_FACES), 16, (False, True)),
+        ("film 24×16384", film(24, 16384, MIXED_FACES), 2, (False,)),
+        ("film 8×16385", film(8, 16385, MIXED_FACES), 2, (False,)),
+        ("film 16385×8", film(16385, 8, MIXED_FACES), 2, (False,)),
+    ):
+        for per_pixel in pixel_forms:
             for dtype in (F64, F32):
-                planes, u = adi_planes(geometry, dtype, per_pixel=per_pixel)
+                planes, u = adi_planes(geometry, dtype, nb=nb, per_pixel=per_pixel)
                 alpha = 0.025
                 ux_ref = adi_cuda.adi_x_half_plain(u, planes, alpha)
                 ux = adi_cuda.adi_x_half(u, planes, alpha)
@@ -587,15 +656,22 @@ def phase_kernels_vs_plain() -> None:
                 step = adi_cuda.adi_step(u, planes, alpha)
                 torch.cuda.synchronize()
                 tol = TOL[("adi", dtype)]
-                tag = f"{name}×16 nbp={planes.ax_lo.shape[0]} {str(dtype)[6:]}"
+                px = adi_cuda.kernel_plan("x", dtype, *u.shape)
+                py = adi_cuda.kernel_plan("y", dtype, *u.shape)
+                tag = (f"{name}×{nb} nbp={planes.ax_lo.shape[0]} {str(dtype)[6:]} "
+                       f"(x: K={px['k']}, TL={px['tl']}, waves={px['waves']}; "
+                       f"y: K={py['k']}, TL={py['tl']}, waves={py['waves']})")
                 check(f"adi_x_half {tag}", scaled_err(ux, ux_ref), tol)
                 check(f"adi_y_half {tag}", scaled_err(uy, uy_ref), tol)
                 check(f"adi_step   {tag}", scaled_err(step, uy_ref), tol)
     from qpsim_tpu_torch.ops import adi_sep_cuda as k1
 
     # mixed faces, so the split source sx(x) + sy(y) is non-zero; 512×1024
-    # shows a swapped x/y
-    for (ny, nx), nb in (((1024, 1024), 1), ((1024, 1024), 16), ((512, 1024), 1)):
+    # shows a swapped x/y; 1030×1020×16 ragged tiles in both halves with
+    # K = 2 (M = 515) along y and 4 along x; 16×65536 rows long enough for
+    # the x half's two-pass form in both dtypes
+    for (ny, nx), nb in (((1024, 1024), 1), ((1024, 1024), 16), ((512, 1024), 1),
+                         ((1030, 1020), 16), ((16, 65536), 1)):
         for dtype in (F64, F32):
             f, u = sep_factors(film(ny, nx, MIXED_FACES), nb, dtype)
             ux_ref = k1.adi_sep_x_half_plain(u, f)
@@ -604,7 +680,11 @@ def phase_kernels_vs_plain() -> None:
             uy = k1.adi_sep_y(ux_ref, f)
             step = k1.adi_sep_step(u, f)
             torch.cuda.synchronize()
-            tol, tag = TOL[("adi_sep", dtype)], f"{ny}×{nx}×{nb} {str(dtype)[6:]}"
+            px = k1.kernel_plan("x", dtype, nb, ny, nx, int(f.facx.shape[3]))
+            py = k1.kernel_plan("y", dtype, nb, ny, nx, int(f.facy.shape[3]))
+            tol = TOL[("adi_sep", dtype)]
+            tag = (f"{ny}×{nx}×{nb} {str(dtype)[6:]} (x: K={f.facx.shape[3]}, TL={px['tl']}, "
+                   f"waves={px['waves']}; y: K={f.facy.shape[3]}, TL={py['tl']})")
             check(f"adi_sep_x {tag}", scaled_err(ux, ux_ref), tol)
             check(f"adi_sep_y {tag}", scaled_err(uy, uy_ref), tol)
             check(f"adi_sep_step {tag}", scaled_err(step, uy_ref), tol)
@@ -693,18 +773,21 @@ def check_offset_walks() -> None:
 
 
 def check_adi_lines() -> None:
-    """K7: Thomas (chunks 1) and the Wang partition (K = 32) on 16 × 1024-row
-    lines, B = 1000 (not a multiple of 32), one plane and NB planes."""
+    """K7: Thomas asked for (chunks 1: on 1024 rows the kernel launches 32)
+    and the Wang partition (K = 32) on 16 × 1024-row lines, B = 1000 (not a
+    multiple of 32), one plane and NB planes; and Thomas asked for on 2 ×
+    16385-row lines, B = 8 (32 padded chunks, two passes in float64)."""
     from qpsim_tpu_torch.ops.adi_cuda import solve_lines, solve_lines_plain
 
-    for chunks in (1, 32):
-        for nbp in (1, 16):
+    for chunks, (nb, n, batch), nbps in ((1, (16, 1024, 1000), (1, 16)), (32, (16, 1024, 1000), (1, 16)),
+                                         (1, (2, 16385, 8), (1,))):
+        for nbp in nbps:
             for dtype in (F64, F32):
-                system = line_system(16, 1024, 1000, nbp, dtype)
+                system = line_system(nb, n, batch, nbp, dtype)
                 ref = solve_lines_plain(*system, alpha=1.0, chunks=chunks)
                 got = solve_lines(*system, alpha=1.0, chunks=chunks)
                 torch.cuda.synchronize()
-                check(f"adi_lines K={chunks} 16×1024×1000 nbp={nbp} {str(dtype)[6:]}",
+                check(f"adi_lines K={chunks} {nb}×{n}×{batch} nbp={nbp} {str(dtype)[6:]}",
                       scaled_err(got, ref), TOL[("adi_lines", dtype)])
 
 
@@ -827,7 +910,8 @@ def collision_row(kind, line, launches, dt, *, ne=16, blocked=False):
 
 def print_rows(rows, shape: str, card: str) -> None:
     for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms ({r.get('timing', 'events')}), plain "
+              f"{r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3e} "
               f"({shape}, float32) — {card}")
     sys.stdout.flush()
@@ -865,7 +949,7 @@ def phase_main_path(card: str) -> list[dict]:
             name=name, route="cuda", source="qpsim_tpu_torch/csrc/adi.cu",
             replaces=f"qpsim_tpu/ops/pallas_adi.py:{line}", launches=counts[name],
             max_abs_err=err,
-            ms=time_ms(lambda: kern(u, planes, alpha), 20),
+            ms=graph_ms(lambda: kern(u, planes, alpha), 20), timing="graph",
             plain_ms=time_ms(lambda: plain(u, planes, alpha), 3),
             **bound(*adi_work(u, planes), F32), library_ms=None,
         ))
@@ -903,7 +987,7 @@ def phase_gap_maps(card: str) -> list[dict]:
             name=f"{name}_nb_planes", route="cuda", source="qpsim_tpu_torch/csrc/adi.cu",
             replaces=f"qpsim_tpu/ops/pallas_adi.py:{line}", launches=counts["trap"][name],
             max_abs_err=abs_err(got, ref),
-            ms=time_ms(lambda: kern(u, planes, alpha), 20),
+            ms=graph_ms(lambda: kern(u, planes, alpha), 20), timing="graph",
             plain_ms=time_ms(lambda: plain(u, planes, alpha), 3),
             **bound(*adi_work(u, planes), F32), library_ms=None,
         ))
@@ -1044,12 +1128,14 @@ def phase_explicit_entry_points(card: str) -> list[dict]:
     del k5, k8, near, k9
     torch.cuda.empty_cache()
 
-    # K7: the y lines of the rectangle, the auto chunk count (K = 32) and Thomas
+    # K7: the y lines of the rectangle, the auto chunk count (K = 32) and
+    # Thomas asked for (the kernel launches 32 chunks on lines of 1024)
     for chunks in (None, 1):
         ref, got = solve_lines_plain(u, *y_lines, alpha=alpha, chunks=chunks), solve_lines(
             u, *y_lines, alpha=alpha, chunks=chunks)
         torch.cuda.synchronize()
-        tag = f"adi_lines K={32 if chunks is None else chunks} 16 × 1024 lines of 1024 float32"
+        asked = "K=32" if chunks is None else "K=1 asked (32 launched)"
+        tag = f"adi_lines {asked} 16 × 1024 lines of 1024 float32"
         check(tag, scaled_err(got, ref), TOL[("adi_lines", F32)])
         row = dict(
             name="adi_lines", route="cuda", source="qpsim_tpu_torch/csrc/adi_lines.cu",
@@ -1213,11 +1299,13 @@ def phase_scalar_path(card: str) -> list[dict]:
         rows.append(dict(
             name=name, route="cuda", source="qpsim_tpu_torch/csrc/adi_sep.cu",
             replaces=f"qpsim_tpu/ops/pallas_adi_sep.py:{line}", launches=sep_launches[name],
-            max_abs_err=err, ms=time_ms(lambda: kern(u, f), 200),
+            max_abs_err=err, ms=graph_ms(lambda: kern(u, f), 200), timing="graph",
             plain_ms=time_ms(lambda: plain(u, f), 5),
             **bound(*adi_sep_work(u, f, name[-1]), F32), library_ms=None,
         ))
-        print(f"  {name} at 1024²×16 float32: kernel {time_ms(lambda: kern(u16, f16), 50):.4f} ms, "
+        print(f"  {name} at 1024²×1 float32: {rows[-1]['ms'] * 1e3:.2f} µs in a CUDA graph, "
+              f"{time_ms(lambda: kern(u, f), 200) * 1e3:.2f} µs launched one by one from the host")
+        print(f"  {name} at 1024²×16 float32: kernel {graph_ms(lambda: kern(u16, f16), 50):.4f} ms, "
               f"plain {time_ms(lambda: plain(u16, f16), 3):.3f} ms — {card}")
     print_rows(rows, "1024²×1", card)
     return rows
@@ -1344,6 +1432,8 @@ def main() -> int:
     timed_phase(phase_end_to_end_f64)
     rows += timed_phase(phase_scalar_path, card)
     rows.append(timed_phase(phase_other_diffusion_paths, card))
+    for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
+        row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

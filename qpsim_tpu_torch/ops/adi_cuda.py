@@ -25,6 +25,7 @@ Their plain versions are :func:`solve_lines_plain` and
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from functools import partial
 
@@ -45,6 +46,7 @@ __all__ = [
     "adi_x_half_plain",
     "adi_y_half_plain",
     "adi_step_plain",
+    "kernel_plan",
     "solve_lines",
     "solve_lines_plain",
     "build_adi_step",
@@ -110,9 +112,10 @@ def adi_x_half_plain(
 ) -> torch.Tensor:
     """x-implicit half: (I − αs·Lx) u* = u + αs·(Ly u + src).
 
-    ``solve`` is the Thomas solve (what the kernel computes) unless a
-    caller hands in another; returns a contiguous tensor, like the kernel
-    (which takes only those).
+    ``solve`` is the Thomas solve unless a caller hands in another (the
+    kernel eliminates the same system in Wang chunks, which agrees to
+    roundoff); returns a contiguous tensor, like the kernel (which takes
+    only those).
     """
     a_s = _alpha_s(planes, alpha)
     rhs = u + a_s * (_apply_dir(u, planes.ay_lo, planes.ay_hi, planes.ay_diag, -2) + planes.src)
@@ -162,17 +165,37 @@ def _launch(half: str, u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torc
     suffix = "f32" if u.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"qp_adi_{half}_{suffix}")
     out = torch.empty_like(u)
-    w_scratch = torch.empty_like(u)  # c′ of the Thomas sweep; d′ lives in ``out``
     err = fn(
-        u.data_ptr(), out.data_ptr(), w_scratch.data_ptr(),
+        u.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in (x_planes if half == "x" else y_planes)),
-        planes.scale.data_ptr(), nb, nbp, ny, nx, float(alpha),
-        torch.cuda.current_stream(u.device).cuda_stream,
+        planes.scale.data_ptr(), nb, nbp, ny, nx, pick_chunks(nx if half == "x" else ny),
+        float(alpha), torch.cuda.current_stream(u.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ADI {half}-half kernel launch failed with CUDA error {err}")
     LAUNCHES[f"adi_{half}_half"] += 1
     return out
+
+
+def kernel_plan(half: str, dtype: torch.dtype, nb: int, ny: int, nx: int) -> dict:
+    """How K2's ``half`` launches on the current card for an (nb, ny, nx) state.
+
+    ``tl`` lines per block, ``w`` chunks of a line held at once (``w < k``:
+    the two-pass form for long lines), ``pitch`` the shared-memory chunk
+    pitch, ``smem`` dynamic shared bytes per block, ``blocks``, ``waves``
+    and ``k`` the Wang chunk count launched: ``pick_chunks`` of the line
+    length, raised to 32 on lines of 256 cells or more and further where
+    one chunk would not fit in shared memory (the last chunk padded with
+    identity rows).  Raises when the kernel does not take the shape.  Needs
+    the card (it reads its limits).
+    """
+    out = (ctypes.c_int * 7)()
+    k = pick_chunks(nx if half == "x" else ny)
+    err = load_kernels().qp_adi_plan(int(half == "x"), torch.finfo(dtype).bits // 8, nb, ny, nx, k,
+                                     out)
+    if err != 0:
+        raise ValueError(f"the ADI {half}-half kernel does not take {nb}x{ny}x{nx} {dtype}")
+    return dict(zip(("tl", "w", "pitch", "smem", "blocks", "waves", "k"), out))
 
 
 def adi_x_half(u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
@@ -225,9 +248,12 @@ def solve_lines(rhs: torch.Tensor, lo: torch.Tensor, di: torch.Tensor, hi: torch
     direction's geometry planes; ``scale`` (NB,) the per-bin D factor (ones
     when the planes carry D).  ``chunks`` is the Wang chunk count K (it must
     divide N; ``None`` takes the largest of 32, 16, 8, 4, 2 with N/K ≥ 8,
-    else 1, the Thomas solve).  Zero coefficient rows decouple exactly; any
-    B works.  CUDA tensors launch the kernel (counted as ``adi_lines``) or
-    raise; CPU tensors run :func:`solve_lines_plain`.
+    else 1, the Thomas solve).  On the card K rises to 32 on lines of 256
+    cells or more, and further where one chunk would not fit in shared
+    memory, the last chunk padded with identity rows: a result that agrees
+    with the asked-for solve to roundoff.  Zero coefficient rows
+    decouple exactly; any B works.  CUDA tensors launch the kernel (counted
+    as ``adi_lines``) or raise; CPU tensors run :func:`solve_lines_plain`.
     """
     if rhs.device.type == "cpu":
         return solve_lines_plain(rhs, lo, di, hi, scale, alpha=alpha, chunks=chunks)
@@ -251,13 +277,12 @@ def solve_lines(rhs: torch.Tensor, lo: torch.Tensor, di: torch.Tensor, hi: torch
     if k > 256:
         raise ValueError(f"the line-solve kernel takes at most 256 chunks, got {k}")
     out = torch.empty_like(rhs)
-    scratch = torch.empty((2, *rhs.shape), dtype=rhs.dtype, device=rhs.device)  # A′, C′
     lib = load_kernels()
     fn = lib.qp_adi_lines_f32 if rhs.dtype == torch.float32 else lib.qp_adi_lines_f64
     err = fn(
         rhs.data_ptr(), lo.data_ptr(), di.data_ptr(), hi.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), nb, nbp, n, batch, k,
-        float(alpha), torch.cuda.current_stream(rhs.device).cuda_stream,
+        out.data_ptr(), nb, nbp, n, batch, k, float(alpha),
+        torch.cuda.current_stream(rhs.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"line-solve kernel launch failed with CUDA error {err}")

@@ -17,6 +17,8 @@ tensors; they never fall back.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.cuda_build import load_kernels
@@ -30,6 +32,7 @@ __all__ = [
     "adi_sep_x_half_plain",
     "adi_sep_y_half_plain",
     "adi_sep_step_plain",
+    "kernel_plan",
 ]
 
 #: launches of each half-step kernel since import (or since the caller reset it)
@@ -127,6 +130,21 @@ def _launch(half: str, u: torch.Tensor, f: SepFactors) -> torch.Tensor:
         raise RuntimeError(f"separable ADI {half}-half kernel launch failed with CUDA error {err}")
     LAUNCHES[f"adi_sep_{half}"] += 1
     return out
+
+
+def kernel_plan(half: str, dtype: torch.dtype, nb: int, ny: int, nx: int, k: int) -> dict:
+    """How K1's ``half`` launches on the current card for an (nb, ny, nx)
+    state solved in ``k`` Wang chunks: ``tl`` lines per block, ``w`` chunks
+    of a line held at once (``w < k``: the two-pass form for long lines),
+    ``pitch``, ``smem`` dynamic shared bytes per block, ``blocks``, ``waves``.
+    Raises when the kernel does not take the shape.  Needs the card.
+    """
+    out = (ctypes.c_int * 6)()
+    err = load_kernels().qp_adi_sep_plan(int(half == "x"), torch.finfo(dtype).bits // 8, nb, ny,
+                                         nx, k, out)
+    if err != 0:
+        raise ValueError(f"the separable ADI {half}-half kernel does not take {nb}x{ny}x{nx} {dtype}")
+    return dict(zip(("tl", "w", "pitch", "smem", "blocks", "waves"), out))
 
 
 def adi_sep_x(u: torch.Tensor, f: SepFactors) -> torch.Tensor:

@@ -48,6 +48,11 @@ DENSE_BACKEND_MAX_CELLS = 4096
 
 #: multi-bin separable builds engage only when both extents reach this
 SEPARABLE_MULTIBIN_MIN_EXTENT = 512
+#: K1 holds one Wang chunk of a line (its host-prefactored length M = n/K)
+#: in shared memory; at M ≤ 16384 that is ≤ 133 KB in float64, which a
+#: Hopper or Ampere card gives a block.  Longer chunks (a line of 2·odd
+#: cells above 32 768, say) take K2, which sizes its own chunks.
+SEPARABLE_MAX_CHUNK_ROWS = 16384
 
 
 class DenseSpectralDiffusion:
@@ -234,6 +239,8 @@ def _separable_applies(op: SplitOperator, coupled: bool) -> bool:
     ny, nx = np.asarray(op.mask).shape
     if pick_chunks(ny) < 2 or pick_chunks(nx) < 2:
         return False
+    if max(ny // pick_chunks(ny), nx // pick_chunks(nx)) > SEPARABLE_MAX_CHUNK_ROWS:
+        return False
     if op.num_bins > 1 and (coupled or min(ny, nx) < SEPARABLE_MULTIBIN_MIN_EXTENT):
         return False
     return separable_stencil_vectors(op) is not None
@@ -244,8 +251,9 @@ class CudaADI(ADIDiffusion):
 
     The separable prefactored-Wang step (K1, ``ops.adi_sep_cuda``) runs when
     the operator is separable and lazily scaled, both extents split into
-    K ≥ 2 Wang chunks, and — for NB > 1 — the build is standalone (no
-    collisions composed with it) with both extents ≥ 512.  Everything else
+    K ≥ 2 Wang chunks of at most ``SEPARABLE_MAX_CHUNK_ROWS`` rows, and —
+    for NB > 1 — the build is standalone (no collisions composed with it)
+    with both extents ≥ 512.  Everything else
     runs the fused ADI step (K2, ``ops.adi_cuda``).  The JAX package's
     TPU-only conditions have no counterpart here and are dropped: 8-row
     and 128-lane tiles (``_pick_tile``), VMEM budgets (``_auto_tile``), the

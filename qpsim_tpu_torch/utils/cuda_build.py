@@ -142,8 +142,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = I
         for half in ("x", "y"):
             fn = getattr(lib, f"qp_adi_{half}_{suffix}")
-            # u, out, w_scratch, 7 planes, scale, nb, nbp, ny, nx, alpha, stream
-            fn.argtypes = [P] * 11 + [I, I, I, I, D, P]
+            # u, out, 7 planes, scale, nb, nbp, ny, nx, k, alpha, stream
+            fn.argtypes = [P] * 10 + [I, I, I, I, I, D, P]
             fn.restype = I
             fn = getattr(lib, f"qp_adi_sep_{half}_{suffix}")
             # u, out, xv, yv, fac, ifc, nb, ny, nx, k, stream
@@ -162,7 +162,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                        + [I, I, LL, D, I, I, P])
         fn.restype = I
         fn = getattr(lib, f"qp_adi_lines_{suffix}")
-        # rhs, lo, di, hi, scale, out, a_scratch, c_scratch, nb, nbp, n, batch, k, alpha, stream
-        fn.argtypes = [P] * 8 + [I] * 5 + [D, P]
+        # rhs, lo, di, hi, scale, out, nb, nbp, n, batch, k, alpha, stream
+        fn.argtypes = [P] * 6 + [I] * 5 + [D, P]
         fn.restype = I
+    # launch plans of the staged ADI kernels (K1, K2)
+    lib.qp_adi_plan.argtypes = [I] * 6 + [P]  # x_half, elem_bytes, nb, ny, nx, k, out[7]
+    lib.qp_adi_plan.restype = I
+    lib.qp_adi_sep_plan.argtypes = [I] * 6 + [P]  # x_half, elem_bytes, nb, ny, nx, k, out[6]
+    lib.qp_adi_sep_plan.restype = I
     return lib

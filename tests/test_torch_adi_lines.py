@@ -9,8 +9,9 @@ run their plain versions (the port's Thomas and Wang solves):
   ``tests/test_pallas_adi.py`` holds it);
 * ``build_adi_step`` against ``build_pallas_adi_step`` on the four
   operators of ``tests/test_pallas_adi.py`` (atol 1e-12);
-* the CUDA kernel's chunked sweeps and interface recurrence
-  (``csrc/adi_lines.cu``) through a NumPy transcription;
+* the CUDA kernel's blocking, chunked sweeps and interface recurrence
+  (``csrc/adi_lines.cu`` on ``csrc/adi_staged.cuh``) through the NumPy
+  transcription ``tests/adi_transcription.py``, with a padded last chunk;
 * the wrappers on the CPU launch nothing; the module imports no JAX.
 """
 
@@ -29,6 +30,7 @@ from qpsim_tpu.models.params import BoundaryCondition  # noqa: E402
 from qpsim_tpu.ops.diffusion import build_directional_stencils, fold_diffusion  # noqa: E402
 from qpsim_tpu.ops.pallas_adi import _pick_chunks, build_pallas_adi_step, solve_lines_pallas  # noqa: E402
 
+import adi_transcription as tr  # noqa: E402
 import qpsim_tpu_torch as T  # noqa: E402
 from qpsim_tpu_torch.interop import split_operator_from_numpy  # noqa: E402
 from qpsim_tpu_torch.ops import adi_cuda  # noqa: E402
@@ -128,64 +130,24 @@ def test_adi_step_agrees_with_the_fused_step():
 # ---------------------------------------------------------------- the CUDA kernel's sweeps
 
 
-def _lines_transcription(rhs, lo, di, hi, scale, alpha, k):
-    """``csrc/adi_lines.cu`` in NumPy: per bin, each chunk's forward and
-    backward sweeps (A′, C′ in scratch, D′ in the output), the interface
-    recurrence over the chunks' boundary rows, then stage 4; every line at once."""
-    nb, n, batch = rhs.shape
-    m = n // k
-    out, a_scr, c_scr = (np.empty_like(rhs) for _ in range(3))
-    for b in range(nb):
-        pb = b if lo.shape[0] > 1 else 0
-        a_s = alpha * scale[b]
-        bounds = np.zeros((6, k, batch))  # aL, cL, dL, aR, cR, dR
-        for c in range(k):
-            r0 = c * m
-            inv = 1.0 / (1.0 - a_s * di[pb, r0])
-            cp, ap, dp = -a_s * hi[pb, r0] * inv, -a_s * lo[pb, r0] * inv, rhs[b, r0] * inv
-            c_scr[b, r0], a_scr[b, r0], out[b, r0] = cp, ap, dp
-            for i in range(1, m):
-                r = r0 + i
-                a_i = -a_s * lo[pb, r]
-                inv = 1.0 / (1.0 - a_s * di[pb, r] - a_i * cp)
-                cp, ap, dp = -a_s * hi[pb, r] * inv, -a_i * ap * inv, (rhs[b, r] - a_i * dp) * inv
-                c_scr[b, r], a_scr[b, r], out[b, r] = cp, ap, dp
-            bounds[3:, c] = ap, cp, dp
-            c_n, a_n, d_n = cp, ap, dp
-            for i in range(m - 2, -1, -1):
-                r = r0 + i
-                cp_i = c_scr[b, r]
-                d_n = out[b, r] - cp_i * d_n
-                c_n, a_n = -cp_i * c_n, a_scr[b, r] - cp_i * a_n
-                out[b, r], c_scr[b, r], a_scr[b, r] = d_n, c_n, a_n
-            bounds[:3, c] = a_n, c_n, d_n
-        if k == 1:
-            continue
-        al, cl, dl, ar, cr, dr = bounds
-        g = w = np.zeros(batch)
-        for j in range(k):
-            inv = 1.0 / (1.0 - al[j] * w)
-            p = (dl[j] - al[j] * g) * inv
-            q = cl[j] * inv
-            g, w = dr[j] - ar[j] * g + ar[j] * w * p, cr[j] + ar[j] * w * q
-            dl[j], cl[j], dr[j], cr[j] = p, q, g, w
-        l_next = np.zeros(batch)
-        for j in range(k - 1, -1, -1):
-            dr[j] = dr[j] - cr[j] * l_next
-            dl[j] = l_next = dl[j] - cl[j] * l_next
-        for c in range(k):
-            x_left = dr[c - 1] if c > 0 else 0.0
-            x_right = dl[c + 1] if c + 1 < k else 0.0
-            rows = slice(c * m, (c + 1) * m)
-            out[b, rows] = out[b, rows] - a_scr[b, rows] * x_left - c_scr[b, rows] * x_right
-    return out
-
-
 @pytest.mark.parametrize("k,nbp", [(1, 3), (4, 3), (4, 1), (16, 1), (48, 3)])
 def test_kernel_sweeps_reproduce_the_plain_version(k, nbp):
+    # the kernel's blocking (tests/adi_transcription.py): TL adjacent lines a
+    # block (40 lines: a ragged last block at TL = 16), and at K = 16 four
+    # chunks held at a time, in two passes
     rhs, lo, di, hi, scale = _lines(nbp=nbp, seed=k)
-    got = _lines_transcription(rhs, lo, di, hi, scale, 0.8, k)
+    tl = 16 if k <= 16 else 4
+    got = tr.lines_solve(rhs, lo, di, hi, scale, 0.8, k, tl=tl, w=4 if k == 16 else None)
     want = solve_lines_plain(*(torch.as_tensor(a) for a in (rhs, lo, di, hi, scale)), alpha=0.8, chunks=k)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-13)
+
+
+def test_kernel_sweeps_with_a_padded_last_chunk_reproduce_thomas():
+    # the K the kernel raises where one chunk does not fit in shared memory
+    # need not divide N: 5 chunks of 10 rows on N = 48, two identity rows
+    rhs, lo, di, hi, scale = _lines(nbp=3, seed=9)
+    got = tr.lines_solve(rhs, lo, di, hi, scale, 0.8, 5, tl=8)
+    want = solve_lines_plain(*(torch.as_tensor(a) for a in (rhs, lo, di, hi, scale)), alpha=0.8, chunks=1)
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-13)
 
 

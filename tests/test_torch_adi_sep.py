@@ -4,8 +4,10 @@ The host side (stencil vectors, chunk choice, Wang prefactorization) is
 pinned bit-equal to the JAX package's; the kernel's plain version is held
 against ``build_pallas_adi_sep_step`` in interpret mode over three steps,
 at the JAX package's own tolerance (``tests/test_pallas_adi_sep.py``);
-and the dispatch of ``CudaADI`` between K1 and K2 is checked without
-launching anything.
+the kernel's blocking, transcribed in NumPy (``tests/adi_transcription.py``),
+is held to 1e-12 against the plain halves and the JAX step; and the
+dispatch of ``CudaADI`` between K1 and K2 is checked without launching
+anything.
 """
 
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from qpsim_tpu.models.params import BoundaryCondition  # noqa: E402
 from qpsim_tpu.ops.diffusion import build_directional_stencils, fold_diffusion  # noqa: E402
 from qpsim_tpu.ops import pallas_adi, pallas_adi_sep  # noqa: E402
 
+import adi_transcription as tr  # noqa: E402
 import qpsim_tpu_torch as T  # noqa: E402
 from qpsim_tpu_torch.geometry.mask import extract_edge_segments as t_edges  # noqa: E402
 from qpsim_tpu_torch.interop import split_operator_from_numpy  # noqa: E402
@@ -122,6 +125,37 @@ def test_sep_step_matches_plain_adi_and_wrappers_launch_nothing_on_cpu():
         adi_sep_cuda.adi_sep_y(u.to("meta"), factors)
 
 
+# (Ny, Nx, D, x-half TL, y-half TL, chunks held at once)
+KERNEL_CASES = {
+    "nb1": (32, 64, 2.3, 2, 8, None),
+    "ragged_tiles_nb3": (36, 64, np.array([1.0, 2.0, 3.0]), 8, 8, None),  # 36 rows, TL 8
+    "short_chunks": (64, 32, 1.7, 4, 16, None),  # K = 4 along x (M = 8), 8 along y
+    "two_pass": (64, 64, np.array([1.5, 2.5]), 4, 8, 2),  # W = 2 of K = 8
+    "one_chunk_a_wave": (40, 48, 2.0, 8, 8, 1),  # W = 1: K waves of one chunk (odd M = 5)
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL_CASES))
+def test_kernel_transcription_matches_plain_halves_and_jax(name):
+    ny, nx, D, tl_x, tl_y, w = KERNEL_CASES[name]
+    op_j, op_t = _rect_operator(ny, nx, D)
+    nb = op_t.num_bins
+    u0 = np.random.default_rng(ny * nx).uniform(0.0, 1.0, (nb, ny, nx))
+    dt = 0.05
+    f = adi_sep.SepFactors.build(op_t, dt, "cpu", F64)
+    assert max(f.facx.shape[3], f.facy.shape[3]) < 32
+    vec = lambda t: t.numpy()
+    half = tr.sep_half(u0, vec(f.xv), vec(f.yv), vec(f.facx), vec(f.ifx), "x", tl=tl_x, w=w)
+    ref = adi_sep_cuda.adi_sep_x_half_plain(torch.as_tensor(u0), f).numpy()
+    np.testing.assert_allclose(half, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    got = tr.sep_half(half, vec(f.xv), vec(f.yv), vec(f.facy), vec(f.ify), "y", tl=tl_y, w=w)
+    ref = adi_sep_cuda.adi_sep_y_half_plain(torch.as_tensor(half), f).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    if name in ("nb1", "two_pass"):  # the shapes the JAX builder tiles
+        jstep = pallas_adi_sep.build_pallas_adi_sep_step(op_j, dt, jnp.float64, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(jstep(jnp.asarray(u0))), rtol=0, atol=1e-12)
+
+
 def _own_operator(ny, nx, D, *, hole=False):
     """An operator built by the port's own host layer (reflective faces)."""
     mask = np.ones((ny, nx), dtype=bool)
@@ -153,6 +187,14 @@ def test_cuda_adi_dispatch(ny, nx, D, coupled, expect):
     assert tdb._separable_applies(op, coupled) is expect
     if ny * nx <= 64 * 67:
         assert tdb.CudaADI(op, "cpu", F64, coupled=coupled).separable is expect
+
+
+@pytest.mark.parametrize("nx,expect", [(32768, True), (32770, False)], ids=["m1024", "m16385"])
+def test_cuda_adi_dispatch_sends_chunks_too_long_for_k1_to_k2(nx, expect):
+    # 16 rows: K = 2 along y; 32768 = 32 chunks of 1024; 32770 = 2 × 16385:
+    # one chunk above K1's SEPARABLE_MAX_CHUNK_ROWS, so K2 takes the film
+    op = _own_operator(16, nx, 6.0)
+    assert tdb._separable_applies(op, False) is expect
 
 
 def test_non_separable_masked_film_takes_k2():
