@@ -13,8 +13,11 @@ a non-zero exit:
    shared bytes per block) at the paths' shapes;
 3. each kernel against its plain PyTorch version on the card, float64 and
    float32: the collision step (K3) on a uniform gap and with per-pixel
-   gap ids (G = 3), the analytic-gap collision step (K4) on a continuous
-   gap plane, the fused ADI halves (K2) with one plane and with NB
+   gap ids (G = 3 random, G = 8 mixed in every warp, the trap disc's), the
+   analytic-gap collision step (K4) on a continuous gap plane (γ = 0 and
+   0.12), at NE = 8, 9, 16 (the pair walk's 16 bins in registers), 11 (a
+   split ω diagonal), and 17, 32, 33, 50 and 64 (where they run the column
+   walk), the fused ADI halves (K2) with one plane and with NB
    per-pixel planes on the rectangle and the masked donut, on 250 × 255
    and 250 × 301 (ragged tiles; K = 1, and 32 chunks on 301 cells with the
    last padded), on 24 × 16384 (the two-pass form for long rows) and on
@@ -40,8 +43,8 @@ a non-zero exit:
    trap (two gaps: K3 with gap ids) and with a gap gradient (a distinct
    gap per pixel: K4), both through per-pixel D(E, x) on K2's NB planes,
    with exact launch counts, timed as in phase 4 over two calls; then
-   K3-gid, K4 and K2 on NB planes timed against their plain versions at
-   1024² × 16;
+   K3-gid (random G = 3 ids, and the trap disc's coherent ids), K4 and K2
+   on NB planes timed against their plain versions at 1024² × 16;
 4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 40
    steps stored at the start and the end — uniform on the 1024²
    rectangle through K5 (two timed calls), the trap (K5 with gap ids) and
@@ -256,24 +259,25 @@ BLOCKED_KINDS = {"uniform": "collision_step_blocked", "gid": "collision_step_blo
 _PMAPS: dict = {}
 
 
-def phonon_map(ne):
-    """The energy grid (E, dE) and ω map at NE bins (Δ = 180, E_max = 4Δ), built once per NE."""
+def phonon_map(ne, emax=4.0):
+    """The energy grid (E, dE) and ω map at NE bins (Δ = 180, E_max = emax·Δ), built once per (NE, emax)."""
     from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
     from qpsim_tpu_torch.ops.phonon_map import build_phonon_frequency_map
 
-    if ne not in _PMAPS:
-        E, dE = build_energy_grid(180.0, 1.0, 4.0, ne)
-        _PMAPS[ne] = (E, dE, build_phonon_frequency_map(E))
-    return _PMAPS[ne]
+    if (ne, emax) not in _PMAPS:
+        E, dE = build_energy_grid(180.0, 1.0, emax, ne)
+        _PMAPS[ne, emax] = (E, dE, build_phonon_frequency_map(E))
+    return _PMAPS[ne, emax]
 
 
 def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, seed=0,
-                    blocked=False, pixel_chunk=4096):
+                    blocked=False, pixel_chunk=4096, emax=4.0):
     """A collision kernel, its plain version and a random state at NE bins on an
-    n×n grid (an (ny, nx) grid where ``n`` is a pair).
+    n×n grid (an (ny, nx) grid where ``n`` is a pair), E_max = emax·Δ.
 
     ``kind`` "uniform": one gap (K3); "gid": per-gap tables for G = 3 gaps
-    and random gap ids (K3 with gap ids); "trap": G = 2, the ids of
+    and random gap ids (K3 with gap ids); "gid8": G = 8 (the gap-id bound),
+    random ids, so every warp mixes them; "trap": G = 2, the ids of
     ``GAP_MAPS_100["trap"]``'s disc (coherent, as a trap map's are);
     "analytic": a random continuous gap plane (K4); with ``blocked`` the
     same forms through K5 / K6 on their column tables.  The state is drawn
@@ -286,7 +290,7 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
     from qpsim_tpu_torch.ops.dos import dynes_density_of_states, thermal_phonon_occupation
     from qpsim_tpu_torch.ops.kernels import recombination_kernel_base, scattering_kernel_base
 
-    E, dE, pm = phonon_map(ne)
+    E, dE, pm = phonon_map(ne, emax)
     rng = np.random.default_rng(seed)
     shape = (n, n) if isinstance(n, int) else tuple(n)
     if kind == "analytic":
@@ -300,17 +304,17 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
             tables = kb.build_column_tables(plan, tab)
             tensors = tables.kernel_tensors()
         else:
-            tables = kc.build_kernel_tables(plan)
-            tensors = (tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi, tab.dEa_s, tab.dEb_s, tab.dEa2_r,
-                       tab.dEb2_r, tables.idx_diff, tables.idx_sum, tables.sign, tables.row_ptr,
-                       tables.row_code)
+            tables = kc.build_kernel_tables(plan, tab)
+            tensors = kernel_tensors(tables, tab.g2, tab.E, tab.inv_E, tab.e2, tab.zi)
         step = kb.collision_step_blocked_analytic if blocked else kc.collision_step_analytic
         kernel = lambda q, ph, dt, g: step(plan, tab, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_analytic_plain(plan, tab, q, ph, dt, g)
     else:
-        gaps = {"uniform": (180.0,), "gid": (160.0, 170.0, 180.0), "trap": (160.0, 180.0)}[kind]
+        gaps = {"uniform": (180.0,), "gid": (160.0, 170.0, 180.0), "gid8": tuple(np.linspace(150.0, 185.0, 8)),
+                "trap": (160.0, 180.0)}[kind]
         gid = {"uniform": None, "gid": rng.integers(0, len(gaps), shape),
-               "trap": trap_ids(n) if kind == "trap" else None}[kind]
+               "gid8": rng.integers(0, len(gaps), shape),
+               "trap": trap_ids(shape) if kind == "trap" else None}[kind]
         stack = lambda fn: np.stack([fn(E, g, 440.0, 1.2) for g in gaps])
         rho_g = np.stack([dynes_density_of_states(E, g, gamma) for g in gaps])
         plan = build_collision_plan_arrays(
@@ -324,8 +328,7 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
             tensors = tables.kernel_tensors()
         else:
             tables = kc.build_kernel_tables(plan)
-            tensors = (plan.gap_id, tables.rho, tables.ks, tables.kr, tables.idx_diff,
-                       tables.idx_sum, tables.sign, tables.row_ptr, tables.row_code)
+            tensors = kernel_tensors(tables, plan.gap_id)
         step = kb.collision_step_blocked if blocked else kc.collision_step
         kernel = lambda q, ph, dt, g: step(plan, tables, q, ph, dt, g)
         plain = lambda q, ph, dt, g: kc.collision_step_plain(plan, q, ph, dt, g)
@@ -340,12 +343,23 @@ def collision_setup(ne, n, dtype, *, kind="uniform", phonons=True, gamma=0.0, se
     return kernel, plain, plan, tensors, q.to(dtype), ph.to(dtype), gen.to(dtype)
 
 
-def trap_ids(n):
-    """The gap ids of ``GAP_MAPS_100["trap"]`` on an n×n film: the disc
+def trap_ids(shape):
+    """The gap ids of ``GAP_MAPS_100["trap"]`` on a (ny, nx) film: the disc
     (x − ½)² + (y − ½)² < 0.04 at pixel centres takes the lower gap, id 0
     in ``np.unique`` order, the rest id 1."""
-    c = (np.arange(n) + 0.5) / n
-    return (((c[None, :] - 0.5) ** 2 + (c[:, None] - 0.5) ** 2) >= 0.04).astype(np.int64)
+    cy, cx = ((np.arange(m) + 0.5) / m for m in shape)
+    return (((cx[None, :] - 0.5) ** 2 + (cy[:, None] - 0.5) ** 2) >= 0.04).astype(np.int64)
+
+
+def kernel_tensors(tables, *planes):
+    """What a K3/K4 launch reads besides the state (for byte counts): the
+    pair walk's tables and ``planes`` (gap ids, Δ² and the Dynes
+    constants), or beyond the register buckets the column walk's tables."""
+    from qpsim_tpu_torch.ops.column_walk import ColumnTables
+
+    if isinstance(tables, ColumnTables):
+        return tables.kernel_tensors()
+    return [*planes, *tables.kernel_tensors()]
 
 
 def column_counts(ne):
@@ -559,11 +573,17 @@ def phase_build() -> None:
     for line in ptxas_report().splitlines():
         m = re.search(
             r"Compiling entry function '.*?(adi_sep_kernel|adi_kernel|adi_lines_kernel"
-            r"|collision_step_analytic_kernel|collision_step_kernel|thomas_kernel)I([fd])(?:Lb([01])E)?E",
+            r"|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
         o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ENS_\d+"
                       r"(TableConsts|AnalyticConsts)I[fd]E", line)
-        if m:
+        c = re.search(r"Compiling entry function '.*?(collision_step_kernel)I([fd])Lb([01])ENS_\d+"
+                      r"(TableConsts|AnalyticConsts)I[fd](?:Lb([01])E)?E", line)
+        if c:
+            form = "simple" if c.group(3) == "1" else "general"
+            ids = {"0": ", uniform gap", "1": ", gap ids", None: ""}[c.group(5)]
+            name = f"{c.group(1)}<{'float' if c.group(2) == 'f' else 'double'}, {form}, {c.group(4)}{ids}>"
+        elif m:
             flag = m.group(3)
             if flag is None:
                 form = ""
@@ -614,21 +634,7 @@ def phase_kernels_vs_plain() -> None:
     print("== 3 kernels against their plain versions on the card", flush=True)
     from qpsim_tpu_torch.ops import adi_cuda
 
-    for kind, name in COLLISION_KINDS.items():
-        for ne, n in ((16, 256), (50, 128)):
-            for dtype in (F64, F32):
-                for phonons in (True, False):
-                    for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
-                        kern, plain, _, _, q, ph, gen = collision_setup(
-                            ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma)
-                        for g in (None, gen):
-                            ref = plain(q, ph, 0.025, g)
-                            got = kern(q, ph, 0.025, g)
-                            torch.cuda.synchronize()
-                            err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
-                            extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
-                            check(f"{name} NE={ne} {n}² {str(dtype)[6:]}{extra} gen={g is not None} "
-                                  f"phonons={phonons}", err, TOL[(name, dtype)])
+    check_pair_walk()
     check_blocked()
     # K2: the main rectangle, the masked donut (zero coupling rows), each with
     # one plane and NB planes; ragged tiles in both halves on 250 × 255 (K = 1
@@ -699,6 +705,55 @@ def phase_kernels_vs_plain() -> None:
             check(f"thomas {lines} lines × {n} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
     check_offset_walks()
     check_adi_lines()
+
+
+def check_pair_walk() -> None:
+    """K3 and K4: the pair walk's 16 bins (8 and 9 padded, the split ω
+    diagonal at 11, the main path's 16 in the simple form, and 16 at E_max
+    = 5Δ and 9Δ, where a difference and a sum share ω rows although each
+    diagonal is one group: the general form) and
+    the column walk K3/K4 launch beyond them (17, 32, 33, 50, 64), on
+    ragged last blocks; a uniform gap, G = 3 random gap ids, G = 8 ids
+    mixed in every warp, the trap disc's coherent ids, and a random Δ plane
+    at γ = 0 and 0.12, with phonons updated and frozen; with and without
+    the dt·g plane."""
+    from qpsim_tpu_torch.ops.collisions_cuda import pair_walk, walk_bins
+
+    forms = [("uniform", 0.0, True), ("uniform", 0.0, False), ("gid", 0.0, True),
+             ("gid", 0.0, False), ("gid8", 0.0, True), ("trap", 0.0, True),
+             ("analytic", 0.0, True), ("analytic", 0.12, True), ("analytic", 0.12, False)]
+    for ne, n, emax in ((8, (45, 50), 4.0), (9, (45, 50), 4.0), (11, (45, 50), 4.0), (16, 256, 4.0),
+                        (16, (45, 50), 5.0), (16, (45, 50), 9.0), (17, (45, 50), 4.0),
+                        (32, (45, 50), 4.0), (33, (45, 50), 4.0), (50, 128, 4.0),
+                        (64, (64, 50), 4.0)):
+        grid = f"{n}²" if isinstance(n, int) else f"{n[0]}×{n[1]}"
+        grid += "" if emax == 4.0 else f" E_max={emax:g}Δ"
+        for kind, gamma, phonons in forms:
+            name = COLLISION_KINDS[{"gid8": "gid", "trap": "gid"}.get(kind, kind)]
+            for dtype in (F64, F32):
+                kern, plain, plan, _, q, ph, gen = collision_setup(
+                    ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma, pixel_chunk=1024,
+                    emax=emax)
+                if emax != 4.0:  # one group per diagonal, ω rows shared
+                    walk = pair_walk(plan, 16)
+                    rows = np.concatenate([walk.s_meta[:, 0], walk.r_meta[:, 0]])
+                    if (len(walk.s_meta), len(walk.r_meta)) != (15, 31) or len(set(rows)) == len(rows):
+                        raise AssertionError(f"NE=16 at E_max={emax}Δ: expected 15 + 31 groups "
+                                             f"sharing ω rows, got {len(walk.s_meta)} + "
+                                             f"{len(walk.r_meta)}, {len(set(rows))} rows")
+                for g in (None, gen):
+                    ref = plain(q, ph, 0.025, g)
+                    got = kern(q, ph, 0.025, g)
+                    torch.cuda.synchronize()
+                    err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
+                    extra = {"uniform": "", "gid": " G=3", "gid8": " G=8 mixed", "trap": " trap ids",
+                             "analytic": f" gamma={gamma}"}[kind]
+                    bins = walk_bins(ne)
+                    form = f"{bins} bins in registers" if bins else "column walk"
+                    check(f"{name} NE={ne} ({form}) {grid} {str(dtype)[6:]}{extra} "
+                          f"gen={g is not None} phonons={phonons}", err, TOL[(name, dtype)])
+                del kern, plain, plan, q, ph, gen, ref, got
+    torch.cuda.empty_cache()
 
 
 def check_blocked() -> None:
@@ -971,6 +1026,7 @@ def phase_gap_maps(card: str) -> list[dict]:
         counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card, calls=2)
 
     rows = [collision_row("gid", 169, counts["trap"]["collision_step_gid"], dt),
+            collision_row("trap", 169, counts["trap"]["collision_step_gid"], dt),
             collision_row("analytic", 429, counts["gradient"]["collision_step_analytic"], dt)]
     # K2 on NB = 16 per-pixel planes (a gap map's D(E, x)) at the same shapes;
     # its launches are the trap map's

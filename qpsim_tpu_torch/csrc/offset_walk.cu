@@ -14,7 +14,10 @@
 //       (anti-diagonal, ω row) group.
 // All four are one column form (host tables in ops/collisions_loop_cuda.py,
 // ops/collisions_rows_cuda.py and ops/collisions_blocked_cuda.py; device
-// tables and launch in ops/column_walk.py).
+// tables and launch in ops/column_walk.py).  K3 and K4 (collisions.cu) run
+// here too from 17 to 64 bins, where the column walk measured faster than
+// a pixel's bins in registers (ops/collisions_cuda.py routes them, counted
+// under their own names).
 // Scattering column c has an offset k_c ≥ 1, an ω row and, for every bin
 // m ≥ k_c whose pair (m, m − k_c) lies in the column's group, the pair
 // (K[m, m−k], K[m−k, m])·dE — zero for pairs outside it; recombination

@@ -36,9 +36,9 @@ from .collisions import (
     collision_step_analytic_plain,
     collision_step_plain,
 )
-from .collisions_cuda import MAX_GAP_IDS, check_inputs, count_launch
+from .collisions_cuda import MAX_GAP_IDS, launch_columns
 from .collisions_rows_cuda import columns
-from .column_walk import ColumnTables, column_tables, launch_column_walk
+from .column_walk import ColumnTables, column_tables
 
 __all__ = [
     "MAX_BLOCKED_BINS",
@@ -95,24 +95,6 @@ def build_column_tables(plan: CollisionPlan, analytic: AnalyticTables | None = N
                          rec=rec, scat_b=scat_b, rec_b=rec_b, analytic=a, **shared)
 
 
-def _launch(name: str, plan: CollisionPlan, tables, n_qp, n_ph, dt, gen, analytic=None):
-    if n_qp.device.type != "cuda":
-        raise ValueError(f"collision kernel runs on CUDA tensors, got {n_qp.device}")
-    if not isinstance(tables, ColumnTables) or (tables.analytic is None) != (analytic is None):
-        raise TypeError(f"{name} takes the column tables of build_column_tables(plan"
-                        f"{'' if analytic is None else ', analytic'})")
-    named = (("scat", tables.scat), ("rec", tables.rec), ("rho", tables.rho))
-    if analytic is not None:
-        named += (("g2", analytic.g2), ("E", analytic.E), ("e2", analytic.e2), ("zi", analytic.zi))
-    check_inputs(plan, n_qp, n_ph, gen, named, MAX_BLOCKED_BINS)
-    n_pix = n_qp.shape[1] * n_qp.shape[2]
-    if analytic is not None and analytic.g2.numel() != n_pix:
-        raise ValueError(f"the Δ² plane holds {analytic.g2.numel()} pixels, the state {n_pix}")
-    out = launch_column_walk(tables, n_qp, n_ph, dt, gen, plan.update_phonons)
-    count_launch(name, gen)
-    return out
-
-
 def collision_step_blocked(
     plan: CollisionPlan,
     tables: ColumnTables,
@@ -130,7 +112,7 @@ def collision_step_blocked(
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
     name = "collision_step_blocked" if plan.gap_id is None else "collision_step_blocked_gid"
-    return _launch(name, plan, tables, n_qp, n_ph, dt, gen)
+    return launch_columns(name, plan, tables, n_qp, n_ph, dt, gen, max_bins=MAX_BLOCKED_BINS)
 
 
 def collision_step_blocked_analytic(
@@ -150,4 +132,5 @@ def collision_step_blocked_analytic(
     """
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
-    return _launch("collision_step_blocked_analytic", plan, tables, n_qp, n_ph, dt, gen, analytic)
+    return launch_columns("collision_step_blocked_analytic", plan, tables, n_qp, n_ph, dt, gen, analytic,
+                          MAX_BLOCKED_BINS)

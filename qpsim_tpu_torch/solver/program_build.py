@@ -24,7 +24,7 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   plain per-gap gather version everywhere, which refuses stacks above 4
   GB.  The JAX package's names are aliases: ``'pallas'`` is ``'kernel'``
   (beyond 256 bins with the JAX package's ``ValueError``), ``'xla'`` is
-  ``'plain'``.  K3/K4 read the pair tables of ``build_kernel_tables``,
+  ``'plain'``.  K3/K4 read the pair-walk tables of ``build_kernel_tables``,
   K5/K6 the column tables of ``build_column_tables``, both built here once.
 * diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
 * generation (constant, pulse) — the dt·g plane is fused into the
@@ -90,15 +90,15 @@ def collision_kernel_for(ne: int, n_gaps: int) -> str | None:
     return kernel if n_gaps == 1 else f"{kernel}_gid"
 
 
-#: each code's (wrapper, table builder): K3/K4 read the pair tables of
-#: ``build_kernel_tables(plan)``, K5/K6 the column tables of
+#: each code's (wrapper, table builder): K3/K4 read the pair-walk tables of
+#: ``build_kernel_tables(plan, analytic)``, K5/K6 the column tables of
 #: ``build_column_tables(plan, analytic)``; the table wrappers take the
 #: gap-id form from ``plan.gap_id``, the analytic ones (K4, K6) also take
 #: the Δ² tables
 _KERNEL_STEPS: dict[str, tuple[Callable, Callable]] = {
-    "K3": (collision_step, lambda plan, _: build_kernel_tables(plan)),
-    "K3_gid": (collision_step, lambda plan, _: build_kernel_tables(plan)),
-    "K4": (collision_step_analytic, lambda plan, _: build_kernel_tables(plan)),
+    "K3": (collision_step, build_kernel_tables),
+    "K3_gid": (collision_step, build_kernel_tables),
+    "K4": (collision_step_analytic, build_kernel_tables),
     "K5": (collision_step_blocked, build_column_tables),
     "K5_gid": (collision_step_blocked, build_column_tables),
     "K6": (collision_step_blocked_analytic, build_column_tables),

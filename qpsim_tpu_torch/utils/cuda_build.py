@@ -126,19 +126,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"qp_collision_step_{suffix}")
-        # q_in, ph_in, gen, q_out, ph_out, rho, ks, kr, idx_diff, idx_sum,
-        # sign, row_ptr, row_code, ne, nw, n_pix, dt, update_phonons, stream
-        fn.argtypes = [P] * 13 + [I, I, LL, D, I, P]
-        fn.restype = I
-        fn = getattr(lib, f"qp_collision_step_gid_{suffix}")
-        # as above with gid after ph_out
-        fn.argtypes = [P] * 14 + [I, I, LL, D, I, P]
-        fn.restype = I
-        fn = getattr(lib, f"qp_collision_step_analytic_{suffix}")
-        # q_in, ph_in, gen, q_out, ph_out, g2, E, inv_E, e2, zi, a_s, b_s,
-        # a_r, b_r, idx_diff, idx_sum, sign, row_ptr, row_code, ne, nw,
-        # n_pix, dt, gamma, update_phonons, stream
-        fn.argtypes = [P] * 19 + [I, I, LL, D, D, I, P]
+        # q_in, ph_in, gen, q_out, ph_out, consts, n_consts, per_gap,
+        # scat_off, rec_off, gid, g2, gamma, s_ptr, r_ptr, s_meta, r_meta,
+        # rows, n_sgroups, n_rgroups, simple, ne, nb, nw, n_pix, dt,
+        # update_phonons, stream
+        fn.argtypes = [P] * 6 + [LL, I, I, I, P, P, D] + [P] * 5 + [I] * 6 + [LL, D, I, P]
         fn.restype = I
         for half in ("x", "y"):
             fn = getattr(lib, f"qp_adi_{half}_{suffix}")

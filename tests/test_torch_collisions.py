@@ -4,8 +4,13 @@ Float64 on the CPU.  The plain PyTorch version is held against the XLA
 integrator (``make_collision_step``) and against the Pallas kernel in
 interpret mode, whose Taylor-expm1 hybrid (relative error ≲ 1e-10) sets the
 looser tolerance there.  The CUDA kernel itself runs only on the card; its
-tables and its walk (ordered pairs for the QP update, per-ω-row pair lists
-for the phonons) are checked here by a NumPy transcription of the kernel.
+tables and its walk (each unordered pair once, diagonal-major, in groups of
+one ω row each) are checked here by the NumPy transcription
+``tests/pair_walk_transcription.py``, against the plain version and the
+XLA integrator: up to the register bucket's 16 bins (NE 7–16, padded
+bins, a split ω diagonal at 11) and beyond it, where K3 runs the column
+walk of K5 (17, 33, 64; ``tests/column_walk_transcription.py``), with each
+channel off, frozen phonons and with and without the dt·g plane.
 """
 
 import jax.numpy as jnp
@@ -33,14 +38,17 @@ from qpsim_tpu_torch.interop import (  # noqa: E402
 )
 from qpsim_tpu_torch.ops import collisions_cuda  # noqa: E402
 from qpsim_tpu_torch.ops.collisions import collision_step_plain  # noqa: E402
+from qpsim_tpu_torch.ops.column_walk import ColumnTables, column_pixels  # noqa: E402
+from column_walk_transcription import transcribe as column_walk  # noqa: E402
+from pair_walk_transcription import transcribe  # noqa: E402
 
 GAP = 180.0
 DT = 0.02
 
 
-def _setup(ne, *, scattering=True, recombination=True, phonons=True, seed=0, ny=4, nx=32):
+def _setup(ne, *, scattering=True, recombination=True, phonons=True, seed=0, ny=4, nx=32, emax=4.0):
     """Host physics from the JAX package, the port's plan from it, and a state."""
-    E, dE = build_energy_grid(GAP, 1.0, 4.0, ne)
+    E, dE = build_energy_grid(GAP, 1.0, emax, ne)
     pm = build_phonon_frequency_map(E)
     rho = dynes_density_of_states(E, GAP, 0.0)
     Ks = scattering_kernel_base(E, GAP, 440.0, 1.2) if scattering else None
@@ -118,96 +126,135 @@ def test_split_omega_diagonal_keeps_exact_binning():
     q2, p2 = _port(s, s["q"], s["ph"])
     np.testing.assert_allclose(q2, q1, rtol=1e-12, atol=1e-30)
     np.testing.assert_allclose(p2, p1, rtol=1e-12, atol=1e-30)
-    q3, p3 = _kernel_transcription(s["plan"], s["q"], s["ph"], None, DT)
+    walk = collisions_cuda.pair_walk(s["plan"], 16)
+    assert len(walk.s_meta) > 10  # more scattering groups than diagonals: a diagonal splits
+    q3, p3 = _walk(s, s["q"], s["ph"], None)
     np.testing.assert_allclose(q3, q2, rtol=1e-12, atol=1e-30)
     np.testing.assert_allclose(p3, p2, rtol=1e-12, atol=1e-30)
 
 
-def _kernel_transcription(plan, q, ph, gen, dt):
-    """``csrc/collisions.cu`` line by line in NumPy, vectorised over pixels."""
-    t = collisions_cuda.build_kernel_tables(plan)
-    tab = lambda x: None if x is None else x.numpy()
-    rho, ks, kr = tab(t.rho), tab(t.ks), tab(t.kr)
-    idx_diff, idx_sum, sgn = t.idx_diff.numpy(), t.idx_sum.numpy(), t.sign.numpy()
-    row_ptr, row_code = t.row_ptr.numpy(), t.row_code.numpy()
-    ne, nw = plan.num_energy_bins, plan.num_omega
-    qf = q.reshape(ne, -1) + (0.0 if gen is None else gen.reshape(1, -1))
-    phf = ph.reshape(nw, -1)
-    pv = rho[:, None] * np.maximum(1.0 - qf / np.maximum(rho, 1e-30)[:, None], 0.0)
-    q_out = np.empty_like(qf)
-    for i in range(ne):
-        gain_s = loss_s = gain_r = loss_r = 0.0
-        for j in range(ne):
-            ij, ji = i * ne + j, j * ne + i
-            if ks is not None:
-                if sgn[ij] != 0:
-                    n = phf[idx_diff[ij]]
-                    loss_s = loss_s + ks[ij] * ((1.0 + n) if sgn[ij] > 0 else n) * pv[j]
-                if sgn[ji] != 0:
-                    n = phf[idx_diff[ji]]
-                    gain_s = gain_s + ks[ji] * ((1.0 + n) if sgn[ji] > 0 else n) * qf[j]
-            if kr is not None:
-                sv = phf[idx_sum[ij]]
-                loss_r = loss_r + kr[ij] * (1.0 + sv) * qf[j]
-                gain_r = gain_r + kr[ij] * sv * pv[j]
-        gain = pv[i] * gain_s + pv[i] * gain_r
-        loss = loss_s + loss_r + np.zeros_like(qf[i])
-        mu = np.maximum(loss, 0.0)
-        p_term = np.maximum(gain + (mu - loss) * qf[i], 0.0)
-        coeff = np.where(mu < 1e-14, dt, -np.expm1(-mu * dt) / np.maximum(mu, 1e-14))
-        q_out[i] = np.maximum(np.exp(-mu * dt) * qf[i] + coeff * p_term, 0.0)
-    if not plan.update_phonons:
-        return q_out.reshape(q.shape), ph
-    ph_out = np.empty_like(phf)
-    for w in range(nw):
-        a = b = np.zeros_like(phf[w])
-        for code in row_code[row_ptr[w] : row_ptr[w + 1]]:
-            pair, kind = code >> 2, code & 3
-            i, j = divmod(int(pair), ne)
-            if kind == 2:
-                k = 0.5 * kr[pair]
-                rec = k * qf[i] * qf[j]
-                a, b = a + rec, b + (rec - k * pv[i] * pv[j])
-            else:
-                v = ks[pair] * qf[i] * pv[j]
-                a, b = (a + v, b + v) if kind == 0 else (a, b - v)
-        x = np.clip(b * dt, -80.0, 80.0)
-        tiny = np.abs(b) < 1e-14
-        coeff = np.where(tiny, dt, np.expm1(x) / np.where(tiny, 1.0, b))
-        ph_out[w] = np.maximum(np.exp(x) * phf[w] + coeff * a, 0.0)
-    return q_out.reshape(q.shape), ph_out.reshape(ph.shape)
+def _walk(s, q, ph, gen, dt=DT):
+    """The kernel's walk (NumPy) on the wrapper's tables: the pair walk up to
+    16 bins, the column walk of K5/K6 beyond (where K3 launches it)."""
+    plan = s["plan"]
+    tables = collisions_cuda.build_kernel_tables(plan)
+    if isinstance(tables, ColumnTables):
+        n_pix = q[0].size
+        return column_walk(tables, q, ph, gen, dt, plan.update_phonons,
+                           column_pixels(torch.float64, plan.num_energy_bins, n_pix))
+    return transcribe(plan, tables, q, ph, gen, dt)
 
 
 @pytest.mark.parametrize(
-    "scattering,recombination,phonons,gen",
-    [(True, True, True, True), (True, False, True, False), (False, True, False, True)],
-    ids=["both_gen", "scattering", "recombination_frozen_gen"],
+    "ne,scattering,recombination,phonons,gen",
+    [(7, True, True, True, True), (7, True, False, True, False), (7, False, True, False, True),
+     (8, True, True, True, False), (9, True, True, True, True), (16, True, True, True, True),
+     (16, True, True, True, False), (16, True, False, True, True), (16, False, True, True, True),
+     (16, True, True, False, True), (17, True, True, True, True), (33, True, True, True, False),
+     (64, True, True, True, True)],
+    ids=["both_gen", "scattering", "recombination_frozen_gen", "8", "9", "16_gen", "16",
+         "16_scattering", "16_recombination", "16_frozen", "17_column_walk", "33_column_walk",
+         "64_column_walk"],
 )
-def test_kernel_tables_reproduce_plain_version(scattering, recombination, phonons, gen):
-    s = _setup(7, scattering=scattering, recombination=recombination, phonons=phonons, seed=11)
+def test_kernel_tables_reproduce_plain_version(ne, scattering, recombination, phonons, gen):
+    # up to 16 bins on _setup's 4 × 32 grid (three pixel chunks, one ragged);
+    # the column walk's wider cases on 2 × 8, for their cost
+    grid = {} if ne <= 16 else dict(ny=2, nx=8)
+    s = _setup(ne, scattering=scattering, recombination=recombination, phonons=phonons, seed=11,
+               **grid)
+    tables = collisions_cuda.build_kernel_tables(s["plan"])
+    assert isinstance(tables, ColumnTables) == (ne > 16)  # beyond the register bucket: K5's walk
+    if ne <= 16:  # the simple form: 16 bins, both channels, every group on a row of its own
+        assert tables.simple == (ne == 16 and scattering and recombination)
     g = np.random.default_rng(2).uniform(0, 1e-6, s["q"].shape[1:]) if gen else None
     q1, p1 = _port(s, s["q"], s["ph"], g)
-    q2, p2 = _kernel_transcription(s["plan"], s["q"], s["ph"], g, DT)
+    q2, p2 = _walk(s, s["q"], s["ph"], g)
     np.testing.assert_allclose(q2, q1, rtol=1e-12, atol=1e-30)
     np.testing.assert_allclose(p2, p1, rtol=1e-12, atol=1e-30)
+    # and, through the plain version, the JAX package's XLA integrator
+    q_in = s["q"] + (0.0 if g is None else g[None])  # the XLA step takes dt·g added
+    q3, p3 = (np.asarray(a) for a in _xla_step(s, phonons)(jnp.asarray(q_in), jnp.asarray(s["ph"])))
+    np.testing.assert_allclose(q2, q3, rtol=1e-12, atol=1e-30)
+    np.testing.assert_allclose(p2, p3, rtol=1e-12, atol=1e-30)
 
 
-def test_pair_rows_cover_every_pair_once():
-    s = _setup(10)
-    plan = s["plan"]
-    row_ptr, row_code = collisions_cuda.pair_rows(plan)
-    ne = plan.num_energy_bins
-    assert row_ptr[0] == 0 and row_ptr[-1] == row_code.size
-    assert row_code.size == ne * (ne - 1) + ne * ne  # scattering pairs i≠j, all recombination pairs
-    for w in range(plan.num_omega):
-        for code in row_code[row_ptr[w] : row_ptr[w + 1]]:
-            i, j = divmod(int(code >> 2), ne)
-            kind = code & 3
-            if kind == collisions_cuda.RECOMBINATION:
-                assert s["pm"].idx_sum[i, j] == w
-            else:
-                assert s["pm"].idx_diff[i, j] == w
-                assert s["pm"].diff_sign[i, j] == (1 if kind == collisions_cuda.EMISSION else -1)
+@pytest.mark.parametrize("ne,bins", [(10, 16), (11, 16), (16, 16), (33, 33)])
+def test_pair_walk_covers_every_pair_once(ne, bins):
+    """Every unordered pair lands once, in a group of its diagonal whose ω row
+    is the pair's ``idx_diff`` / ``idx_sum``; the constants are the plain
+    version's, bit for bit (in the kernel's 16-bin walk).  NE 11 and 33
+    split diagonals into two groups; NE 33 (a walk wider than the
+    kernel's) also puts a difference and a sum on one ω row, which two
+    groups then reach."""
+    s = _setup(ne, ny=1, nx=2)
+    plan, pm = s["plan"], s["pm"]
+    walk = collisions_cuda.pair_walk(plan, bins)
+    tables = collisions_cuda.build_kernel_tables(plan) if bins == collisions_cuda.WALK_BINS else None
+    ks, kr = (plan.dE * plan.K_s0)[0].numpy(), (2.0 * plan.dE * plan.K_r0)[0].numpy()
+    groups_of_row = np.zeros(plan.num_omega, int)
+    for kind, ptr, meta, pairs, n_diag, consts in (
+        ("s", walk.s_ptr, walk.s_meta, walk.s_pairs, bins, tables and tables.scat[0].numpy()),
+        ("r", walk.r_ptr, walk.r_meta, walk.r_pairs, 2 * bins - 1, tables and tables.rec[0].numpy()),
+    ):
+        seen = []
+        assert ptr[0] == 0 and ptr[-1] == len(meta) and len(ptr) == n_diag + 1
+        for d in range(n_diag):
+            length = bins - d if kind == "s" else d // 2 + 1 - max(0, d - bins + 1)
+            for g in range(ptr[d], ptr[d + 1]):
+                row, first = meta[g]
+                groups_of_row[row] += 1
+                for e, (i, j) in enumerate(pairs[first: first + length], first):
+                    if i < 0:
+                        if tables:
+                            np.testing.assert_array_equal(consts[e], 0.0)
+                        continue
+                    assert (i - j if kind == "s" else i + j) == d and i < ne
+                    assert (pm.idx_diff if kind == "s" else pm.idx_sum)[i, j] == row
+                    table = ks if kind == "s" else kr
+                    if tables:  # the constants the kernel reads, the plain version's
+                        np.testing.assert_array_equal(consts[e], [table[i, j], table[j, i]])
+                    seen.append((int(i), int(j)))
+        lower = [(i, j) for i in range(ne) for j in range(i if kind == "s" else i + 1)]
+        assert sorted(seen) == lower  # each pair once
+    assert (len(walk.s_meta) > ne - 1) == (ne in (11, 33))  # split diagonals: two groups each
+    assert (groups_of_row.max() > 1) == (ne == 33)  # rows two groups reach
+    if tables:
+        np.testing.assert_array_equal(tables.rows.numpy(), np.concatenate([walk.s_meta[:, 0], walk.r_meta[:, 0]]))
+
+
+def test_main_path_walk_takes_the_simple_form():
+    """At 16 bins on the main path's grid each diagonal is one group, its
+    constants where the kernel's simple form reads them (``kScatOff``,
+    ``kRecOff``); with ρ ahead of them in a gap's constants."""
+    s = _setup(16, ny=1, nx=2)
+    t = collisions_cuda.build_kernel_tables(s["plan"])
+    assert t.simple
+    assert (t.nb, len(t.s_meta) // 2, len(t.r_meta) // 2) == (16, 15, 31)
+    assert (t.scat_off, t.rec_off, t.consts.shape) == (16, 16 + 2 * 120, (1, 16 + 2 * 120 + 2 * 136))
+    np.testing.assert_array_equal(t.rho.numpy()[0], s["rho"])
+
+
+@pytest.mark.parametrize("emax", [5.0, 9.0])
+def test_groups_that_share_an_omega_row_take_the_general_form(emax):
+    """At 16 bins with 2·E_min/dE whole (E_max = 5Δ, 9Δ) a difference and a
+    sum land on one ω row while each diagonal stays one group.  The simple
+    form sets a row's rates from its one group, so the tables ask for the
+    general form, which adds both groups' sums into the shared row."""
+    s = _setup(16, seed=7, emax=emax)
+    t = collisions_cuda.build_kernel_tables(s["plan"])
+    rows = t.rows.numpy()
+    assert (len(t.s_meta) // 2, len(t.r_meta) // 2) == (15, 31)  # one group per diagonal
+    assert len(np.unique(rows)) < len(rows)  # rows two groups reach
+    assert not t.simple
+    g = np.random.default_rng(8).uniform(0, 1e-6, s["q"].shape[1:])
+    q1, p1 = _port(s, s["q"], s["ph"], g)
+    q2, p2 = _walk(s, s["q"], s["ph"], g)
+    np.testing.assert_allclose(q2, q1, rtol=1e-12, atol=1e-30)
+    np.testing.assert_allclose(p2, p1, rtol=1e-12, atol=1e-30)
+    q_in = s["q"] + g[None]
+    q3, p3 = (np.asarray(a) for a in _xla_step(s, True)(jnp.asarray(q_in), jnp.asarray(s["ph"])))
+    np.testing.assert_allclose(q2, q3, rtol=1e-12, atol=1e-30)
+    np.testing.assert_allclose(p2, p3, rtol=1e-12, atol=1e-30)
 
 
 def test_wrapper_runs_plain_on_cpu_and_launches_nothing():

@@ -7,8 +7,9 @@
 * K4's plain version (analytic gap) against the JAX analytic Pallas kernel
   in interpret mode and against the port's own gather path at G = Npix
   (q 1e-11, n_ph 1e-9, as the JAX package holds its analytic kernel);
-* the CUDA kernels' tables and walks (gap-id and analytic), through NumPy
-  transcriptions of ``csrc/collisions.cu``;
+* the CUDA kernel's tables and walk (gap-id and analytic), through the
+  NumPy transcription ``tests/pair_walk_transcription.py`` of
+  ``csrc/collisions.cu`` (G = 3, and G = 8 mixed inside a warp);
 * ``run_2d_crank_nicolson`` with ``gap_expression`` and ``precomputed``,
   end to end, against the JAX engine (frames 1e-10, mass 1e-12; across
   the gather and analytic forms the JAX package's own 1e-9).
@@ -47,6 +48,7 @@ from qpsim_tpu_torch.ops.collisions import (  # noqa: E402
     collision_step_analytic_plain,
     collision_step_plain,
 )
+from pair_walk_transcription import transcribe  # noqa: E402
 
 NE, NY, NX = 10, 3, 6
 DT = 0.01
@@ -81,9 +83,9 @@ def _gather_setup(plane, gamma, *, phonons=True, scattering=True, recombination=
         dtype=torch.float64, pixel_chunk=8, gap_id=gid,  # several chunks, one ragged
     )
     rng = np.random.default_rng(seed)
-    q = rng.uniform(0, 1e-4, (NE, NY, NX)) * rho[gid].transpose(2, 0, 1)
+    q = rng.uniform(0, 1e-4, (NE, *plane.shape)) * rho[gid].transpose(2, 0, 1)
     ph = thermal_phonon_occupation(pm.omega_bins, 0.25)[:, None, None] * rng.uniform(
-        0.5, 2.0, (pm.num_omega, NY, NX))
+        0.5, 2.0, (pm.num_omega, *plane.shape))
     return dict(E=E, dE=dE, pm=pm, jplan=jp, plan=tplan, q=q, ph=ph, gid=gid)
 
 
@@ -154,98 +156,20 @@ def test_analytic_plain_matches_gather_at_G_npix(gamma):
     np.testing.assert_allclose((rho * inv).numpy()[ref > 0], 1.0, rtol=1e-13)
 
 
-def _kernel_walk(tables, plan, qf, phf, pv, ks, kr, dt):
-    """The pair walk and ω rows of ``csrc/collisions.cu`` in NumPy.
-
-    ``ks`` / ``kr`` are per-pixel constants (NE*NE, P): dE·K^s₀ and
-    2dE·K^r₀ as the kernel forms them.
-    """
-    idx_diff, idx_sum, sgn = tables.idx_diff.numpy(), tables.idx_sum.numpy(), tables.sign.numpy()
-    row_ptr, row_code = tables.row_ptr.numpy(), tables.row_code.numpy()
-    ne, nw = plan.num_energy_bins, plan.num_omega
-    q_out = np.empty_like(qf)
-    for i in range(ne):
-        gain_s = loss_s = gain_r = loss_r = 0.0
-        for j in range(ne):
-            ij, ji = i * ne + j, j * ne + i
-            if ks is not None:
-                if sgn[ij] != 0:
-                    n = phf[idx_diff[ij]]
-                    loss_s = loss_s + ks[ij] * ((1.0 + n) if sgn[ij] > 0 else n) * pv[j]
-                if sgn[ji] != 0:
-                    n = phf[idx_diff[ji]]
-                    gain_s = gain_s + ks[ji] * ((1.0 + n) if sgn[ji] > 0 else n) * qf[j]
-            if kr is not None:
-                sv = phf[idx_sum[ij]]
-                loss_r = loss_r + kr[ij] * (1.0 + sv) * qf[j]
-                gain_r = gain_r + kr[ij] * sv * pv[j]
-        gain = pv[i] * gain_s + pv[i] * gain_r
-        loss = loss_s + loss_r + np.zeros_like(qf[i])
-        mu = np.maximum(loss, 0.0)
-        p_term = np.maximum(gain + (mu - loss) * qf[i], 0.0)
-        coeff = np.where(mu < 1e-14, dt, -np.expm1(-mu * dt) / np.maximum(mu, 1e-14))
-        q_out[i] = np.maximum(np.exp(-mu * dt) * qf[i] + coeff * p_term, 0.0)
-    if not plan.update_phonons:
-        return q_out, phf
-    ph_out = np.empty_like(phf)
-    for w in range(nw):
-        a = b = np.zeros_like(phf[w])
-        for code in row_code[row_ptr[w] : row_ptr[w + 1]]:
-            pair, kind = code >> 2, code & 3
-            i, j = divmod(int(pair), ne)
-            if kind == 2:
-                k = 0.5 * kr[pair]
-                rec = k * qf[i] * qf[j]
-                a, b = a + rec, b + (rec - k * pv[i] * pv[j])
-            else:
-                v = ks[pair] * qf[i] * pv[j]
-                a, b = (a + v, b + v) if kind == 0 else (a, b - v)
-        x = np.clip(b * dt, -80.0, 80.0)
-        tiny = np.abs(b) < 1e-14
-        coeff = np.where(tiny, dt, np.expm1(x) / np.where(tiny, 1.0, b))
-        ph_out[w] = np.maximum(np.exp(x) * phf[w] + coeff * a, 0.0)
-    return q_out, ph_out
-
-
 def _gid_transcription(plan, q, ph, gen, dt):
-    """K3 with gap ids: each pixel reads its gap's slice of the flat tables."""
-    t = collisions_cuda.build_kernel_tables(plan)
-    ne = plan.num_energy_bins
-    gid = plan.gap_id.numpy().astype(np.int64)
-    rho = t.rho.numpy().reshape(-1, ne)[gid].T  # (NE, P)
-    per_pixel = lambda tab: None if tab is None else tab.numpy().reshape(-1, ne * ne)[gid].T
-    qf = q.reshape(ne, -1) + (0.0 if gen is None else gen.reshape(1, -1))
-    pv = rho * np.maximum(1.0 - qf / np.maximum(rho, 1e-30), 0.0)
-    qo, po = _kernel_walk(t, plan, qf, ph.reshape(plan.num_omega, -1), pv, per_pixel(t.ks), per_pixel(t.kr), dt)
-    return qo.reshape(q.shape), po.reshape(ph.shape)
+    """K3 with gap ids: the kernel's walk (NumPy), each pixel on its gap's tables."""
+    return transcribe(plan, collisions_cuda.build_kernel_tables(plan), q, ph, gen, dt)
 
 
 def _analytic_transcription(plan, tab, q, ph, gen, dt):
-    """K4: ρ, 1/ρ and the per-pixel constants from Δ², in the kernel's order."""
-    t = collisions_cuda.build_kernel_tables(plan)
-    ne = plan.num_energy_bins
-    d2 = tab.g2.numpy()[None, :]
-    E, inv_E, e2, zi = (v.numpy()[:, None] for v in (tab.E, tab.inv_E, tab.e2, tab.zi))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        if tab.gamma == 0.0:
-            r2 = e2 - d2
-            tt = 1.0 / np.sqrt(np.where(r2 > 1e-30, r2, 1e-30))
-            rho = np.where(r2 > 0, E * tt, 0.0)
-            inv = np.where(r2 > 0, (r2 * tt) * inv_E, 0.0)
-        else:
-            zr = e2 - d2
-            r = np.sqrt(zr * zr + zi * zi)
-            s = np.sqrt(np.maximum(0.5 * (r + zr), 0.0))
-            tq = -np.sqrt(np.maximum(0.5 * (r - zr), 0.0))
-            rho = np.maximum((E * s - tab.gamma * tq) / np.where(r > 1e-30, r, 1e-30), 0.0)
-            inv = np.where(rho > 1e-30, 1.0 / np.where(rho > 1e-30, rho, 1e-30), 0.0)
-    qf = q.reshape(ne, -1) + (0.0 if gen is None else gen.reshape(1, -1))
-    pv = rho * np.maximum(1.0 - qf * inv, 0.0)
-    col = lambda m: m.numpy().reshape(-1, 1)
-    ks = np.maximum(col(tab.dEa_s) - col(tab.dEb_s) * d2, 0.0) if plan.enable_scattering else None
-    kr = col(tab.dEa2_r) + col(tab.dEb2_r) * d2 if plan.enable_recombination else None
-    qo, po = _kernel_walk(t, plan, qf, ph.reshape(plan.num_omega, -1), pv, ks, kr, dt)
-    return qo.reshape(q.shape), po.reshape(ph.shape)
+    """K4: ρ, 1/ρ and the per-pixel constants from Δ², in the kernel's walk."""
+    return transcribe(plan, collisions_cuda.build_kernel_tables(plan, tab), q, ph, gen, dt, analytic=tab)
+
+
+def _mixed_warp_plane(gaps, rng):
+    """A 2 × 32 plane of ``gaps``: a warp-sized run of mixed ids, then one of a single id."""
+    ids = np.concatenate([rng.permutation(np.arange(32) % len(gaps)), np.full(32, 2)])
+    return np.asarray(gaps)[ids].reshape(2, 32)
 
 
 @pytest.mark.parametrize(
@@ -264,6 +188,22 @@ def test_gap_id_kernel_tables_reproduce_plain_version(scattering, recombination,
     _close(got, want, 1e-12, 1e-12)
 
 
+@pytest.mark.parametrize("gen", [False, True], ids=["no_gen", "gen"])
+def test_gap_id_kernel_walk_with_eight_gaps_mixed_in_a_warp(gen):
+    """G = 8 (the gap-id bound) with ids mixed inside a warp-sized run of
+    pixels, against the plain version and the JAX package's XLA gather."""
+    plane = _mixed_warp_plane(np.linspace(120.0, 190.0, 8), np.random.default_rng(14))
+    s = _gather_setup(plane, 0.0, seed=15)
+    assert s["plan"].num_gaps == 8 and len(np.unique(s["gid"].reshape(-1)[:32])) == 8
+    g = np.random.default_rng(4).uniform(0, 1e-6, plane.shape) if gen else None
+    want = _run_port(collision_step_plain, s["plan"], q=s["q"], ph=s["ph"], gen=g)
+    got = _gid_transcription(s["plan"], s["q"], s["ph"], g, DT)
+    _close(got, want, 1e-12, 1e-12)
+    q_in = s["q"] + (0.0 if g is None else g[None])
+    xla = [np.asarray(a) for a in make_collision_step(s["jplan"], DT)(jnp.asarray(q_in), jnp.asarray(s["ph"]))]
+    _close(got, xla, 1e-12, 1e-9)
+
+
 @pytest.mark.parametrize("gamma,phonons,gen", [(0.0, True, True), (0.12, True, False), (0.12, False, True)],
                          ids=["bcs_gen", "dynes", "dynes_frozen_gen"])
 def test_analytic_kernel_walk_reproduces_plain_version(gamma, phonons, gen):
@@ -280,13 +220,15 @@ def test_wrappers_run_plain_on_cpu_and_check_gap_counts():
     plane = _gap_map("G3", np.random.default_rng(13))
     s = _gather_setup(plane, 0.0, seed=12)
     tables = collisions_cuda.build_kernel_tables(s["plan"])
-    assert s["plan"].gap_id.dtype == torch.uint8 and tables.rho.shape == (3 * NE,)
+    assert s["plan"].gap_id.dtype == torch.uint8
+    assert tables.rho.shape == (3, collisions_cuda.WALK_BINS)  # each gap's ρ over the walk's bins
     qt, pt = state_to_torch(s["q"], s["ph"], "cpu", torch.float64)
     before = dict(collisions_cuda.LAUNCHES)
     a = collisions_cuda.collision_step(s["plan"], tables, qt, pt, DT)
     b = collision_step_plain(s["plan"], qt, pt, DT)
     plan, tab = _analytic(s, plane, 0.0)
-    c = collisions_cuda.collision_step_analytic(plan, tab, collisions_cuda.build_kernel_tables(plan), qt, pt, DT)
+    c = collisions_cuda.collision_step_analytic(plan, tab, collisions_cuda.build_kernel_tables(plan, tab),
+                                                qt, pt, DT)
     d = collision_step_analytic_plain(plan, tab, qt, pt, DT)
     for x, y in (*zip(a, b), *zip(c, d)):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
