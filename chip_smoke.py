@@ -23,7 +23,12 @@ a non-zero exit:
    last padded), on 24 × 16384 (the two-pass form for long rows) and on
    8 × 16385 and 16385 × 8 (padded chunks in two passes), the separable ADI halves (K1) at NB = 1 and 16 on full films
    with mixed faces, on 1030 × 1020 × 16 (ragged tiles, K = 2 and 4) and
-   on 16 × 65536 (two passes), and the Thomas solve (K10); beyond 64
+   on 16 × 65536 (two passes), and the tridiagonal solve (K10) in its rows
+   and cols layouts on lines of 2 to 16385 cells (K = 1, K raised to 32
+   with padded chunks, two passes, ragged blocks, 100 K lines), with zero
+   couplings and NaN in the entries it must not read, on Crank–Nicolson
+   lines at α·s = 10 and 10³, and through one copy into rows (a broadcast,
+   mixed layouts), with exact launch counts; beyond 64
    bins the collision step on the column walk (K5) on a uniform gap and
    with gap ids, and its analytic form (K6), at NE = 65 (split ω
    diagonals), 72 (ω rows shared by a difference and a sum), 100 and 256;
@@ -66,11 +71,15 @@ a non-zero exit:
    10 000 steps: exactly one launch of each K1 half per step and none of
    K2, mass conserved, steady-state ms/step and cell-steps/s over three
    calls; then K1 timed against its plain version;
-7. the other diffusion paths: the masked 512² donut through K2, a
-   diffusion-only energy-resolved 1024² × 16 film through K1, and float64
+7. the other diffusion paths: (a) the masked 512² donut through K2, (b) a
+   diffusion-only energy-resolved 1024² × 16 film through K1, (c) float64
    scalar runs holding the kernel path, K10 under
    ``set_default_solver("pallas")``, and the 'wang' and 'cg' backends
-   against the plain ones; then K10 timed against its plain version;
+   against the plain ones; (d) the film of (b), 20 steps from a random
+   field, on the 'adi' backend under ``set_default_solver("pallas")``:
+   exactly 2 K10 launches a step, one of them in the cols layout, no copy,
+   frames held to the auto run (K1), ms/step; then K10 timed against its
+   plain version on 16 K and 1024 rows and 16 × 1024 cols of 1024;
 8. a JSON line with the kernels' numbers, the card line, and a last JSON
    line ``{"ok": true, "device": {...}}``.
 
@@ -497,14 +506,6 @@ def sep_factors(geometry, nb, dtype, dt=0.1, seed=2):
     return f, torch.as_tensor(u, dtype=dtype, device="cuda")
 
 
-def thomas_system(lines, n, dtype, seed=3):
-    """A diagonally dominant batch of ``lines`` tridiagonal systems of size n."""
-    rng = np.random.default_rng(seed)
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
-    return (as_t(rng.uniform(-0.3, -0.1, (lines, n))), as_t(rng.uniform(2.0, 3.0, (lines, n))),
-            as_t(rng.uniform(-0.3, -0.1, (lines, n))), as_t(rng.uniform(-1.0, 1.0, (lines, n))))
-
-
 def launch_tables():
     from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, collisions_cuda, tridiag_cuda
 
@@ -590,7 +591,7 @@ def phase_build() -> None:
             elif m.group(1).startswith("adi"):
                 form = f", {'x' if flag == '1' else 'y'} half"
             else:
-                form = f", gap ids {'on' if flag == '1' else 'off'}"
+                form = f", {'rows' if flag == '1' else 'cols'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{form}>"
         elif o:
             name = (f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, P={o.group(3)}, "
@@ -602,7 +603,7 @@ def phase_build() -> None:
     # the staged ADI kernels' launch plans at the main paths' shapes (and
     # the long-row form phase 3 checks): lines per block, chunks of a line
     # held at once (fewer than K: two passes), dynamic shared bytes per block
-    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda
+    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, tridiag_cuda
     from qpsim_tpu_torch.ops.adi_sep import pick_chunks
 
     for dtype in (F32, F64):
@@ -614,6 +615,13 @@ def phase_build() -> None:
                            (2, 16385, 8)):
             plans = [f"{h} {adi_cuda.kernel_plan(h, dtype, nb, ny, nx)}" for h in "xy"]
             print(f"  adi_kernel {str(dtype)[6:]} {nb}×{ny}×{nx}: {'; '.join(plans)}")
+        # K10 (lead × lines of n): the adi backend's halves at 1024² × 16, one
+        # film, 100 bins, and lines of 16385 (two passes where one line's
+        # chunks do not fit)
+        for lead, lines, n in ((16, 1024, 1024), (1, 1024, 1024), (100, 1024, 1024), (1, 64, 16385)):
+            plans = [f"{form} {tridiag_cuda.kernel_plan(form, dtype, n, lines, lead)}"
+                     for form in ("rows", "cols")]
+            print(f"  thomas_kernel {str(dtype)[6:]} {lead}×{lines} lines of {n}: {'; '.join(plans)}")
     # the column walk's pixels per lane at 1024² and its dynamic shared
     # memory per block (q and partner of the tile), at K5/K6's columns
     from qpsim_tpu_torch.ops.column_walk import blocks_per_sm, column_pixels
@@ -694,15 +702,7 @@ def phase_kernels_vs_plain() -> None:
             check(f"adi_sep_x {tag}", scaled_err(ux, ux_ref), tol)
             check(f"adi_sep_y {tag}", scaled_err(uy, uy_ref), tol)
             check(f"adi_sep_step {tag}", scaled_err(step, uy_ref), tol)
-    from qpsim_tpu_torch.ops import tridiag_cuda as k10
-
-    for lines, n in ((16 * 1024, 1024), (1000, 257)):
-        for dtype in (F64, F32):
-            system = thomas_system(lines, n, dtype)
-            ref = k10.thomas_plain(*system)
-            got = k10.thomas(*system)
-            torch.cuda.synchronize()
-            check(f"thomas {lines} lines × {n} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
+    check_thomas()
     check_offset_walks()
     check_adi_lines()
 
@@ -846,6 +846,123 @@ def check_adi_lines() -> None:
                       scaled_err(got, ref), TOL[("adi_lines", dtype)])
 
 
+def tridiag_case(form, lead, lines, n, dtype, kind="masked", alpha_s=1e3, seed=3):
+    """K10's inputs on the card: lead × lines lines of n, in the rows layout
+    ((lead, lines, n) contiguous) or the cols layout (the movedim(−2, −1)
+    view of (lead, n, lines) tensors).  ``kind`` "dominant": b in [2, 3],
+    a and c in [−0.3, −0.1], rhs in [−1, 1]; "masked": the same with zero
+    couplings — an interval boundary at the launched K's first chunk
+    boundary and mid-line, an isolated identity cell; "cn": Crank–Nicolson
+    lines at ``alpha_s`` (b = 1 + 2α·s, a = c = −α·s).  sub[..., 0] and
+    sup[..., −1] hold NaN, which the solve must never read."""
+    from qpsim_tpu_torch.ops.tridiag_cuda import kernel_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (lead, n, lines) if form == "cols" else (lead, lines, n)
+    uniform = lambda lo, hi: lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda", dtype=dtype)
+    if kind == "cn":
+        sub, sup = (torch.full(shape, -alpha_s, device="cuda", dtype=dtype) for _ in range(2))
+        diag = torch.full(shape, 1.0 + 2.0 * alpha_s, device="cuda", dtype=dtype)
+    else:
+        sub, diag, sup = uniform(-0.3, -0.1), uniform(2.0, 3.0), uniform(-0.3, -0.1)
+    view = (lambda t: t.movedim(-2, -1)) if form == "cols" else (lambda t: t)
+    sub, diag, sup, rhs = (view(t) for t in (sub, diag, sup, uniform(-1.0, 1.0)))
+    if kind == "masked" and n >= 7:
+        m = -(-n // kernel_plan(form, dtype, n, lines, lead)["k"])
+        for p in {m, n // 2} if m < n else {n // 2}:  # interval boundaries between p − 1 and p
+            sub[..., p] = 0.0
+            sup[..., p - 1] = 0.0
+        i = 3  # an isolated cell: an identity row
+        sub[..., i] = sup[..., i] = sup[..., i - 1] = sub[..., i + 1] = 0.0
+        diag[..., i] = 1.0
+    sub[..., 0] = float("nan")
+    sup[..., -1] = float("nan")
+    return sub, diag, sup, rhs
+
+
+#: K10's phase-3 shapes (lead, lines, n): the adi backend's halves at 1024² ×
+#: 16 and 100 K lines at 100 bins; K raised from 1 to 32 on 257 cells (three
+#: chunks of identity rows) and on 1023; 8 of 1000; K = 1 on 7 and 2 cells;
+#: ragged last blocks (1000, 1001, 999, 333, 250 lines); lines of 16385 (K
+#: 32 of 513 rows: two passes in float64, and in float32 in the rows form)
+THOMAS_SHAPES = ((16, 1024, 1024), (100, 1024, 1024), (1, 1000, 257), (4, 250, 1000),
+                 (2, 333, 1023), (3, 1001, 7), (2, 999, 2), (1, 64, 16385))
+
+
+def check_thomas() -> None:
+    """K10 in both layouts against its plain version (the Thomas sweep), with
+    exact launch counts: every shape of THOMAS_SHAPES on masked lines (float64
+    ≤ 1e-10, float32 ≤ 5e-6); Crank–Nicolson lines at α·s = 10 (both dtypes)
+    and 10³ (float64 ≤ 1e-10; float32 see below); one copy into rows (a
+    broadcast diagonal, mixed layouts).
+
+    Float32 at α·s = 10³ (2-norm condition number κ ≈ 4·10³): the plain
+    version's own float32 error there is 3–5e-5 against the float64 solve
+    of the same inputs, so a chunked solve cannot come within 5e-6 of it.
+    There the check reads both against the plain version run in float64 on
+    the same inputs and holds the kernel to κ·u (u = 2⁻²⁴, float32's unit
+    roundoff), the forward-error bound of a backward-stable solve, which
+    the plain version meets too."""
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    def solve(label, system, dtype, form, relayout=False):
+        before = dict(k10.LAUNCHES)
+        ref = k10.thomas_plain(*system)
+        got = k10.thomas(*system)
+        torch.cuda.synchronize()
+        expect = {"thomas": 1, "thomas_cols": int(form == "cols" and not relayout),
+                  "thomas_relayout": int(relayout)}
+        got_counts = {k: k10.LAUNCHES[k] - before[k] for k in expect}
+        if got_counts != expect:
+            raise AssertionError(f"{label}: launches {got_counts} != {expect}")
+        return got, ref
+
+    for lead, lines, n in THOMAS_SHAPES:
+        for form in ("rows", "cols"):
+            for dtype in (F64, F32):
+                tag = f"{form} {lead}×{lines} lines of {n} {str(dtype)[6:]}"
+                system = tridiag_case(form, lead, lines, n, dtype)
+                got, ref = solve(tag, system, dtype, form)
+                plan = k10.kernel_plan(form, dtype, n, lines, lead)
+                check(f"thomas masked {tag} (K={plan['k']}, TL={plan['tl']}, waves={plan['waves']})",
+                      scaled_err(got, ref), TOL[("thomas", dtype)])
+                del system, got, ref
+    torch.cuda.empty_cache()
+    for lead, lines, n in ((16, 1024, 1024), (1, 1000, 257), (2, 333, 1023), (1, 64, 16385)):
+        for form in ("rows", "cols"):
+            for dtype in (F64, F32):
+                for alpha_s in (10.0, 1e3):
+                    tag = f"{form} {lead}×{lines} lines of {n} {str(dtype)[6:]}"
+                    system = tridiag_case(form, lead, lines, n, dtype, kind="cn", alpha_s=alpha_s)
+                    got, ref = solve(tag, system, dtype, form)
+                    if dtype == F64 or alpha_s < 1e3:
+                        check(f"thomas CN α·s={alpha_s:g} {tag}", scaled_err(got, ref),
+                              TOL[("thomas", dtype)])
+                        continue
+                    exact = k10.thomas_plain(*(t.double() for t in system))
+                    e_kernel, e_plain = scaled_err(got, exact), scaled_err(ref, exact)
+                    # eigenvalues 1 + 2α·s(1 − cos(jπ/(n + 1))), j = 1 … n
+                    eig = lambda j: 1.0 + 2.0 * alpha_s * (1.0 - np.cos(j * np.pi / (n + 1)))
+                    limit = eig(n) / eig(1) * 2.0**-24
+                    print(f"  thomas CN α·s={alpha_s:g} {tag}: kernel − plain {scaled_err(got, ref):.3e} "
+                          f"(not held to 5e-6); against the float64 solve: plain {e_plain:.3e}, kernel "
+                          f"{e_kernel:.3e} (κ·u {limit:.2e}) {'ok' if e_kernel <= limit else 'FAIL'}",
+                          flush=True)
+                    if e_kernel > limit:
+                        raise AssertionError(f"thomas CN α·s={alpha_s:g} {tag}: {e_kernel:.3e} > κ·u "
+                                             f"{limit:.2e}")
+    # one copy into rows: a broadcast diagonal; mixed layouts (rows rhs, cols couplings)
+    for dtype in (F64, F32):
+        sub, diag, sup, rhs = tridiag_case("rows", 4, 250, 1000, dtype)
+        got, ref = solve("broadcast", (sub, diag[0, 0], sup, rhs), dtype, "rows", relayout=True)
+        check(f"thomas broadcast diagonal 4×250 lines of 1000 {str(dtype)[6:]}", scaled_err(got, ref),
+              TOL[("thomas", dtype)])
+        sub, diag, sup, _ = tridiag_case("cols", 4, 250, 1000, dtype)
+        got, ref = solve("mixed", (sub, diag, sup, rhs), dtype, "rows", relayout=True)
+        check(f"thomas mixed layouts 4×250 lines of 1000 {str(dtype)[6:]}", scaled_err(got, ref),
+              TOL[("thomas", dtype)])
+
+
 def timed_run(kw: dict, steps: int):
     """One call: its result and (steady ms/step, set-up s, whole-call ms).
 
@@ -876,7 +993,7 @@ def coupled_expect(segments, collision: str) -> dict:
     expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
     expect[f"{collision}_with_gen"] = steps
     return expect | {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0,
-                     "thomas": 0} | {k: 0 for k in EXPLICIT_COUNTERS}
+                     "thomas": 0, "thomas_cols": 0, "thomas_relayout": 0} | {k: 0 for k in EXPLICIT_COUNTERS}
 
 
 #: the counters of the explicit entry points (K8, K9, K7), which no path of
@@ -1382,7 +1499,7 @@ def assert_runs_close(label: str, a, b, rtol_frames: float, rtol_mass: float) ->
           f"err {mass_err:.3e} (rtol {rtol_mass:.0e}) ok", flush=True)
 
 
-def phase_other_diffusion_paths(card: str) -> dict:
+def phase_other_diffusion_paths(card: str) -> list[dict]:
     print("== 7 other diffusion paths on the card", flush=True)
     import qpsim_tpu_torch
     from qpsim_tpu_torch.ops import tridiag_cuda as k10
@@ -1439,9 +1556,9 @@ def phase_other_diffusion_paths(card: str) -> dict:
         set_default_solver("pallas")
         reset_counts()
         pallas = run(**kw, diffusion_backend="adi")
-        thomas_launches = read_counts()["thomas"]
-        print(f"  (c) set_default_solver('pallas') with 'adi': thomas launches {thomas_launches}")
-        if thomas_launches == 0:
+        counts = {k: read_counts()[k] for k in k10.LAUNCHES}
+        print(f"  (c) set_default_solver('pallas') with 'adi': launches {counts}")
+        if counts["thomas"] == 0:
             raise AssertionError("set_default_solver('pallas') did not launch the Thomas kernel")
     finally:
         set_default_solver(saved)
@@ -1452,21 +1569,61 @@ def phase_other_diffusion_paths(card: str) -> dict:
     assert_runs_close("(c) 'cg' vs 'dense' on a 48² film", run(**kw48, diffusion_backend="cg"),
                       run(**kw48, diffusion_backend="dense"), 1e-9, 1e-9)
 
-    # K10 against its plain version at 16 K lines (the ADI solve's line count at 1024² × 16)
-    system = thomas_system(16 * 1024, 1024, F32)
-    ref = k10.thomas_plain(*system)
-    got = k10.thomas(*system)
-    torch.cuda.synchronize()
-    check("thomas 16384 lines × 1024 float32", scaled_err(got, ref), TOL[("thomas", F32)])
-    row = dict(
-        name="thomas", route="cuda", source="qpsim_tpu_torch/csrc/tridiag.cu",
-        replaces="qpsim_tpu/ops/pallas_tridiag.py:35", launches=thomas_launches,
-        max_abs_err=abs_err(got, ref), ms=time_ms(lambda: k10.thomas(*system), 20),
-        plain_ms=time_ms(lambda: k10.thomas_plain(*system), 3),
-        **bound(*thomas_work(system), F32), library_ms=None,
+    # (d) the diffusion-only film of (b) with a random initial field on the
+    # 'adi' backend under set_default_solver("pallas"): K10 in rows (x half)
+    # and cols (y half), no copy; held to the auto run (K1) on the same film
+    steps = 20
+    mask, edges, bcs = film(1024, 1024)
+    kw = dict(
+        mask=mask, edges=edges, edge_conditions=bcs,
+        initial_field=np.random.default_rng(5).uniform(0.5e-5, 1.5e-5, mask.shape),
+        diffusion_coefficient=6.0, dt=0.05, total_time=0.05 * steps, dx=1.0, store_every=steps,
+        energy_gap=180.0, energy_max_factor=4.0, num_energy_bins=16, bath_temperature=0.1,
     )
-    print_rows([row], "16384 lines × 1024", card)
-    return row
+    reset_counts()
+    auto = run(**kw)
+    check_counts("(d) auto (K1)", read_counts(), {"adi_sep_x": steps, "adi_sep_y": steps, "thomas": 0})
+    try:
+        set_default_solver("pallas")
+        reset_counts()
+        pallas, d_times = timed_run(kw | {"diffusion_backend": "adi"}, steps)
+        d_counts = read_counts()
+        check_counts(f"(d) 'adi' + 'pallas' on the 1024² × 16 film, {steps} steps", d_counts,
+                     {"thomas": 2 * steps, "thomas_cols": steps, "thomas_relayout": 0, "adi_sep_x": 0,
+                      "adi_x_half": 0})
+        d_runs = [d_times] + [timed_run(kw | {"diffusion_backend": "adi"}, steps)[1]]
+    finally:
+        set_default_solver(saved)
+    check_frames(pallas[1], mask)
+    # float32, the same Peaceman–Rachford step in another elimination order:
+    # roundoff of ≈ 1e-7 a solve over 40 solves
+    assert_runs_close("(d) 'adi' on K10 vs auto (K1), float32", pallas, auto, 1e-5, 1e-5)
+    for i, (st, su, wh) in enumerate(d_runs):
+        print(f"  (d) run {i + 1}: steady state {st:.3f} ms/step (host clock); set-up {su:.3f} s; "
+              f"whole call {wh / steps:.3f} ms/step (CUDA events) — {card}", flush=True)
+
+    # K10 against its plain version at the adi backend's shapes at 1024² × 16:
+    # 16 K lines of 1024 in rows (x half) and cols (y half); and one film's 1024
+    rows, d_rows = [], d_counts["thomas"] - d_counts["thomas_cols"]
+    for form, lead, lines, key in (("rows", 1, 16 * 1024, "thomas"), ("rows", 1, 1024, "thomas_1024_lines"),
+                                   ("cols", 16, 1024, "thomas_cols")):
+        system = tridiag_case(form, lead, lines, 1024, F32, kind="dominant")
+        ref = k10.thomas_plain(*system)
+        got = k10.thomas(*system)
+        torch.cuda.synchronize()
+        check(f"{key}: {form} {lead}×{lines} lines of 1024 float32", scaled_err(got, ref),
+              TOL[("thomas", F32)])
+        rows.append(dict(
+            name=key, route="cuda", source="qpsim_tpu_torch/csrc/tridiag.cu",
+            replaces="qpsim_tpu/ops/pallas_tridiag.py:35",
+            launches=d_counts["thomas_cols"] if form == "cols" else d_rows,
+            max_abs_err=abs_err(got, ref), ms=time_ms(lambda: k10.thomas(*system), 20),
+            plain_ms=time_ms(lambda: k10.thomas_plain(*system), 3),
+            **bound(*thomas_work(system), F32), library_ms=None,
+        ))
+        del system, ref, got
+    print_rows(rows, "lines of 1024 (16 K rows, 1024 rows, 16 × 1024 cols)", card)
+    return rows
 
 
 def timed_phase(fn, *args):
@@ -1487,7 +1644,7 @@ def main() -> int:
     rows += timed_phase(phase_explicit_entry_points, card)
     timed_phase(phase_end_to_end_f64)
     rows += timed_phase(phase_scalar_path, card)
-    rows.append(timed_phase(phase_other_diffusion_paths, card))
+    rows += timed_phase(phase_other_diffusion_paths, card)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

@@ -14,7 +14,7 @@ one, so interval boundaries decouple exactly in every algorithm.
 takes the JAX package's names: 'auto' (Thomas on the CPU; on CUDA tensors
 PCR below 8192 lines and Thomas at or above, the JAX package's GPU rule),
 'thomas', 'pcr', 'wang' (chunk 64) and 'pallas', which selects the CUDA
-Thomas kernel (``ops.tridiag_cuda``).  :func:`tridiag_solve_thomas` is the
+tridiagonal kernel (``ops.tridiag_cuda``).  :func:`tridiag_solve_thomas` is the
 plain Thomas solve that the kernels' plain versions call directly.
 """
 
@@ -334,8 +334,9 @@ def set_default_solver(name: str) -> None:
     'thomas' — the sequential Thomas sweep;
     'pcr'    — parallel cyclic reduction;
     'wang'   — Wang partition with chunk 64;
-    'pallas' — the CUDA Thomas kernel (``ops.tridiag_cuda``; its plain
-               version on CPU tensors).  The name is the JAX package's.
+    'pallas' — the CUDA tridiagonal kernel (``ops.tridiag_cuda``; the
+               plain Thomas solve on CPU tensors).  The name is the JAX
+               package's.
     """
     global _DEFAULT_SOLVER
     if name not in _SOLVERS:

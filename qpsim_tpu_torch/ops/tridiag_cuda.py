@@ -1,62 +1,138 @@
-"""The batched Thomas solve on the card: wrapper of the CUDA kernel ``csrc/tridiag.cu``.
+"""The batched tridiagonal solve on the card: wrapper of the CUDA kernel ``csrc/tridiag.cu``.
 
 Port of ``qpsim_tpu.ops.pallas_tridiag.tridiag_solve_pallas`` (kernel
 ``_thomas_kernel``): T x = rhs along the last axis for every leading index,
 ``sub[..., 0]`` and ``sup[..., -1]`` ignored, zero couplings decoupling
-intervals exactly.  As in the JAX wrapper, the line axis is moved first
-(an (N, B) copy), so that consecutive threads read consecutive lines.
+intervals exactly, a line of one cell ``rhs / diag``.
+
+The kernel is the shared-memory line solve of the ADI kernels in Wang
+chunks, and it reads the four tensors where they lie, in one of two
+layouts (:func:`layout_of`): "rows", every tensor contiguous (a plain
+``tridiag_solve`` call, the ``adi`` backend's x half), or "cols", every
+tensor the ``movedim(-2, -1)`` view of a contiguous (..., N, B) tensor
+(``tridiag_solve_along(-2, ...)``, the ``adi`` backend's y half), whose
+solution it writes with rhs's strides, so that moving the axis back
+copies nothing.  Any other layout (a broadcast, mixed layouts, other
+strides) is copied once into rows.
 
 :func:`thomas` launches the kernel for CUDA tensors and runs
 :func:`thomas_plain` (the plain Thomas solve) for CPU tensors; it never
-falls back.  ``set_default_solver("pallas")`` puts it under every
-``tridiag_solve`` call.
+falls back, and raises on a shape the kernel does not take.
+``set_default_solver("pallas")`` puts it under every ``tridiag_solve``
+call.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.cuda_build import load_kernels
+from .adi_sep import pick_chunks
 from .tridiag import tridiag_solve_thomas as thomas_plain
 
-__all__ = ["LAUNCHES", "thomas", "thomas_plain"]
+__all__ = ["LAUNCHES", "kernel_plan", "layout_of", "thomas", "thomas_plain"]
 
-#: launches of the Thomas kernel since import (or since the caller reset it)
-LAUNCHES = {"thomas": 0}
+#: launches of the kernel since import (or since the caller reset it):
+#: ``thomas`` counts every launch, ``thomas_cols`` those in the cols
+#: layout, ``thomas_relayout`` those whose inputs were first copied into rows
+LAUNCHES = {"thomas": 0, "thomas_cols": 0, "thomas_relayout": 0}
+
+#: the kernel's line count and positions are 32-bit; a block index is at most 2³¹ − 1
+_MAX_LINES = 2**31 - 2**16
+
+
+def layout_of(sub, diag, sup, rhs):
+    """How the kernel reads the four tensors in place, or None if they need a copy.
+
+    ``("rows", lines, n, 1)``: every tensor contiguous, line L's position
+    p at L·n + p.  ``("cols", lines, n, lead)``: every tensor the
+    ``movedim(-2, -1)`` view of a contiguous (..., n, lines) tensor, with
+    ``lead`` the product of the leading dimensions: position p of line j
+    of lead index g at (g·n + p)·lines + j.  None for tensors of different
+    shapes (a broadcast), mixed layouts or any other strides.  Needs a
+    last dimension of at least one cell and no empty tensor.
+    """
+    shape = rhs.shape
+    tensors = (sub, diag, sup, rhs)
+    if any(t.shape != shape for t in tensors):
+        return None
+    n = shape[-1]
+    if all(t.is_contiguous() for t in tensors):
+        return "rows", rhs.numel() // n, n, 1
+    if rhs.ndim >= 2 and all(t.transpose(-1, -2).is_contiguous() for t in tensors):
+        lines = shape[-2]
+        return "cols", lines, n, rhs.numel() // (n * lines)
+    return None
+
+
+def kernel_plan(form: str, dtype: torch.dtype, n: int, lines: int, lead: int = 1) -> dict:
+    """How the kernel launches on the current card for ``lead`` × ``lines``
+    lines of n in the layout ``form`` ("rows" or "cols"), as :func:`thomas`
+    asks (``pick_chunks(n)`` chunks).
+
+    ``tl`` lines per block, ``w`` chunks of a line held at once (``w <
+    k``: the two-pass form), ``pitch`` the shared-memory chunk pitch,
+    ``smem`` dynamic shared bytes per block, ``blocks``, ``waves`` and
+    ``k`` the Wang chunk count launched.  Raises when the kernel does not
+    take the shape.  Needs the card (it reads its limits).
+    """
+    out = (ctypes.c_int * 7)()
+    cols = form == "cols"
+    err = load_kernels().qp_thomas_plan(int(cols), torch.finfo(dtype).bits // 8, n,
+                                        lines if cols else lead * lines, lead if cols else 1,
+                                        pick_chunks(n), out)
+    if err != 0:
+        raise ValueError(f"the tridiagonal kernel does not take {lead}×{lines} {form} lines of {n} {dtype}")
+    return dict(zip(("tl", "w", "pitch", "smem", "blocks", "waves", "k"), out))
 
 
 def _launch(sub, diag, sup, rhs) -> torch.Tensor:
     if rhs.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"Thomas kernel takes float32 or float64, got {rhs.dtype}")
+        raise TypeError(f"tridiagonal kernel takes float32 or float64, got {rhs.dtype}")
     for t in (sub, diag, sup):
         if t.device != rhs.device or t.dtype != rhs.dtype:
             raise ValueError("sub, diag, sup and rhs must share the device and dtype")
-    sub, diag, sup, rhs = torch.broadcast_tensors(sub, diag, sup, rhs)
-    shape = rhs.shape
-    n = shape[-1]
+    if rhs.ndim == 0:
+        raise ValueError("the tridiagonal solve needs at least one axis")
+    if any(t.shape != rhs.shape for t in (sub, diag, sup)):
+        sub, diag, sup, rhs = torch.broadcast_tensors(sub, diag, sup, rhs)
+    n = rhs.shape[-1]
     if n == 1:
         return rhs / diag
-    # (N, B): the line axis first, every sweep row one contiguous run of lines
-    a, b, c, r = (t.reshape(-1, n).t().contiguous() for t in (sub, diag, sup, rhs))
-    batch = r.shape[1]
-    x = torch.empty_like(r)
-    w_scratch = torch.empty_like(r)  # c′ of the sweep; d′ lives in x
+    if rhs.numel() == 0:
+        return torch.empty_like(rhs)
+    layout = layout_of(sub, diag, sup, rhs)
+    relayout = layout is None
+    if relayout:  # one copy into rows
+        sub, diag, sup, rhs = (t.contiguous() for t in (sub, diag, sup, rhs))
+        layout = "rows", rhs.numel() // n, n, 1
+    form, lines, n, lead = layout
+    if lines * lead > _MAX_LINES or n > _MAX_LINES:
+        raise ValueError(f"the tridiagonal kernel takes fewer than 2^31 lines and cells, got "
+                         f"{lines * lead} lines of {n}")
+    x = torch.empty_like(rhs)  # rhs's strides: rows, or the cols layout
     lib = load_kernels()
-    fn = lib.qp_thomas_f32 if r.dtype == torch.float32 else lib.qp_thomas_f64
+    fn = lib.qp_thomas_f32 if rhs.dtype == torch.float32 else lib.qp_thomas_f64
     err = fn(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), r.data_ptr(), x.data_ptr(),
-        w_scratch.data_ptr(), n, batch, torch.cuda.current_stream(r.device).cuda_stream,
+        sub.data_ptr(), diag.data_ptr(), sup.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+        int(form == "cols"), n, lines, lead, pick_chunks(n),
+        torch.cuda.current_stream(rhs.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"Thomas kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"tridiagonal kernel launch failed with CUDA error {err} "
+                           f"({lead}×{lines} {form} lines of {n}, {rhs.dtype})")
     LAUNCHES["thomas"] += 1
-    return x.t().reshape(shape)
+    LAUNCHES["thomas_cols"] += int(form == "cols")
+    LAUNCHES["thomas_relayout"] += int(relayout)
+    return x
 
 
 def thomas(sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Thomas solve along the last axis through the CUDA kernel (plain version on the CPU)."""
+    """Tridiagonal solve along the last axis through the CUDA kernel (plain Thomas on the CPU)."""
     if rhs.device.type == "cpu":
         return thomas_plain(sub, diag, sup, rhs)
     if rhs.device.type != "cuda":
-        raise ValueError(f"Thomas kernel runs on CUDA tensors, got {rhs.device}")
+        raise ValueError(f"tridiagonal kernel runs on CUDA tensors, got {rhs.device}")
     return _launch(sub, diag, sup, rhs)

@@ -10,7 +10,7 @@ a (NB, Ny, Nx) state, dt baked in.
   for small grids (≤ 4096 interior cells).
 * :class:`ADIDiffusion` — Peaceman–Rachford ADI with batched tridiagonal
   solves through ``ops.tridiag.tridiag_solve`` (so ``set_default_solver``
-  picks the algorithm, the CUDA Thomas kernel included).
+  picks the algorithm, the CUDA tridiagonal kernel included).
 * :class:`PrefactoredWangADI` — ADI with the Wang-partition factors of both
   directions built once per ``make_step`` (``diffusion_backend='wang'``).
 * :class:`CGDiffusion` — exact unsplit CN by Jacobi-preconditioned

@@ -142,8 +142,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = [P] * 6 + [I, I, I, I, P]
             fn.restype = I
         fn = getattr(lib, f"qp_thomas_{suffix}")
-        # a, b, c, r, x, w_scratch, n, batch, stream
-        fn.argtypes = [P] * 6 + [I, I, P]
+        # sub, diag, sup, rhs, x, cols, n, lines, lead, k, stream
+        fn.argtypes = [P] * 5 + [I] * 5 + [P]
         fn.restype = I
         fn = getattr(lib, f"qp_column_walk_{suffix}")
         # q_in, ph_in, gen, q_out, ph_out, gid, rho, scat, scat_t, rec,
@@ -162,4 +162,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.qp_adi_plan.restype = I
     lib.qp_adi_sep_plan.argtypes = [I] * 6 + [P]  # x_half, elem_bytes, nb, ny, nx, k, out[6]
     lib.qp_adi_sep_plan.restype = I
+    # launch plan of the tridiagonal solve (K10)
+    lib.qp_thomas_plan.argtypes = [I] * 6 + [P]  # cols, elem_bytes, n, lines, lead, k, out[7]
+    lib.qp_thomas_plan.restype = I
     return lib

@@ -1,4 +1,7 @@
-"""``qpsim_tpu_torch/csrc/adi_staged.cuh`` with its policies (K1 ``adi_sep.cu``, K2 ``adi.cu``, K7 ``adi_lines.cu``) in NumPy.
+"""``qpsim_tpu_torch/csrc/adi_staged.cuh`` and its policies in NumPy.
+
+The policies: K1 ``adi_sep.cu``, K2 ``adi.cu``, K7 ``adi_lines.cu``, K10
+``tridiag.cu``.
 
 The kernels' blocking, step by step: a block owns TL lines of one bin
 (rows in the x half, columns in the y half, the last block ragged, its
@@ -13,7 +16,7 @@ two-pass form when W < K; the Wang stages in the TPU kernel's order; the
 interface recurrence by one thread per line.  Each step is vectorised over
 the block's threads, which changes no recurrence's order.  Shared memory
 starts as NaN, so a read of a slot the kernel never wrote shows.  Imported
-by the CPU tests of K1, K2 and K7.
+by the CPU tests of K1, K2, K7 and K10.
 """
 
 import numpy as np
@@ -149,6 +152,31 @@ class _Lines(_Fused):
         bb = 1.0 - a_s * self.di[bp, y, x]
         return [np.where(valid, a, 0.0), np.where(valid, c, 0.0), np.where(valid, self.u[b, y, x], 0.0),
                 np.where(valid, bb, 1.0)]
+
+
+class _Tridiag(_Fused):
+    """K10's policy: K2's stages on four general per-cell arrays, given as
+    (NB, lines, n) in the rows form (x half, NB = 1) and (lead, n, lines)
+    in the cols form (y half, the lead index in place of the bin)."""
+
+    def __init__(self, sub, diag, sup, rhs, rows, k):
+        self.u = rhs
+        self.arrs = (sub, diag, sup, rhs)
+        self.x_half, self.k = rows, k
+        self.nb = rhs.shape[0]
+        self.n_lines, self.n = (rhs.shape[1], rhs.shape[2]) if rows else (rhs.shape[2], rhs.shape[1])
+
+    def state(self, b, line, p):
+        return np.zeros(np.broadcast(line, p).shape)
+
+    def fetch(self, b, line, p, up, uc, dn):
+        valid = (line < self.n_lines) & (p < self.n)  # else an identity row
+        li, pi = np.where(valid, line, 0), np.where(valid, p, 0)
+        a, bb, c, d = (arr[b, li, pi] if self.x_half else arr[b, pi, li] for arr in self.arrs)
+        # sub[0] and sup[n − 1] are read as zero (the caller's arrays may hold anything there)
+        a = np.where(valid & (p > 0), a, 0.0)
+        c = np.where(valid & (p + 1 < self.n), c, 0.0)
+        return [a, c, np.where(valid, d, 0.0), np.where(valid, bb, 1.0)]
 
 
 class _Sep:
@@ -325,3 +353,24 @@ def lines_solve(rhs, lo, di, hi, scale, alpha: float, k: int, *, tl: int,
     B), in ``k`` chunks (the K launched: the last chunk padded with identity
     rows when ``k`` does not divide N)."""
     return _solve_half(_Lines(rhs, lo, di, hi, scale, alpha, k), False, k, tl, k if w is None else w)
+
+
+def tridiag_lines(sub, diag, sup, rhs, form: str, *, k: int | None = None, tl: int,
+                  w: int | None = None) -> np.ndarray:
+    """K10 on NumPy arrays: T x = rhs along the last axis of (..., n) arrays
+    of one shape, read as the kernel reads them: "rows" (every line on its
+    own, as contiguous lines) or "cols" (lines j of a (..., lines, n)
+    array, the movedim(−2, −1) view of (..., n, lines), as adjacent
+    columns of each lead index); ``k`` the chunk count launched (by default
+    the kernel's, ``launch_chunks``), the last chunk padded with identity
+    rows where it does not divide n."""
+    shape = rhs.shape
+    n = shape[-1]
+    k = launch_chunks(n) if k is None else k
+    if form == "rows":
+        arrs = [np.asarray(t, dtype=float).reshape(1, -1, n) for t in (sub, diag, sup, rhs)]
+    else:
+        arrs = [np.swapaxes(np.asarray(t, dtype=float).reshape(-1, shape[-2], n), 1, 2)
+                for t in (sub, diag, sup, rhs)]
+    out = _solve_half(_Tridiag(*arrs, form == "rows", k), form == "rows", k, tl, k if w is None else w)
+    return (out if form == "rows" else np.swapaxes(out, 1, 2)).reshape(shape)
