@@ -15,7 +15,8 @@ a non-zero exit:
    float32: the collision step (K3) on a uniform gap and with per-pixel
    gap ids (G = 3 random, G = 8 mixed in every warp, the trap disc's), the
    analytic-gap collision step (K4) on a continuous gap plane (γ = 0 and
-   0.12), at NE = 8, 9, 16 (the pair walk's 16 bins in registers), 11 (a
+   0.12), at NE = 1 and 2 (the validation suite's recombination gate runs
+   one bin), 8, 9, 16 (the pair walk's 16 bins in registers), 11 (a
    split ω diagonal), and 17, 32, 33, 50 and 64 (where they run the column
    walk), the fused ADI halves (K2) with one plane and with NB
    per-pixel planes on the rectangle and the masked donut, on 250 × 255
@@ -80,7 +81,24 @@ a non-zero exit:
    exactly 2 K10 launches a step, one of them in the cols layout, no copy,
    frames held to the auto run (K1), ms/step; then K10 timed against its
    plain version on 16 K and 1024 rows and 16 × 1024 cols of 1024;
-8. a JSON line with the kernels' numbers, the card line, and a last JSON
+8. the GDS film: an MKID layout (a pad, a meander PATH and an SREF'd
+   capacitor) written with ``write_gds`` and rasterized to 1024² by
+   ``create_geometry_from_gds`` (which rasterizer ran is printed), 16
+   bins, an ``initial_condition_spec`` (gaussian QPs, Fermi–Dirac
+   weights, Bose–Einstein phonons), traced custom generation and the
+   photon drive (pair breaking at 2.6Δ in [1.0, 3.5) ns), 100 steps,
+   float32, strang "auto": exactly 104 K3 launches with no generation
+   plane and 100 + 100 K2 halves, steady ms/step over three calls beside
+   the same film with neither photons nor custom generation, the set-up
+   split (GDS raster, IC build, program build), a two-tone drive, the trap
+   map (K3 gap ids) and the gradient (K4) under the per-pixel photon
+   substep, the photon substep and the traced generation timed alone, and
+   K3 with no plane and K2 on the film's planes against their plain
+   versions; (8b) the layout at 4.03 µm (256²) in float64 against the
+   plain path, uniform and gradient, and host-mode generation on 64²
+   ("auto" → exact); (8c) ``run_fast_validation_suite(device="cuda")``
+   in float64 and float32 with its figures and kernel counters;
+9. a JSON line with the kernels' numbers, the card line, and a last JSON
    line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
@@ -722,7 +740,8 @@ def check_pair_walk() -> None:
     forms = [("uniform", 0.0, True), ("uniform", 0.0, False), ("gid", 0.0, True),
              ("gid", 0.0, False), ("gid8", 0.0, True), ("trap", 0.0, True),
              ("analytic", 0.0, True), ("analytic", 0.12, True), ("analytic", 0.12, False)]
-    for ne, n, emax in ((8, (45, 50), 4.0), (9, (45, 50), 4.0), (11, (45, 50), 4.0), (16, 256, 4.0),
+    for ne, n, emax in ((1, (45, 50), 4.0), (2, (45, 50), 4.0),
+                        (8, (45, 50), 4.0), (9, (45, 50), 4.0), (11, (45, 50), 4.0), (16, 256, 4.0),
                         (16, (45, 50), 5.0), (16, (45, 50), 9.0), (17, (45, 50), 4.0),
                         (32, (45, 50), 4.0), (33, (45, 50), 4.0), (50, 128, 4.0),
                         (64, (64, 50), 4.0)):
@@ -1626,6 +1645,346 @@ def phase_other_diffusion_paths(card: str) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- phase 8: the GDS film
+
+
+#: the photon drive of phase 8: a pair-breaking tone at 2.6Δ (n̄ = 2, c = 2e-5
+#: /ns) in the window [1.0, 3.5) ns, and the two-tone variant's scattering
+#: tone at ω = 4·dE (dE = 33.75 µeV at 16 bins to 4Δ)
+PHOTON_PAIR = dict(photon_energy=2.6 * 180.0, occupancy=2.0, coupling=2e-5,
+                   window_start=1.0, window_duration=2.5)
+PHOTON_SCATTER = dict(photon_energy=4 * 33.75, occupancy=0.5, coupling=2e-5,
+                      include_pair_breaking=False)
+#: the traced custom generation: a gaussian hot spot on the pad, on in
+#: [0.5, 2.0) ns, exponential in E
+GEN_TRACED = ("params.get('g0', 1e-6) * np.exp(-((x - 0.2)**2 + (y - 0.5)**2) / 0.01)"
+              " * np.where((t >= 0.5) & (t < 2.0), 1.0, 0.0) * np.exp(-(E - 180.0) / 200.0)")
+#: the same with a Python conditional on t: the JAX rule leaves it to the host
+GEN_HOST = ("params.get('g0', 1e-6) * np.exp(-((x - 0.2)**2 + (y - 0.5)**2) / 0.01)"
+            " * np.exp(-(E - 180.0) / 200.0) if 0.5 <= t < 2.0 else 0.0")
+
+
+def write_mkid_layout(path) -> None:
+    """An MKID-like film on layer 1: a 420 × 1022 µm pad, a 60 µm meander
+    PATH leaving it in seven rows, and an SREF'd 100 × 80 µm capacitor cell
+    at its end; the bounding box is 1022 µm square, so a 1 µm mesh (plus
+    the one-cell ring) rasterizes it to 1024²."""
+    from qpsim_tpu_torch.geometry.gds import write_gds
+
+    rows = [60.0 + 150.0 * i for i in range(7)]
+    line = [(400.0, rows[0])]
+    for i, y in enumerate(rows):
+        ends = (480.0, 990.0) if i % 2 == 0 else (990.0, 480.0)
+        if i:
+            line.append((ends[0], y))
+        line.append((ends[1], y))
+    rect = lambda x0, y0, w, h: np.array([[x0, y0], [x0 + w, y0], [x0 + w, y0 + h], [x0, y0 + h]])
+    write_gds(path, {"CAP": [(1, rect(0.0, 0.0, 100.0, 80.0))],
+                     "MKID": [(1, rect(0.0, 0.0, 420.0, 1022.0)), (1, np.array(line), 60.0)]})
+    # the SREF (the writer emits BOUNDARY and PATH only): CAP at (922, 942)
+    import struct
+    from qpsim_tpu_torch.geometry.gds import _ascii_record, _record
+
+    data = path.read_bytes()
+    endstr = data.rfind(struct.pack(">HBB", 4, 0x07, 0))
+    origin = np.rint(np.array([[922.0, 942.0]]) / 1e-3).astype(">i4").tobytes()
+    sref = _record(0x0A, 0) + _ascii_record(0x12, "CAP") + _record(0x10, 3, origin) + _record(0x11, 0)
+    path.write_bytes(data[:endstr] + sref + data[endstr:])
+
+
+def gds_film(mesh: float):
+    """(mask, edges, reflective BCs, seconds) of the MKID layout at ``mesh`` µm."""
+    import tempfile
+    from pathlib import Path
+
+    from qpsim_tpu_torch.geometry.gds import create_geometry_from_gds
+    from qpsim_tpu_torch.models.params import BoundaryCondition
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "mkid.gds"
+        write_mkid_layout(path)
+        geo = create_geometry_from_gds(path, layer=1, mesh_size=mesh)
+    mask = np.asarray(geo.mask, dtype=bool)
+    bcs = {e.edge_id: BoundaryCondition(kind="reflective") for e in geo.edges}
+    return mask, geo.edges, bcs, time.perf_counter() - t0
+
+
+def film_ic(mask):
+    """The phase's initial condition: a gaussian QP profile (peak 1e-5) with
+    Fermi–Dirac weights at the bath, uniform Bose–Einstein phonons; returns
+    (spec, initial_field, energy_weights, seconds)."""
+    from qpsim_tpu_torch.fields import build_initial_energy_weights, build_initial_field
+    from qpsim_tpu_torch.models.params import InitialConditionSpec
+    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
+
+    t0 = time.perf_counter()
+    spec = InitialConditionSpec(
+        spatial_kind="gaussian", spatial_params={"amplitude": 1e-5, "x0": 0.2, "y0": 0.5, "sigma": 0.15},
+        energy_kind="fermi_dirac", phonon_spatial_kind="uniform", phonon_energy_kind="bose_einstein")
+    E, _ = build_energy_grid(180.0, 1.0, 4.0, 16)
+    init = build_initial_field(mask, spec)
+    weights = build_initial_energy_weights(E, 180.0, 0.0, spec, 0.1)
+    return spec, init, weights, time.perf_counter() - t0
+
+
+def film_kwargs(geometry, *, photons=True, gen="traced", two_tone=False, steps=100, store_every=25,
+                dtype=F32):
+    """``run_2d_crank_nicolson`` keywords of phase 8 on a film."""
+    from qpsim_tpu_torch.models.params import ExternalGenerationSpec, PhotonDriveSpec
+
+    mask, edges, bcs = geometry[:3]
+    spec, init, weights, _ = film_ic(mask)
+    kw = dict(mask=mask, edges=edges, edge_conditions=bcs, initial_field=init, energy_weights=weights,
+              initial_condition_spec=spec, diffusion_coefficient=6.0, dt=0.05, total_time=0.05 * steps,
+              dx=1.0, store_every=store_every, energy_gap=180.0, energy_max_factor=4.0,
+              num_energy_bins=16, enable_recombination=True, enable_scattering=True,
+              bath_temperature=0.1, dtype=dtype)
+    if gen:
+        kw["external_generation"] = ExternalGenerationSpec(
+            mode="custom", custom_body=GEN_TRACED if gen == "traced" else GEN_HOST,
+            custom_params={"g0": 1e-6})
+    if photons:
+        drive = [PhotonDriveSpec(mode="photon", **PHOTON_PAIR)]
+        if two_tone:
+            drive.append(PhotonDriveSpec(mode="photon", **PHOTON_SCATTER))
+        kw["photon_drive"] = drive
+    return kw
+
+
+def film_expect(collision: str, steps: int, segments: int, merged: bool = True, k2: bool = True) -> dict:
+    """Launch counts of a 16-bin coupled run with no generation plane in the
+    collision calls, diffusing through K2 (or, ``k2`` False, the dense backend)."""
+    calls = steps + segments if merged else 2 * steps
+    forms = {f"{n}{g}": 0 for n in COLLISION_KINDS.values() for g in ("", "_with_gen")}
+    halves = steps if k2 else 0
+    return forms | {collision: calls, "adi_x_half": halves, "adi_y_half": halves,
+                    "adi_sep_x": 0, "adi_sep_y": 0}
+
+
+def timed_film_calls(label, kw, expect, card, calls=3):
+    """``calls`` timed calls; (first result, runs, launch counts of the first call, checked exact)."""
+    reset_counts()
+    out, first = timed_run(kw, int(round(kw["total_time"] / kw["dt"])))
+    counts = read_counts()
+    check_counts(label, counts, expect)
+    check_frames(out[1], kw["mask"])
+    runs = [first] + [timed_run(kw, int(round(kw["total_time"] / kw["dt"])))[1] for _ in range(calls - 1)]
+    for i, (st, su, wh) in enumerate(runs):
+        print(f"  {label} run {i + 1}: steady state {st:.3f} ms/step (host clock, first to last stored "
+              f"frame); set-up {su:.3f} s (call to first stored frame); whole call "
+              f"{wh / 100:.3f} ms/step (CUDA events)")
+    med = float(np.median([r[0] for r in runs]))
+    print(f"  {label} end to end: steady state median {med:.3f} ms/step over {len(runs)} runs (range "
+          f"{min(r[0] for r in runs):.3f}–{max(r[0] for r in runs):.3f}) — {card}", flush=True)
+    return out, runs, counts
+
+
+def phase_photon_film(card: str) -> list[dict]:
+    print("== 8 the GDS film: an MKID layout rasterized to 1024², 16 bins, initial-condition spec, "
+          "custom traced generation and the photon drive, 100 steps, float32, strang 'auto'", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.geometry.gds import native_raster_available
+    from qpsim_tpu_torch.ops import photon_drive as pd
+    from qpsim_tpu_torch.ops.generation import build_generation_program
+    from qpsim_tpu_torch.models.params import ExternalGenerationSpec
+    from qpsim_tpu_torch.solver import spectral_runner
+
+    mask, edges, bcs, raster_s = gds_film(1.0)
+    fill = float(mask.mean())
+    print(f"  GDS film: {mask.shape[0]}×{mask.shape[1]}, {100 * fill:.1f} % inside, one component; "
+          f"rasterizer: {'native C++ (native/gds_raster.cpp)' if native_raster_available() else 'numpy'}; "
+          f"write + rasterize {raster_s:.3f} s", flush=True)
+    if mask.shape != (1024, 1024) or fill < 0.4:
+        raise AssertionError(f"GDS film {mask.shape}, {fill:.3f} inside: expected 1024² and ≥ 40 %")
+    geometry = (mask, edges, bcs)
+    ic_s = film_ic(mask)[3]
+
+    # the program build's share of the set-up, timed around the builder
+    build_s: list[float] = []
+    builder = spectral_runner.build_engine_program
+
+    def timed_builder(**kw):
+        t0 = time.perf_counter()
+        out = builder(**kw)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    spectral_runner.build_engine_program = timed_builder
+    try:
+        kw = film_kwargs(geometry)
+        qpsim_tpu_torch.run_2d_crank_nicolson(**kw)  # warm-up
+        torch.cuda.synchronize()
+        out, runs, counts = timed_film_calls("GDS film, photons + traced generation", kw,
+                                             film_expect("collision_step", 100, 4), card)
+        print(f"  set-up split: GDS write + rasterize {raster_s:.3f} s, IC build {ic_s:.3f} s, program "
+              f"build {min(build_s):.3f}–{max(build_s):.3f} s, call to first frame "
+              f"{min(r[1] for r in runs):.3f}–{max(r[1] for r in runs):.3f} s — {card}", flush=True)
+        mass = out[2]
+        print(f"  GDS film: mass {mass}", flush=True)
+        if not (mass[1] > mass[0] and mass[2] > mass[1]):
+            raise AssertionError("the hot spot and the pair-breaking window must raise the mass")
+        # the same film, no photons and no custom generation
+        plain_kw = film_kwargs(geometry, photons=False, gen=None)
+        timed_film_calls("GDS film, no photons, no generation", plain_kw,
+                         film_expect("collision_step", 100, 4), card)
+        # two tones, and the two gap maps, one call each
+        reset_counts()
+        qpsim_tpu_torch.run_2d_crank_nicolson(**film_kwargs(geometry, two_tone=True))
+        check_counts("GDS film, two tones", read_counts(), film_expect("collision_step", 100, 4))
+        map_counts = {}
+        for map_name, collision in (("trap", "collision_step_gid"), ("gradient", "collision_step_analytic")):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = qpsim_tpu_torch.run_2d_crank_nicolson(
+                **film_kwargs(geometry), gap_expression=GAP_MAPS[map_name])
+            check_counts(f"GDS film, {map_name} map, photons per pixel, {time.perf_counter() - t0:.2f} s",
+                         read_counts(), film_expect(collision, 100, 4))
+            check_frames(res[1], mask)
+            map_counts[map_name] = read_counts()
+    finally:
+        spectral_runner.build_engine_program = builder
+
+    # the photon substep and the traced generation alone, by CUDA events
+    from qpsim_tpu_torch.ops.dos import dynes_density_of_states
+    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
+
+    E, dE = build_energy_grid(180.0, 1.0, 4.0, 16)
+    rho = dynes_density_of_states(E, 180.0, 0.0)
+    mask_t = torch.as_tensor(mask, dtype=F32, device="cuda")
+    q = torch.as_tensor(rho, dtype=F32, device="cuda")[:, None, None] * 1e-3 * mask_t
+    plan = pd.build_photon_drive_plan(E_bins=E, dE=dE, gap=180.0, rho=rho, omega=PHOTON_PAIR["photon_energy"],
+                                      coupling=2e-5, occupancy=2.0)
+    sub = pd.make_photon_substep(plan, 0.05, F32, "cuda")
+    aplan = pd.build_photon_drive_plan_analytic(E_bins=E, dE=dE, omega=PHOTON_PAIR["photon_energy"],
+                                                coupling=2e-5, occupancy=2.0)
+    sub_pp = pd.make_photon_substep_per_pixel(aplan, 0.05, F32, "cuda")
+    d2 = mask_t * 180.0**2
+    rho_state = torch.as_tensor(rho, dtype=F32, device="cuda")[:, None, None] * mask_t
+    gen = build_generation_program(
+        ExternalGenerationSpec(mode="custom", custom_body=GEN_TRACED, custom_params={"g0": 1e-6}),
+        E, mask, "cuda", F32)
+    t_gen = torch.full((), 1.0, dtype=F32, device="cuda")
+    if gen.traced_fn is None:
+        raise AssertionError("the phase's generation expression must trace")
+    ms_sub = time_ms(lambda: sub(q, 1.0, mask_t), 20)
+    ms_pp = time_ms(lambda: sub_pp(q, 1.0, mask_t, d2, rho_state), 20)
+    ms_gen = time_ms(lambda: gen.add(q, 0.05, t_gen), 20)
+    print(f"  photon substep (plain torch, 1024² × 16, float32, CUDA events): uniform {ms_sub:.4f} ms, "
+          f"per pixel {ms_pp:.4f} ms; traced generation add {ms_gen:.4f} ms — {card}", flush=True)
+
+    # K3 with no generation plane, at the film's shapes, against its plain version
+    rows = []
+    kern, plain, cplan, tensors, qk, phk, _ = collision_setup(16, 1024, F32)
+    ref, _ = timed_once(lambda: plain(qk, phk, 0.025, None))
+    got = kern(qk, phk, 0.025, None)
+    torch.cuda.synchronize()
+    check("collision_step NE=16 1024² float32 gen=False phonons=True, q", scaled_err(got[0], ref[0]),
+          TOL[("collision_step", F32)])
+    check("collision_step NE=16 1024² float32 gen=False phonons=True, ph", scaled_err(got[1], ref[1]),
+          TOL[("collision_step", F32)])
+    rows.append(dict(
+        name="collision_step_no_gen_plane", route="cuda", source="qpsim_tpu_torch/csrc/collisions.cu",
+        replaces="qpsim_tpu/ops/pallas_collisions.py:169", launches=counts["collision_step"],
+        max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
+        ms=time_ms(lambda: kern(qk, phk, 0.025, None), 20),
+        plain_ms=time_ms(lambda: plain(qk, phk, 0.025, None), 3),
+        **bound(*collision_work(cplan, qk, phk, None, tensors), F32), library_ms=None))
+    del kern, plain, cplan, tensors, qk, phk, ref, got
+    # K2 on the film's masked planes (one plane)
+    from qpsim_tpu_torch.ops import adi_cuda
+
+    planes, u = adi_planes(geometry, F32)
+    alpha = 0.025
+    for name, line, kern, plainf in (
+        ("adi_x_half", 225, adi_cuda.adi_x_half, adi_cuda.adi_x_half_plain),
+        ("adi_y_half", 275, adi_cuda.adi_y_half, adi_cuda.adi_y_half_plain),
+    ):
+        got, ref = kern(u, planes, alpha), plainf(u, planes, alpha)
+        torch.cuda.synchronize()
+        check(f"{name} GDS film 1024²×16 float32", scaled_err(got, ref), TOL[("adi", F32)])
+        rows.append(dict(
+            name=f"{name}_gds_film", route="cuda", source="qpsim_tpu_torch/csrc/adi.cu",
+            replaces=f"qpsim_tpu/ops/pallas_adi.py:{line}", launches=counts[name],
+            max_abs_err=abs_err(got, ref), ms=graph_ms(lambda: kern(u, planes, alpha), 20), timing="graph",
+            plain_ms=time_ms(lambda: plainf(u, planes, alpha), 3),
+            **bound(*adi_work(u, planes), F32), library_ms=None))
+    print_rows(rows, "the GDS film's shapes, 1024² × 16", card)
+    print(f"  maps under photons: trap {map_counts['trap']['collision_step_gid']} K3 gap-id launches, "
+          f"gradient {map_counts['gradient']['collision_step_analytic']} K4 launches, none with a plane",
+          flush=True)
+    return rows
+
+
+def phase_photon_film_f64() -> None:
+    print("== 8b the GDS film at 4.03 µm (256²), float64, 30 steps: IC, traced generation and photons "
+          "against the plain path; host-mode generation on 64²", flush=True)
+    import qpsim_tpu_torch
+
+    run = qpsim_tpu_torch.run_2d_crank_nicolson
+    mask, edges, bcs, _ = gds_film(4.03)
+    if mask.shape != (256, 256):
+        raise AssertionError(f"the 4.03 µm film is {mask.shape}, expected 256²")
+    # 30 steps cross both windows: generation [0.5, 2.0), photons [1.0, 3.5);
+    # the kernels' run diffuses through K2 ('auto'), the plain one on 'adi'
+    kw = film_kwargs((mask, edges, bcs), steps=30, store_every=10, dtype=F64)
+    for map_name, collision, plain_kw in (
+        ("uniform", "collision_step", dict(collision_backend="plain", diffusion_backend="adi")),
+        ("gradient", "collision_step_analytic", dict(device="cpu", diffusion_backend="adi")),
+    ):
+        kw_map = dict(kw, gap_expression=GAP_MAPS[map_name]) if map_name != "uniform" else kw
+        reset_counts()
+        a = run(**kw_map)
+        check_counts(f"256² {map_name}", read_counts(), film_expect(collision, 30, 3))
+        assert_runs_close(f"256² {map_name}, photons + traced generation: kernels vs plain", a,
+                          run(**kw_map, **plain_kw), 1e-10, 1e-12)
+    # host-mode generation: 'auto' resolves to exact (two collision calls a
+    # step); the 64² film's interior takes the dense backend on both sides
+    geometry = rectangle(64)
+    kw = film_kwargs(geometry, gen="host", steps=30, store_every=10, dtype=F64)
+    reset_counts()
+    a = run(**kw)
+    check_counts("64² host-mode generation, 'auto' → exact", read_counts(),
+                 film_expect("collision_step", 30, 3, merged=False, k2=False))
+    # the dense solve of this 64² film mixes the gaussian's far tail (10⁻⁷
+    # of its peak) from the whole film, so float64 roundoff of the peak
+    # reaches ~1e-10 of a tail cell: frames are held to rtol 1e-10 plus an
+    # atol of 1e-10 of each frame's peak
+    b = run(**kw, collision_backend="plain")
+    if a[0] != b[0]:
+        raise AssertionError("64² host-mode generation: stored times differ")
+    np.testing.assert_allclose(a[2], b[2], rtol=1e-12, atol=0)
+    for fa, fb in zip(a[1], b[1]):
+        np.testing.assert_array_equal(np.isnan(fa), np.isnan(fb))
+        peak = float(np.nanmax(np.abs(fb)))
+        np.testing.assert_allclose(np.nan_to_num(fa), np.nan_to_num(fb), rtol=1e-10, atol=1e-10 * peak)
+    print("  64² host-mode generation: kernels vs plain, frames within rtol 1e-10 + 1e-10 of the peak, "
+          "mass within 1e-12 ok", flush=True)
+    if not a[2][-1] > a[2][0]:
+        raise AssertionError("host-mode generation must inject")
+
+
+def phase_validation(card: str) -> None:
+    print("== 8c run_fast_validation_suite(device='cuda'), float64 and float32", flush=True)
+    import qpsim_tpu_torch
+
+    for dtype in (F64, F32):
+        reset_counts()
+        t0 = time.perf_counter()
+        report = qpsim_tpu_torch.run_fast_validation_suite(device="cuda", dtype=dtype)
+        elapsed = time.perf_counter() - t0
+        for name, section in report.sections().items():
+            print(f"  {str(dtype)[6:]} {name}: {section}")
+        launched = {k: v for k, v in read_counts().items() if v}
+        print(f"  {str(dtype)[6:]} suite: overall_passed={report.overall_passed} in {elapsed:.2f} s; "
+              f"kernel launches {launched} — {card}", flush=True)
+        if not report.overall_passed:
+            raise AssertionError(f"validation suite failed in {dtype}")
+        if not launched.get("collision_step"):
+            raise AssertionError("the suite's collision gates must run through K3")
+
+
 def timed_phase(fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1645,6 +2004,9 @@ def main() -> int:
     timed_phase(phase_end_to_end_f64)
     rows += timed_phase(phase_scalar_path, card)
     rows += timed_phase(phase_other_diffusion_paths, card)
+    rows += timed_phase(phase_photon_film, card)
+    timed_phase(phase_photon_film_f64)
+    timed_phase(phase_validation, card)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,12 @@
 """Sandboxed single-expression DSL for user-supplied formulas.
 
 Carried over from ``qpsim_tpu.expr.safe_eval`` (the same whitelist, the
-same ``ExpressionError`` messages), with the numpy backend only: gap maps
-are evaluated on the host.  The JAX package's ``backend="jax"`` (traced
-generation expressions) has no counterpart here yet; a torch backend comes
-with the custom generation mode (ROADMAP.md, queue 1, item 4).
+same ``ExpressionError`` messages).  Two backends: ``"numpy"`` evaluates
+on the host (gap maps, initial conditions, host-mode generation), and
+``"torch"`` maps the ``np`` namespace onto torch, so an expression bound
+to tensors is evaluated on their device in their dtype — the traced custom
+generation of the engine.  ``"jax"``, the JAX package's name for its traced
+backend, is an alias of ``"torch"``.
 
 Security model
 --------------
@@ -24,8 +26,9 @@ import math
 from typing import Any, Callable, Iterable
 
 import numpy as np
+import torch
 
-__all__ = ["compile_safe_expression", "ExpressionError"]
+__all__ = ["compile_safe_expression", "ExpressionError", "JNP_BACKEND_FUNCTIONS"]
 
 
 class ExpressionError(ValueError):
@@ -43,7 +46,8 @@ _BUILTIN_WHITELIST: dict[str, Callable[..., Any]] = {
     "bool": bool,
 }
 
-# numpy members that user expressions may reference
+# numpy members that user expressions may reference.  Kept in sync with the
+# reference DSL so existing setups evaluate identically.
 _NP_FUNCS = frozenset(
     """abs sqrt exp log log10 sin cos tan arcsin arccos arctan sinh cosh tanh
     where maximum minimum clip power heaviside arange zeros_like ones_like
@@ -160,6 +164,84 @@ def _strip_return(source: str) -> str:
     return text
 
 
+_TORCH_DTYPES = {
+    "float64": torch.float64,
+    "float32": torch.float32,
+    "int64": torch.int64,
+    "int32": torch.int32,
+    "bool_": torch.bool,
+}
+
+
+class _TorchShim:
+    """A restricted ``np``-lookalike backed by torch, bound to one dtype and device.
+
+    Python numbers (and numpy values) handed to a function become tensors of
+    the shim's dtype on its device first — the dtype and device of the
+    floating tensors the expression is evaluated on — so a scalar branch of
+    ``np.where`` or ``np.maximum(x, 0.0)`` computes in the state dtype, as
+    ``jax.numpy``'s weakly typed scalars do.
+    """
+
+    def __init__(self, dtype: torch.dtype, device: torch.device) -> None:
+        self._dtype = dtype
+        self._device = device
+
+    def _lift(self, v: Any) -> Any:
+        if isinstance(v, torch.Tensor):
+            return v
+        if isinstance(v, (bool, np.bool_)):
+            return torch.tensor(bool(v), device=self._device)
+        if isinstance(v, (int, float, np.number, np.ndarray)):
+            return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=self._dtype, device=self._device)
+        return v
+
+    def __getattr__(self, name: str) -> Any:
+        if name in _NP_CONSTS:
+            return _TORCH_DTYPES[name] if name in _TORCH_DTYPES else float(getattr(np, name))
+        if name not in _NP_FUNCS:
+            raise AttributeError(name)
+        if name == "arange":
+            return lambda *a, **kw: torch.arange(*a, device=self._device, **kw)
+        if name == "clip":
+            return lambda x, lo=None, hi=None: torch.clamp(
+                self._lift(x),
+                None if lo is None else self._lift(lo),
+                None if hi is None else self._lift(hi),
+            )
+        if name == "full_like":
+            return lambda x, v, **kw: torch.ones_like(self._lift(x), **kw) * self._lift(v)
+        fn = getattr(torch, "pow" if name == "power" else name)
+        return lambda *a, **kw: fn(*(self._lift(v) for v in a), **kw)
+
+
+def _torch_context(bound: dict) -> tuple[torch.dtype, torch.device]:
+    """The dtype and device of the first floating tensor bound (float64 on the CPU if none)."""
+    for v in bound.values():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.dtype, v.device
+    return torch.float64, torch.device("cpu")
+
+
+class _TensorSize(ast.NodeTransformer):
+    """``v.size`` → ``_size(v)``: numpy's element count, not torch's method."""
+
+    def visit_Attribute(self, node: ast.Attribute) -> ast.AST:
+        self.generic_visit(node)
+        if node.attr == "size" and isinstance(node.value, ast.Name):
+            call = ast.Call(func=ast.Name(id="_size", ctx=ast.Load()), args=[node.value], keywords=[])
+            return ast.copy_location(call, node)
+        return node
+
+
+def _size(v: Any) -> Any:
+    return v.numel() if isinstance(v, torch.Tensor) else v.size
+
+
+#: names of the np.* functions guaranteed to exist on the torch backend.
+JNP_BACKEND_FUNCTIONS = _NP_FUNCS
+
+
 def compile_safe_expression(
     source: str,
     *,
@@ -170,7 +252,10 @@ def compile_safe_expression(
 
     ``source`` is a single expression, optionally prefixed by ``return``;
     ``variable_names`` the names the caller binds at evaluation time (e.g.
-    ``("x", "y", "params")``).  Only ``backend="numpy"`` exists here.
+    ``("x", "y", "params")``).  ``backend`` is ``"numpy"`` (host evaluation)
+    or ``"torch"`` (``"jax"`` is an alias): there ``np.*`` maps onto torch in
+    the dtype and on the device of the floating tensors bound at call time,
+    and ``v.size`` is the element count as in numpy.
     """
     text = _strip_return(source)
     try:
@@ -182,15 +267,12 @@ def compile_safe_expression(
 
     names = frozenset(variable_names)
     _validate_tree(tree, names)
-    code = compile(tree, "<qpsim-expression>", "eval")
-
-    if backend == "jax":
-        raise NotImplementedError(
-            "The traced expression backend is not ported yet "
-            "(ROADMAP.md, queue 1, item 4: a torch backend for custom expressions)."
-        )
-    if backend != "numpy":
+    if backend not in ("numpy", "torch", "jax"):
         raise ExpressionError(f"Unknown expression backend: {backend!r}.")
+    on_torch = backend != "numpy"
+    if on_torch:
+        tree = ast.fix_missing_locations(_TensorSize().visit(tree))
+    code = compile(tree, "<qpsim-expression>", "eval")
 
     required = tuple(names)
 
@@ -200,7 +282,12 @@ def compile_safe_expression(
             raise ExpressionError(
                 "Missing variables for custom expression evaluation: " + ", ".join(sorted(missing)) + "."
             )
-        scope = {"__builtins__": {}, "np": np, "math": math}
+        np_namespace: Any = _TorchShim(*_torch_context(bound)) if on_torch else np
+        # torch's C++ operators import some of their Python helpers lazily
+        # through the calling frame's builtins; the expression itself cannot
+        # name ``__import__`` (dunder names fail validation)
+        builtins = {"__import__": __import__} if on_torch else {}
+        scope = {"__builtins__": builtins, "np": np_namespace, "math": math, "_size": _size}
         scope.update(_BUILTIN_WHITELIST)
         scope.update(bound)
         return eval(code, scope, {})  # noqa: S307 — sandboxed by _validate_tree

@@ -442,6 +442,15 @@ def launch_columns(name: str, plan: CollisionPlan, tables: ColumnTables, n_qp, n
     return out
 
 
+def _check_channels(plan: CollisionPlan, tables: CollisionKernelTables) -> None:
+    """The tables hold constants for each channel the plan enables and has
+    pairs for (one bin has no scattering pair), and for no other."""
+    has_s = plan.enable_scattering and tables.s_meta.numel() > 0
+    has_r = plan.enable_recombination and tables.r_meta.numel() > 0
+    if (tables.scat is not None) != has_s or (tables.rec is not None) != has_r:
+        raise ValueError("the tables' channels differ from the plan's")
+
+
 def _table_step(plan: CollisionPlan, tables, n_qp, n_ph, dt: float, gen):
     """Launch K3 (``collision_step`` or, with gap ids, ``collision_step_gid``) on CUDA tensors."""
     name = "collision_step" if plan.gap_id is None else "collision_step_gid"
@@ -452,8 +461,7 @@ def _table_step(plan: CollisionPlan, tables, n_qp, n_ph, dt: float, gen):
     if tables.analytic or tables.consts is None:
         raise ValueError("an analytic plan runs the analytic collision kernel")
     check_inputs(plan, n_qp, n_ph, gen, (("consts", tables.consts),), MAX_KERNEL_BINS)
-    if (tables.scat is None) == plan.enable_scattering or (tables.rec is None) == plan.enable_recombination:
-        raise ValueError("the tables' channels differ from the plan's")
+    _check_channels(plan, tables)
     n_pix = n_qp.shape[1] * n_qp.shape[2]
     gid = plan.gap_id
     if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
@@ -474,8 +482,7 @@ def _analytic_step(plan: CollisionPlan, analytic: AnalyticTables, tables, n_qp, 
         raise ValueError("the analytic kernel needs build_kernel_tables(plan, analytic)")
     a = analytic
     check_inputs(plan, n_qp, n_ph, gen, (("g2", a.g2), ("consts", tables.consts)), MAX_KERNEL_BINS)
-    if (tables.scat is None) == plan.enable_scattering or (tables.rec is None) == plan.enable_recombination:
-        raise ValueError("the tables' channels differ from the plan's")
+    _check_channels(plan, tables)
     n_pix = n_qp.shape[1] * n_qp.shape[2]
     if a.g2.numel() != n_pix:
         raise ValueError(f"the Δ² plane holds {a.g2.numel()} pixels, the state {n_pix}")

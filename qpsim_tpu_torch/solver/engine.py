@@ -14,7 +14,11 @@ It runs both branches:
   across a stored segment by default), with the collision substep and the
   ADI step on hand-written CUDA kernels on the card; a spatially varying
   gap (``gap_expression`` or a ``precomputed`` payload) gives per-pixel
-  D(E, x) and per-pixel collision constants;
+  D(E, x) and per-pixel collision constants; ``initial_condition_spec``
+  seeds the phonons (and a full-custom quasiparticle state),
+  ``external_generation`` takes every mode (``custom`` traced on the
+  device or evaluated on the host per step) and ``photon_drive`` adds the
+  Fischer 2024 photon substep (one tone or several);
 * scalar (``energy_gap <= 0``): one (1, Ny, Nx) CN field, no collisions,
   and a fixed-temperature phonon scaffold; on the card a full rectangle
   diffuses through the separable ADI kernel, any other film through the
@@ -131,7 +135,8 @@ def run_2d_crank_nicolson(
       cells, else the CUDA ADI kernels on CUDA and plain ADI on the CPU),
       'dense', 'adi', 'wang', 'cg' or 'pallas' (the CUDA ADI kernels; raises
       on the CPU).
-    * ``strang_mode`` — 'auto' (= 'merged'), 'exact' or 'merged'.
+    * ``strang_mode`` — 'auto' ('merged', or 'exact' under a host-evaluated
+      custom generation expression), 'exact' or 'merged'.
     * ``snapshot_detail`` — 'full' or 'integrated' (reduced on the device).
 
     ``mesh_y_solve`` is accepted for signature compatibility and unused.
@@ -153,10 +158,6 @@ def run_2d_crank_nicolson(
     if photon_drive is not None and photon_drive_specs(photon_drive) and energy_gap <= 0.0:
         raise ValueError("photon_drive needs the energy-resolved mode (energy_gap > 0).")
     # features outside this slice of the port fail loudly
-    if photon_drive is not None and photon_drive_specs(photon_drive):
-        raise _deferred("photon_drive", "queue 1, 'Photon drive'")
-    if initial_condition_spec is not None:
-        raise _deferred("initial_condition_spec", "queue 1, 'Host layer, rest'")
     if mesh is not None:
         raise _deferred("mesh= (spatial sharding)", "queue 1, 'Sharding'")
     if checkpointer is not None:
@@ -234,6 +235,8 @@ def run_2d_crank_nicolson(
             T_c=T_c,
             bath_temperature=bath_temperature,
             external_generation=external_generation,
+            photon_drive=photon_drive,
+            initial_condition_spec=initial_condition_spec,
             gap_expression=gap_expression,
             precomputed=precomputed,
             pauli_warn_threshold=pauli_warn_threshold,

@@ -27,9 +27,21 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   ``'plain'``.  K3/K4 read the pair-walk tables of ``build_kernel_tables``,
   K5/K6 the column tables of ``build_column_tables``, both built here once.
 * diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
-* generation (constant, pulse) — the dt·g plane is fused into the
+* generation — constant and pulse: the dt·g plane is fused into the
   collision substep that opens each step, as the TPU kernels'
-  ``gen_input`` does; every collision step here takes that plane.
+  ``gen_input`` does, unless a photon drive is on (the photon substep
+  sits between the injection and the collision half, so the plane is
+  added on its own first, as in the JAX program); custom traced: q +
+  dt·g(t) evaluated on the device, its flags stacked with the Pauli
+  statistics; custom host: the runner adds the host-evaluated dt·g and
+  calls :attr:`EngineProgram.single_step` once per step.
+* photon drive (Fischer 2024) — each step, after the generation injection
+  and before the leading collision half (at every seam of the merged
+  composition), each tone's exponential substep in order, inside its own
+  window; per-pixel coefficients from the Δ² plane and the Pauli ρ state
+  under a gap map.  The substep is the JAX package's XLA glue in plain
+  torch (``ops.photon_drive``); a step outside a tone's window is the
+  identity on a non-negative state, computed as its ``max(q, 0)``.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.params import photon_drive_specs
 from ..ops.collisions import (
     build_analytic_plan,
     build_collision_plan_arrays,
@@ -68,6 +81,12 @@ from ..ops.dos import (
 from ..ops.generation import build_generation_program, numpy_dtype
 from ..ops.kernels import recombination_kernel_base, scattering_kernel_base
 from ..ops.phonon_map import PhononFrequencyMap, build_phonon_frequency_map
+from ..ops.photon_drive import (
+    build_photon_drive_plan,
+    build_photon_drive_plan_analytic,
+    make_photon_substep,
+    make_photon_substep_per_pixel,
+)
 from .diffusion_backends import choose_backend
 from .pauli import make_pauli_stats_fn
 
@@ -109,10 +128,17 @@ _KERNEL_STEPS: dict[str, tuple[Callable, Callable]] = {
 class EngineProgram:
     pmap: PhononFrequencyMap
     #: (seg_dt, length) -> run(q, ph, t_start) -> (q, ph, stats, gen_flags):
-    #: stats a (length, 4) float64 device tensor of Pauli statistics,
-    #: gen_flags a (length, 2) bool array (non-finite, negative dt·g)
+    #: stats a (length, 4) float64 device tensor of Pauli statistics, or
+    #: (length, 6) with the traced generation's device flags (non-finite,
+    #: negative) in its last two columns; gen_flags a (length, 2) bool array
+    #: of the uniform modes' host flags
     segment_runner: Callable
     pauli_stats: Callable[[torch.Tensor], torch.Tensor]
+    #: seg_dt -> one(q, ph, t) -> (q, ph, stats): one step after a host-mode
+    #: generation add (photon substep, then the Strang step), ``t`` the host time
+    single_step: Callable
+    #: the generation is evaluated on the host every step
+    host_gen: bool
 
 
 def build_engine_program(
@@ -144,6 +170,7 @@ def build_engine_program(
     external_generation,
     pauli_density_floor,
     strang_mode,
+    photon_drive=None,
 ) -> EngineProgram:
     ny, nx = mask.shape
     n_spatial = int(mask.sum())
@@ -206,7 +233,7 @@ def build_engine_program(
 
     # --- collision data ------------------------------------------------------
     pmap = build_phonon_frequency_map(E_bins)
-    plan = atab = None
+    plan = atab = rho_by_gap = None
     if not collisions_on:  # only the Pauli ρ plane, vectorised over pixels
         rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
     elif analytic:
@@ -236,7 +263,6 @@ def build_engine_program(
         rho_by_gap = np.stack(
             [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
         )
-        rho_per_pixel = rho_by_gap[gap_lookup].T
         per_gap = lambda fn, tau: np.stack([fn(E_bins, float(g), tau, T_c) for g in unique_gaps])
         plan = build_collision_plan_arrays(
             dE=dE,
@@ -257,20 +283,107 @@ def build_engine_program(
         step, build_tables = _KERNEL_STEPS[kernel]
         tables = build_tables(plan, atab)
 
-    rho_state = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
-    rho_state[:, mask] = rho_per_pixel
-    pauli_stats = make_pauli_stats_fn(
-        torch.as_tensor(rho_state, dtype=dtype, device=device), pauli_density_floor
-    )
+    # the Pauli ρ state, formed on the device: ρ columns broadcast over the
+    # mask plane (one gap), gathered by gap id (gap-id tables), or the
+    # per-pixel DOS scattered into the mask (continuous maps, no collisions)
+    mask_plane = torch.as_tensor(mask, dtype=dtype, device=device)
+    if rho_by_gap is not None:
+        rho_dev = torch.as_tensor(rho_by_gap.T, dtype=dtype, device=device)  # (NE, G)
+        if unique_gaps.size == 1:
+            rho_state = rho_dev[:, :1, None] * mask_plane
+        else:
+            gid_dev = torch.as_tensor(gap_id, device=device).long()
+            rho_state = rho_dev[:, gid_dev] * mask_plane
+    else:
+        rho_state = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+        rho_state[:, torch.as_tensor(mask, device=device)] = torch.as_tensor(
+            rho_per_pixel, dtype=dtype, device=device
+        )
+    pauli_stats = make_pauli_stats_fn(rho_state, pauli_density_floor)
 
-    gen = build_generation_program(external_generation, mask, device, dtype)
+    # --- generation and strang mode ---------------------------------------------
+    gen = build_generation_program(external_generation, E_bins, mask, device, dtype)
     if strang_mode == "auto":
         # merged wherever it applies; the runner degenerates to the exact
         # composition without collisions, without diffusion, or at length 1
-        strang_mode = "merged"
+        strang_mode = "exact" if gen.host_mode else "merged"
+    if strang_mode == "merged" and gen.host_mode:
+        raise ValueError(
+            "strang_mode='merged' cannot be combined with a host-evaluated "
+            "custom generation expression: the fused segment has no per-step "
+            "host boundary to evaluate it at.  Use strang_mode='exact' (or a "
+            "traceable expression)."
+        )
     np_t = numpy_dtype(dtype)
 
+    # --- photon drive (Fischer 2024 pair-breaking photons) ---------------------
+    # One exponential substep per tone, applied in order after the
+    # generation injection and before the leading collision half; each tone
+    # alone is an exact thermal fixed point, so the composition keeps
+    # detailed balance.
+    photon_specs = photon_drive_specs(photon_drive)
+    photon_plans = []  # [(plan, window_start, window_end)]
+    uniform_drive = int(unique_gaps.size) == 1
+    for spec in photon_specs:
+        common = dict(
+            E_bins=E_bins, dE=dE, omega=spec.photon_energy, coupling=spec.coupling,
+            occupancy=spec.occupancy, include_scattering=spec.include_scattering,
+            include_pair_breaking=spec.include_pair_breaking,
+        )
+        if uniform_drive:
+            rho0 = (rho_by_gap[0] if rho_by_gap is not None
+                    else dynes_density_of_states(E_bins, float(unique_gaps[0]), dynes_gamma))
+            ph_plan = build_photon_drive_plan(gap=gap, rho=rho0, **common)
+        else:
+            # gap maps: the coherence factors are affine in Δ², so the Δ²
+            # plane and the Pauli ρ state replace the coefficient rows; the
+            # ω > 2Δ(x) pair-breaking threshold is applied per pixel
+            ph_plan = build_photon_drive_plan_analytic(**common)
+        if ph_plan.k_offset == 0 and ph_plan.s_index < 0:
+            # both channels snapped off-grid: the substep would be the identity
+            raise ValueError(
+                f"photon drive at omega={spec.photon_energy:g} µeV is "
+                "inert: the scattering offset round(omega/dE) is 0 or "
+                "beyond the grid, and the pair-breaking channel is "
+                "closed (omega <= 2*gap) or its anti-diagonal misses "
+                f"the grid (needs 2*E0 <= omega <= 2*E_max; grid "
+                f"[{E_bins[0]:g}, {E_bins[-1]:g}] µeV, dE={dE:g}). "
+                "Adjust omega or the energy grid, or disable the drive."
+            )
+        w0 = spec.window_start
+        w1 = None if w0 is None else w0 + float(spec.window_duration)
+        photon_plans.append((ph_plan, w0, w1))
+    photon_on = bool(photon_plans)
+    photon_aux: tuple = ()
+    if photon_on and not uniform_drive:
+        delta2 = np.zeros((ny, nx), dtype=np.float64)
+        delta2[mask] = gap_values**2
+        photon_aux = (torch.as_tensor(delta2, dtype=dtype, device=device), rho_state)
+
+    def make_photon_apply(seg_dt: float):
+        """``apply(q, t) -> q``: every tone's substep at host time ``t`` (state dtype)."""
+        make = make_photon_substep if uniform_drive else make_photon_substep_per_pixel
+        subs = [(make(plan_, seg_dt, dtype, device), w0, w1) for plan_, w0, w1 in photon_plans]
+
+        def apply(q: torch.Tensor, t) -> torch.Tensor:
+            f = type(t)
+            for sub, w0, w1 in subs:
+                if w0 is not None and not (t >= f(w0) and t < f(w1)):
+                    # outside the window the gated substep is max(q, 0)
+                    q = torch.clamp(q, min=0.0)
+                else:
+                    q = sub(q, 1.0, mask_plane, *photon_aux)
+            return q
+
+        return apply
+
+    # the uniform modes' dt·g plane rides the collision call that opens a
+    # step, unless the photon substep has to sit between the two
+    fuse_gen = gen.scalar_amp and collisions_on and not photon_on
+
     def make_col(dt_col: float):
+        if not collisions_on:
+            return None
         if step is not None:
             consts = (plan, atab, tables) if analytic else (plan, tables)
             return lambda q, ph, grow=None: step(*consts, q, ph, dt_col, grow)
@@ -280,62 +393,120 @@ def build_engine_program(
             )
         return lambda q, ph, grow=None: collision_step_plain(plan, q, ph, dt_col, grow)
 
-    no_gen = (None, False, False)
+    def strang_step(q, ph, col_half, col_full, diff_step, grow=None):
+        """One step after its injections: C(dt/2) D(dt) C(dt/2), or the parts that are on."""
+        if collisions_on and diff_step is not None:
+            q, ph = col_half(q, ph, grow)
+            q = diff_step(q)
+            q, ph = col_half(q, ph)
+        elif collisions_on:
+            q, ph = col_full(q, ph, grow)
+        elif diff_step is not None:
+            q = diff_step(q)
+        return q, ph
+
     seg_cache: dict[tuple[float, int], Callable] = {}
 
     def segment_runner(seg_dt: float, length: int):
         key = (seg_dt, length)
         if key in seg_cache:
             return seg_cache[key]
-        col_half = make_col(0.5 * seg_dt) if collisions_on else None
-        col_full = make_col(seg_dt) if collisions_on else None
+        col_half = make_col(0.5 * seg_dt)
+        col_full = make_col(seg_dt)
         diff_step = backend.make_step(seg_dt) if backend is not None else None
+        photon_apply = make_photon_apply(seg_dt) if photon_on else None
         merged = strang_mode == "merged" and collisions_on and diff_step is not None and length > 1
-
-        def gen_at(t):
-            return gen.plane(seg_dt, t) if gen.active else no_gen
+        traced = gen.traced_fn is not None
 
         def run(q, ph, t_start: float):
-            # in-segment times in the state dtype: t_k = t0 + k·dt
+            # in-segment times in the state dtype: t_k = t0 + k·dt, on the
+            # host (windows, uniform amplitudes) and, for a traced
+            # expression, the same arithmetic on the device
             t0 = np_t(t_start)
             times = [t0 + np_t(k) * np_t(seg_dt) for k in range(length)]
-            stats: list[torch.Tensor] = []
+            t_dev = (
+                torch.arange(length, dtype=dtype, device=device) * seg_dt
+                + torch.full((), float(t0), dtype=dtype, device=device)
+                if traced else None
+            )
             flags = np.zeros((length, 2), dtype=bool)
+            dev_flags: list = [None] * length
+
+            def inject(q, k, slot):
+                """Step k's generation and photon substeps; its flags go to ``slot``.
+                Returns q and the plane the collision call fuses (or None)."""
+                grow = None
+                if gen.scalar_amp:
+                    plane, nf, ng = gen.plane(seg_dt, times[k])
+                    flags[slot] |= (nf, ng)
+                    if fuse_gen:
+                        grow = plane
+                    else:
+                        q = q + plane[None]
+                elif traced:
+                    q, nf, ng = gen.add(q, seg_dt, t_dev[k])
+                    row = torch.stack([nf, ng])
+                    dev_flags[slot] = row if dev_flags[slot] is None else dev_flags[slot] | row
+                if photon_apply is not None:
+                    q = photon_apply(q, times[k])
+                return q, grow
+
+            stats: list[torch.Tensor] = []
             if merged:
                 # C(dt/2) [D C(dt)]^(L-1) D C(dt/2): the trailing half-step of
                 # each Strang step is fused with the next step's leading half.
-                # Step k's dt·g(t_k) injects at its seam, just before the
-                # fused C(dt) the exact composition would split around.
-                grow, nf0, ng0 = gen_at(times[0])
+                # Step k's injections (generation, photons) ride its seam, just
+                # before the fused C(dt) the exact composition would split
+                # around; step 1's flags fold into slot 0.
+                q, grow = inject(q, 0, 0)
                 q, ph = col_half(q, ph, grow)
                 for k in range(length - 1):
                     q = diff_step(q)
-                    grow, flags[k, 0], flags[k, 1] = gen_at(times[k + 1])
+                    q, grow = inject(q, k + 1, k)
                     q, ph = col_full(q, ph, grow)
                     stats.append(pauli_stats(q))
                 q = diff_step(q)
                 q, ph = col_half(q, ph)
                 stats.append(pauli_stats(q))
-                # fold the pre-loop (step-1) generation flags into slot 0
-                flags[0] |= (nf0, ng0)
             else:
                 for k in range(length):
-                    grow, flags[k, 0], flags[k, 1] = gen_at(times[k])
-                    if collisions_on and diff_step is not None:
-                        q, ph = col_half(q, ph, grow)
-                        q = diff_step(q)
-                        q, ph = col_half(q, ph)
-                    elif collisions_on:
-                        q, ph = col_full(q, ph, grow)
-                    else:
-                        if grow is not None:
-                            q = q + grow[None]
-                        if diff_step is not None:
-                            q = diff_step(q)
+                    q, grow = inject(q, k, k)
+                    q, ph = strang_step(q, ph, col_half, col_full, diff_step, grow)
                     stats.append(pauli_stats(q))
-            return q, ph, torch.stack(stats), flags
+            stats_t = torch.stack(stats)
+            if traced:
+                zero = torch.zeros(2, dtype=torch.bool, device=device)
+                rows = torch.stack([zero if f is None else f for f in dev_flags])
+                stats_t = torch.cat([stats_t, rows.to(stats_t.dtype)], dim=1)
+            return q, ph, stats_t, flags
 
         seg_cache[key] = run
         return run
 
-    return EngineProgram(pmap=pmap, segment_runner=segment_runner, pauli_stats=pauli_stats)
+    single_cache: dict[float, Callable] = {}
+
+    def single_step(seg_dt: float):
+        """One step after the runner's host-mode generation add: the photon
+        substep at host time ``t``, then the Strang step."""
+        if seg_dt not in single_cache:
+            col_half = make_col(0.5 * seg_dt)
+            col_full = make_col(seg_dt)
+            diff_step = backend.make_step(seg_dt) if backend is not None else None
+            photon_apply = make_photon_apply(seg_dt) if photon_on else None
+
+            def one(q, ph, t: float):
+                if photon_apply is not None:
+                    q = photon_apply(q, np_t(t))
+                q, ph = strang_step(q, ph, col_half, col_full, diff_step)
+                return q, ph, pauli_stats(q)
+
+            single_cache[seg_dt] = one
+        return single_cache[seg_dt]
+
+    return EngineProgram(
+        pmap=pmap,
+        segment_runner=segment_runner,
+        pauli_stats=pauli_stats,
+        single_step=single_step,
+        host_gen=gen.host_mode,
+    )

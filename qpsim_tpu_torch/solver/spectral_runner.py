@@ -2,11 +2,20 @@
 
 Carried over from ``qpsim_tpu.solver.spectral_runner``: initial state
 assembly, Pauli policy enforcement, the snapshot pipeline (``full`` and
-on-device ``integrated`` detail) and the depth-1 segment pipeline — each
-segment's statistics and stored state start their copy to the host right
-after the segment is enqueued, and are drained after the NEXT segment is
-enqueued, so the host's snapshot work overlaps the device's compute while
-frames, callbacks and errors keep program order.
+on-device ``integrated`` detail), host-mode generation (one host
+evaluation, one add and one single step per step) and the depth-1 segment
+pipeline — each segment's statistics and stored state start their copy to
+the host right after the segment is enqueued, and are drained after the
+NEXT segment is enqueued, so the host's snapshot work overlaps the
+device's compute while frames, callbacks and errors keep program order.
+
+The default initial state — energy weights ⊗ the initial field's interior
+values for the quasiparticles, the bath's Bose–Einstein occupation for the
+phonons — is formed on the device in the state dtype (on the CPU in float64
+it is the JAX package's host state bit for bit); an ``initial_condition_spec``
+is evaluated on the host in float64 (``fields``), as in the JAX package, and
+copied over once.  The first stored frame is read back from the device
+state.
 """
 
 from __future__ import annotations
@@ -14,10 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..fields import build_initial_phonon_energy_state, build_initial_qp_energy_state
 from ..io.precompute import precompute_arrays
 from ..models.params import SimulationParameters, normalize_collision_solver_name
 from ..ops.dos import dynes_density_of_states, thermal_phonon_occupation
 from ..ops.energy_grid import build_energy_grid, integration_widths_from_centers
+from ..ops.generation import evaluate_generation_host
 from .pauli import PauliEnforcer
 from .phonon_history import reconstruct_field
 from .program_build import build_engine_program
@@ -84,6 +95,8 @@ def _run_energy_resolved(
     T_c,
     bath_temperature,
     external_generation,
+    photon_drive=None,
+    initial_condition_spec=None,
     gap_expression,
     precomputed,
     pauli_warn_threshold,
@@ -106,6 +119,10 @@ def _run_energy_resolved(
     n_spatial = int(mask.sum())
     E_bins, dE = build_energy_grid(gap, energy_min_factor, energy_max_factor, num_energy_bins)
     normalize_collision_solver_name(collision_solver)
+
+    custom_qp_state = None
+    if initial_condition_spec is not None:
+        custom_qp_state = build_initial_qp_energy_state(mask, E_bins, initial_condition_spec)
 
     # Auto-precompute diffusion arrays when a gap map is requested.
     if precomputed is None and str(gap_expression or "").strip():
@@ -161,41 +178,60 @@ def _run_energy_resolved(
         external_generation=external_generation,
         pauli_density_floor=pauli_density_floor,
         strang_mode=strang_mode,
+        photon_drive=photon_drive,
     )
     omega_bins = prog.pmap.omega_bins
 
     # --- initial states (weights at the uniform energy_gap's DOS, gap map or not)
-    spatial_values = initial_field[mask].astype(np.float64)
-    if energy_weights is not None:
-        raw_w = np.asarray(energy_weights, dtype=np.float64)
-        if raw_w.ndim != 1:
-            raise ValueError("energy_weights must be a 1D array.")
-        if raw_w.shape[0] != num_energy_bins:
-            raise ValueError(
-                f"energy_weights must have length {num_energy_bins}, got {raw_w.shape[0]}."
-            )
-        if not np.all(np.isfinite(raw_w)):
-            raise ValueError("energy_weights must contain only finite values.")
-        if np.any(raw_w < 0):
-            raise ValueError("energy_weights must be non-negative.")
-    else:
-        raw_w = dynes_density_of_states(E_bins, gap, dynes_gamma)
-    integral = float(np.sum(raw_w) * dE)
-    weights = (
-        raw_w / integral if integral > 0 else np.full(num_energy_bins, 1.0 / (num_energy_bins * dE))
-    )
-    state_flat = weights[:, None] * spatial_values[None, :]
-    phonon_flat = thermal_phonon_occupation(omega_bins, bath_temperature)[:, None] * np.ones(
-        (1, n_spatial)
-    )
-
     nw = omega_bins.size
-    q_np = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
-    q_np[:, mask] = state_flat
-    ph_np = np.zeros((nw, ny, nx), dtype=np.float64)
-    ph_np[:, mask] = phonon_flat
-    q = torch.as_tensor(q_np, dtype=dtype, device=device)
-    ph = torch.as_tensor(ph_np, dtype=dtype, device=device)
+    mask_d = torch.as_tensor(mask, device=device)
+    if custom_qp_state is not None:
+        state_flat = np.asarray(custom_qp_state, dtype=np.float64)
+        if state_flat.shape != (num_energy_bins, n_spatial):
+            raise ValueError(
+                "Full custom quasiparticle profile must have shape "
+                f"({num_energy_bins}, {n_spatial}); got {state_flat.shape}."
+            )
+        if not np.all(np.isfinite(state_flat)):
+            raise ValueError("Full custom quasiparticle profile produced non-finite values.")
+        if np.any(state_flat < 0):
+            raise ValueError("Full custom quasiparticle profile must be non-negative.")
+        q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+        q[:, mask_d] = torch.as_tensor(state_flat, dtype=dtype, device=device)
+    else:
+        if energy_weights is not None:
+            raw_w = np.asarray(energy_weights, dtype=np.float64)
+            if raw_w.ndim != 1:
+                raise ValueError("energy_weights must be a 1D array.")
+            if raw_w.shape[0] != num_energy_bins:
+                raise ValueError(
+                    f"energy_weights must have length {num_energy_bins}, got {raw_w.shape[0]}."
+                )
+            if not np.all(np.isfinite(raw_w)):
+                raise ValueError("energy_weights must contain only finite values.")
+            if np.any(raw_w < 0):
+                raise ValueError("energy_weights must be non-negative.")
+        else:
+            raw_w = dynes_density_of_states(E_bins, gap, dynes_gamma)
+        integral = float(np.sum(raw_w) * dE)
+        weights = (
+            raw_w / integral if integral > 0 else np.full(num_energy_bins, 1.0 / (num_energy_bins * dE))
+        )
+        # weights ⊗ interior values, scattered into the mask, on the device
+        spatial = torch.as_tensor(np.asarray(initial_field, dtype=np.float64), dtype=dtype, device=device)
+        w_col = torch.as_tensor(weights, dtype=dtype, device=device)[:, None]
+        q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+        q[:, mask_d] = w_col * spatial[mask_d][None, :]
+
+    if initial_condition_spec is not None:
+        phonon_flat = build_initial_phonon_energy_state(
+            mask, omega_bins, initial_condition_spec, bath_temperature
+        )
+        ph = torch.zeros((nw, ny, nx), dtype=dtype, device=device)
+        ph[:, mask_d] = torch.as_tensor(phonon_flat, dtype=dtype, device=device)
+    else:
+        occ = thermal_phonon_occupation(omega_bins, bath_temperature)
+        ph = torch.as_tensor(occ, dtype=dtype, device=device)[:, None, None] * mask_d.to(dtype)
 
     # --- Pauli monitoring ------------------------------------------------------
     enforcer = PauliEnforcer(
@@ -281,20 +317,25 @@ def _run_energy_resolved(
             frame = emit(t, q_host, ph_host)
         _notify(progress_callback, t, frame)
 
-    # the initial frame comes from the float64 host state, in either detail
+    # the first frame is read from the device state; in either detail it is
+    # reduced on the host in float64, as the JAX package reduces its host state
     if light:
-        interior = q_np[:, mask]
+        q_host, ph_host = (
+            None if h is None else h.astype(np.float64)
+            for h in _HostCopy(q, ph if record_phonons else None).get()
+        )
+        interior = q_host[:, mask]
         frame0 = emit_light(
             0.0,
             reconstruct_field(mask, np.sum(interior, axis=0) * dE),
             np.sum(interior, axis=1),
-            reconstruct_field(mask, np.sum(ph_np[:, mask] * phonon_widths[:, None], axis=0))
+            reconstruct_field(mask, np.sum(ph_host[:, mask] * phonon_widths[:, None], axis=0))
             if record_phonons
             else None,
         )
+        _notify(progress_callback, 0.0, frame0)
     else:
-        frame0 = emit(0.0, q_np, ph_np)
-    _notify(progress_callback, 0.0, frame0)
+        store(0.0, start_copy(q, ph))
 
     # --- main loop --------------------------------------------------------------
     gen_mode = external_generation.normalized_mode() if external_generation else "none"
@@ -302,6 +343,8 @@ def _run_energy_resolved(
     def drain(p) -> None:
         stats_np = p["stats"].get()[0]
         flags = p["flags"]
+        if stats_np.shape[1] > 4:  # the traced generation's device flags
+            flags = flags | (stats_np[:, 4:6] != 0)
         t = p["t_start"]
         for i in range(p["seg"].length):
             t += p["seg"].dt
@@ -322,6 +365,25 @@ def _run_energy_resolved(
     step_counter = 0
     pending = None
     for seg in segments:
+        if prog.host_gen:
+            # host-evaluated generation needs the host between every step —
+            # inherently sequential, no pipelining
+            one = prog.single_step(seg.dt)
+            for _ in range(seg.length):
+                g_host = evaluate_generation_host(
+                    external_generation, E_bins, n_spatial, current_time, mask
+                )
+                if g_host is not None:
+                    g_dense = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+                    g_dense[:, mask_d] = torch.as_tensor(g_host, dtype=dtype, device=device)
+                    q = q + seg.dt * g_dense
+                q, ph, stats = one(q, ph, current_time)
+                step_counter += 1
+                current_time += seg.dt
+                enforcer.check_row(step_counter, current_time, stats.cpu().numpy())
+            if seg.stored:
+                store(current_time, start_copy(q, ph))
+            continue
         q, ph, stats, flags = prog.segment_runner(seg.dt, seg.length)(q, ph, current_time)
         new_pending = {
             "seg": seg,

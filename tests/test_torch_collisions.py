@@ -151,10 +151,11 @@ def _walk(s, q, ph, gen, dt=DT):
      (8, True, True, True, False), (9, True, True, True, True), (16, True, True, True, True),
      (16, True, True, True, False), (16, True, False, True, True), (16, False, True, True, True),
      (16, True, True, False, True), (17, True, True, True, True), (33, True, True, True, False),
-     (64, True, True, True, True)],
+     (64, True, True, True, True), (1, True, True, True, False), (1, False, True, False, False),
+     (2, True, True, True, False)],
     ids=["both_gen", "scattering", "recombination_frozen_gen", "8", "9", "16_gen", "16",
          "16_scattering", "16_recombination", "16_frozen", "17_column_walk", "33_column_walk",
-         "64_column_walk"],
+         "64_column_walk", "1", "1_recombination_frozen", "2"],
 )
 def test_kernel_tables_reproduce_plain_version(ne, scattering, recombination, phonons, gen):
     # up to 16 bins on _setup's 4 × 32 grid (three pixel chunks, one ragged);

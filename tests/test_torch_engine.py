@@ -200,20 +200,13 @@ def test_pauli_violation_mid_run_reports_the_same_step():
 
 
 _DEFERRED = [
-    dict(photon_drive=tp.PhotonDriveSpec(mode="photon", photon_energy=400.0, coupling=1.0)),
-    dict(initial_condition_spec=tp.InitialConditionSpec()),
     dict(mesh=object()),
     dict(checkpointer=object()),
     dict(frame_sink=object()),
-    dict(external_generation=tp.ExternalGenerationSpec(mode="custom")),
 ]
 
 
-@pytest.mark.parametrize(
-    "extra", _DEFERRED,
-    ids=["photon_drive", "initial_condition",
-         "mesh", "checkpointer", "frame_sink", "custom_generation"],
-)
+@pytest.mark.parametrize("extra", _DEFERRED, ids=["mesh", "checkpointer", "frame_sink"])
 def test_deferred_features_raise(extra):
     kw = _pauli_kwargs(initial_field=np.full((1, 4), 1e-5))
     kw.update(extra)

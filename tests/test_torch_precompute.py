@@ -93,8 +93,10 @@ def test_safe_eval_missing_variables_and_backends():
     assert _outcome(fn_t, x=1.0)[1] == _outcome(fn_j, x=1.0)[1]
     assert _outcome(t_expr.compile_safe_expression, "x", variable_names=("x",), backend="gpu")[1] == \
         _outcome(j_expr.compile_safe_expression, "x", variable_names=("x",), backend="gpu")[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_expr.compile_safe_expression("x", variable_names=("x",), backend="jax")
+    # "jax" names the torch backend here: the numpy backend's value, on a tensor
+    fx_t = t_expr.compile_safe_expression("np.exp(x) * 2.0", variable_names=("x",), backend="jax")
+    fx_n = t_expr.compile_safe_expression("np.exp(x) * 2.0", variable_names=("x",))
+    assert float(fx_t(x=torch.tensor(1.5, dtype=torch.float64))) == float(fx_n(x=1.5))
     assert t_expr._NP_FUNCS == j_expr._NP_FUNCS and t_expr._NP_CONSTS == j_expr._NP_CONSTS
     assert t_expr._MATH_FUNCS == j_expr._MATH_FUNCS and t_expr._MATH_CONSTS == j_expr._MATH_CONSTS
 
