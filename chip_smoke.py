@@ -97,9 +97,33 @@ a non-zero exit:
    versions; (8b) the layout at 4.03 µm (256²) in float64 against the
    plain path, uniform and gradient, and host-mode generation on 64²
    ("auto" → exact); (8c) ``run_fast_validation_suite(device="cuda")``
-   in float64 and float32 with its figures and kernel counters;
-9. a JSON line with the kernels' numbers, the card line, and a last JSON
-   line ``{"ok": true, "device": {...}}``.
+   in float64 and float32 with its figures and kernel counters (K3
+   launches by bin count);
+9. the setup runner, in a temporary directory deleted at the end: (9a)
+   phase 4's flagship (1024² × 16, pulse, 100 steps stored every 25) as a
+   setup file written with ``save_setup`` and read with ``load_setup``,
+   run by ``run_setup`` in integrated detail with ``stream_dir`` and
+   ``checkpoint_dir`` — exactly 104 K3 and 100 + 100 K2 launches, the
+   stream bit-equal to a direct ``run_2d_crank_nicolson`` call with the
+   same keywords and no sinks, the saved result loaded back, per stored
+   index the shard write and the checkpoint save (ms, MB); (9a′) 256² in
+   full detail, streamed, bit-equal to the direct call; (9b) the same
+   setup interrupted at 3.1 ns (62 steps: a forced final store) and run
+   to 5 ns into the same directories: bit-equal to 9a, the forced index
+   discarded; (9c) 1024² × 100, 40 steps, integrated and streamed — 41 K5
+   launches, within 1e-5 of a full-detail call's reductions; (9d) the
+   scalar 1024² film, 2000 steps, streamed — 2 K1 launches a step, mass
+   drift ≤ steps × float32 ε; (9e) a 2 × 2 ``run_sweep`` on 256² × 16,
+   each variant bit-equal to a lone ``run_setup``, ``resume=True``
+   re-running none; (9f) ``generate_test_suite()`` at its defaults in
+   float64 and float32 against the gates of ``tests/test_testcases.py``
+   (K3 launches by bin count; its films are ≤ 4096 cells, so no K1/K2),
+   saved and loaded back, then K3 timed on the suite's 1 × 1 cell at 1,
+   10 and 15 bins and on the validation suite's 1 × 16 strip at 24;
+10. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
+   times at the same shapes from phases 4, 4c and 6 of this run, with
+   phase 9's launches, and the small-cell K3 rows), the card line, and a
+   last JSON line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
 compared arrays.  Kernel timings use CUDA events after a warm-up; K1's and
@@ -118,6 +142,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1965,14 +1990,15 @@ def phase_photon_film_f64() -> None:
         raise AssertionError("host-mode generation must inject")
 
 
-def phase_validation(card: str) -> None:
+def phase_validation(card: str) -> dict:
     print("== 8c run_fast_validation_suite(device='cuda'), float64 and float32", flush=True)
     import qpsim_tpu_torch
 
     for dtype in (F64, F32):
         reset_counts()
         t0 = time.perf_counter()
-        report = qpsim_tpu_torch.run_fast_validation_suite(device="cuda", dtype=dtype)
+        with launches_by_bins() as by_bins:
+            report = qpsim_tpu_torch.run_fast_validation_suite(device="cuda", dtype=dtype)
         elapsed = time.perf_counter() - t0
         for name, section in report.sections().items():
             print(f"  {str(dtype)[6:]} {name}: {section}")
@@ -1983,6 +2009,538 @@ def phase_validation(card: str) -> None:
             raise AssertionError(f"validation suite failed in {dtype}")
         if not launched.get("collision_step"):
             raise AssertionError("the suite's collision gates must run through K3")
+        print(f"  {str(dtype)[6:]} suite: K3 launches by bins "
+              f"{ {ne: n for (_, ne), n in sorted(by_bins.items(), key=lambda kv: kv[0][1])} }", flush=True)
+    return by_bins
+
+
+# ---------------------------------------------------------------- phase 9: the setup runner
+
+
+class launches_by_bins:
+    """Within the block, count K3/K4 launches (the collision step up to 64
+    bins) by (counter name, bins), read off the plan each launch receives;
+    :data:`LAUNCHES` counts them as always."""
+
+    def __enter__(self):
+        from qpsim_tpu_torch.ops import collisions_cuda as kc
+
+        self.kc, self.seen = kc, {}
+        self.real = (kc._launch, kc.launch_columns)
+
+        def tally(real):
+            def launch(name, plan, *args, **kw):
+                out = real(name, plan, *args, **kw)
+                key = (name, plan.num_energy_bins)
+                self.seen[key] = self.seen.get(key, 0) + 1
+                return out
+            return launch
+
+        kc._launch, kc.launch_columns = (tally(f) for f in self.real)
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.kc._launch, self.kc.launch_columns = self.real
+
+
+class timed_calls:
+    """Within the block, the seconds of each call of ``owner.name`` (a class's
+    method or a module's function), in call order, with what ``extra(args,
+    out)`` returns beside each."""
+
+    def __init__(self, owner, name, extra=None):
+        self.owner, self.name, self.extra = owner, name, extra
+
+    def __enter__(self):
+        self.real, self.calls = getattr(self.owner, self.name), []
+
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            dt = time.perf_counter() - t0
+            self.calls.append((dt, None if self.extra is None else self.extra(args, out)))
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+class engine_keywords:
+    """Within the block, the keywords of the runner's engine call (the last)."""
+
+    def __enter__(self):
+        from qpsim_tpu_torch import runner
+
+        self.runner, self.real, self.kw = runner, runner.run_2d_crank_nicolson, {}
+
+        def spy(**kw):
+            self.kw.clear()
+            self.kw.update(kw)
+            return self.real(**kw)
+
+        runner.run_2d_crank_nicolson = spy
+        return self.kw
+
+    def __exit__(self, *exc):
+        self.runner.run_2d_crank_nicolson = self.real
+
+
+def flagship_setup(n, *, ne=16, steps=100, store_every=25, name="flagship"):
+    """Phase 4's physics as a setup: the n² intrinsic rectangle, Δ = 180 µeV,
+    E_max = 4Δ, ``ne`` bins, both channels, T_bath 0.1 K, pulse generation,
+    dt 0.05 ns, ``steps`` steps stored every ``store_every``; QPs uniform
+    1e-5 with the DOS weights, phonons at the bath."""
+    from qpsim_tpu_torch.fields import default_initial_condition
+    from qpsim_tpu_torch.geometry.mask import create_intrinsic_geometry
+    from qpsim_tpu_torch.models.params import (BoundaryCondition, ExternalGenerationSpec, SetupData,
+                                               SimulationParameters)
+
+    geo = create_intrinsic_geometry(width=n, height=n)
+    ic = default_initial_condition()
+    ic.spatial_kind, ic.spatial_params = "uniform", {"value": 1e-5}
+    params = SimulationParameters(
+        diffusion_coefficient=6.0, dt=0.05, total_time=0.05 * steps, mesh_size=1.0,
+        store_every=store_every, energy_gap=180.0, energy_min_factor=1.0, energy_max_factor=4.0,
+        num_energy_bins=ne, enable_recombination=True, enable_scattering=True, bath_temperature=0.1,
+        external_generation=ExternalGenerationSpec(mode="pulse", pulse_start=0.5, pulse_duration=1.0,
+                                                   pulse_rate=1e-5))
+    bcs = {e.edge_id: BoundaryCondition(kind="reflective") for e in geo.edges}
+    return SetupData(setup_id=f"{name[:6]:0<6}{n:06d}", name=f"{name} {n}² × {ne}",
+                     created_at="2026-01-01T00:00:00+00:00", geometry=geo, boundary_conditions=bcs,
+                     parameters=params, initial_condition=ic)
+
+
+def with_params(setup, **params):
+    import dataclasses
+
+    return dataclasses.replace(setup, parameters=dataclasses.replace(setup.parameters, **params))
+
+
+def plan_of(setup):
+    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
+
+    p = setup.parameters
+    full, rem, _ = _split_time(p.total_time, p.dt)
+    return _plan_segments(full, rem, p.dt, p.store_every)
+
+
+def steady_ms(stamps, steps) -> float:
+    """Host ms per step from the first to the last stored frame."""
+    return 1e3 * (stamps[-1] - stamps[0]) / steps
+
+
+def stamp_into(stamps):
+    return lambda t, frame: stamps.append(time.perf_counter())
+
+
+def step_file_mb(args, out) -> float:
+    """The size in MB of the checkpoint file a ``save_step`` call wrote."""
+    checkpointer, stored_idx = args[0], args[1]
+    return checkpointer._path(stored_idx).stat().st_size / 1e6
+
+
+def shard_mb(args, out) -> float:
+    from qpsim_tpu_torch.io.stream import _shard_path
+
+    return _shard_path(args[0].directory, args[1]).stat().st_size / 1e6
+
+
+def stored_steps(directory) -> list[int]:
+    """The step of each stored index of a checkpoint directory, read without its tensors."""
+    from qpsim_tpu_torch.io.checkpoint import SimulationCheckpointer
+
+    ck = SimulationCheckpointer(directory)
+    return [int(torch.load(ck._path(i), map_location="cpu", weights_only=True, mmap=True)["step"])
+            for i in ck.all_steps()]
+
+
+def equal_streams(label, a, b) -> None:
+    """Two finalized frame streams (readers) hold the same bits: times, mass,
+    color limits, frames and the per-bin sums."""
+    if (a.times, a.mass_over_time, a.color_limits) != (b.times, b.mass_over_time, b.color_limits):
+        raise AssertionError(f"{label}: times, mass or color limits differ")
+    for i in range(a.count):
+        for acc in ("frame", "energy_bin_sums", "phonon_bin_sums", "phonon_frame"):
+            x, y = getattr(a, acc)(i), getattr(b, acc)(i)
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y, equal_nan=True)):
+                raise AssertionError(f"{label}: {acc}({i}) differs")
+
+
+def direct_matches_stream(label, direct, r, dE) -> None:
+    """A direct engine call's (times, frames, mass, limits) against a stream, bit for bit; the
+    stream's bin sums give the direct call's mass exactly."""
+    times, frames, mass, limits = direct[:4]
+    if r.times != times or r.mass_over_time != mass or r.color_limits != limits:
+        raise AssertionError(f"{label}: stream times/mass/limits differ from the direct call")
+    for i, frame in enumerate(frames):
+        if not np.array_equal(r.frame(i), frame, equal_nan=True):
+            raise AssertionError(f"{label}: streamed frame {i} differs from the direct call")
+        sums = r.energy_bin_sums(i)
+        if sums is not None and float(np.sum(sums) * dE) != mass[i]:  # dx = 1
+            raise AssertionError(f"{label}: bin sums of frame {i} do not give the direct call's mass")
+
+
+def copied_row(rows, name, suffix, launches, phase):
+    """A kernels-line row of phase 9: the kernel's numbers at the same shapes and inputs
+    as an earlier phase's row of this run, with phase 9's launches."""
+    src = next(r for r in rows if r["name"] == name)
+    return dict(src, name=f"{name}_{suffix}", launches=launches, timed_in=phase)
+
+
+def phase_setup_flagship(card: str, tmp, rows_before) -> list[dict]:
+    print("== 9a the flagship setup from a file: 1024² × 16 through run_setup, integrated detail, "
+          "streamed and checkpointed, float32", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.io import storage
+    from qpsim_tpu_torch.io.checkpoint import SimulationCheckpointer
+    from qpsim_tpu_torch.io.stream import FrameStreamWriter, load_frame_stream
+    from qpsim_tpu_torch.ops.energy_grid import build_energy_grid
+
+    setup = flagship_setup(1024)
+    t0 = time.perf_counter()
+    path = qpsim_tpu_torch.save_setup(setup, tmp / "flagship.json")
+    loaded = qpsim_tpu_torch.load_setup(path)
+    io_s = time.perf_counter() - t0
+    if storage.serialize_setup(loaded) != storage.serialize_setup(setup):
+        raise AssertionError("9a: the setup changed on its way through the file")
+    _, dE = build_energy_grid(180.0, 1.0, 4.0, 16)
+    segments = plan_of(loaded)
+    stamps: list[float] = []
+    with engine_keywords() as kw, \
+            timed_calls(FrameStreamWriter, "write", shard_mb) as writes, \
+            timed_calls(SimulationCheckpointer, "save_step", step_file_mb) as saves:
+        reset_counts()
+        t0 = time.perf_counter()
+        result, saved = qpsim_tpu_torch.run_setup(
+            loaded, save_path=tmp / "flagship_result.json", snapshot_detail="integrated",
+            stream_dir=tmp / "9a_stream", checkpoint_dir=tmp / "9a_ck", progress_callback=stamp_into(stamps))
+        call_s = time.perf_counter() - t0
+        counts = read_counts()
+    check_counts("9a run_setup 1024² × 16", counts, coupled_expect(segments, "collision_step"))
+    if result.metadata["diagnostics_mode"] != "open_system" or "save_error" in result.metadata:
+        raise AssertionError(f"9a: diagnostics {result.metadata.get('diagnostics_mode')}, "
+                             f"save error {result.metadata.get('save_error')}")
+    back = qpsim_tpu_torch.load_simulation(saved)
+    if back.times != result.times or back.mass_over_time != result.mass_over_time:
+        raise AssertionError("9a: the saved result does not load as it was saved")
+    # the same keywords, the same detail, no sinks
+    engine_kw = {k: v for k, v in kw.items() if k not in ("checkpointer", "frame_sink", "progress_callback")}
+    engine_kw["phonon_history_out"] = {}
+    direct_stamps: list[float] = []
+    direct = qpsim_tpu_torch.run_2d_crank_nicolson(**engine_kw, progress_callback=stamp_into(direct_stamps))
+    stream_a = load_frame_stream(tmp / "9a_stream")
+    direct_matches_stream("9a", direct, stream_a, dE)
+    steps = sum(s.length for s in segments)
+    print(f"  9a: setup file written and read back in {io_s:.3f} s; run_setup {call_s:.2f} s whole call, "
+          f"steady {steady_ms(stamps, steps):.3f} ms/step (host clock, first to last stored frame, "
+          f"with the shard writes and checkpoint saves) against the direct call's "
+          f"{steady_ms(direct_stamps, steps):.3f} ms/step (no sinks); diagnostics "
+          f"{result.metadata['diagnostics_mode']}; the stream bit-equal to the direct call — {card}", flush=True)
+    for i, ((w_s, w_mb), (c_s, c_mb)) in enumerate(zip(writes, saves)):
+        print(f"  9a stored index {i}: shard write {1e3 * w_s:.1f} ms ({w_mb:.2f} MB), checkpoint save "
+              f"{1e3 * c_s:.1f} ms ({c_mb:.1f} MB) — {card}")
+    sys.stdout.flush()
+    shutil.rmtree(tmp / "9a_ck")
+    rows = [copied_row(rows_before, "collision_step", "run_setup", counts["collision_step"], "4"),
+            copied_row(rows_before, "adi_x_half", "run_setup", counts["adi_x_half"], "4"),
+            copied_row(rows_before, "adi_y_half", "run_setup", counts["adi_y_half"], "4")]
+
+    print("== 9a' full detail on 256², streamed", flush=True)
+    small = flagship_setup(256)
+    with engine_keywords() as kw, timed_calls(FrameStreamWriter, "write", shard_mb) as writes:
+        qpsim_tpu_torch.run_setup(small, save=False, stream_dir=tmp / "9a2_stream")
+    engine_kw = {k: v for k, v in kw.items() if k not in ("checkpointer", "frame_sink")}
+    ph: dict = {}
+    engine_kw["phonon_history_out"] = ph
+    direct = qpsim_tpu_torch.run_2d_crank_nicolson(**engine_kw)
+    r = load_frame_stream(tmp / "9a2_stream")
+    direct_matches_stream("9a'", direct, r, dE)
+    for i in range(r.count):
+        pairs = ((r.energy_frames(i), np.stack(direct[4][i])), (r.phonon_frame(i), ph["phonon_frames"][i]),
+                 (r.phonon_energy_frames(i), np.stack(ph["phonon_energy_frames"][i])))
+        if not all(np.array_equal(a, b, equal_nan=True) for a, b in pairs):
+            raise AssertionError(f"9a': the per-bin frames of stored frame {i} differ from the direct call")
+    print(f"  9a': 256² × 16 full detail streamed, bit-equal to the direct call (frames, 16 energy "
+          f"frames, phonon frames); shards " + ", ".join(f"{mb:.1f} MB in {1e3 * s:.0f} ms" for s, mb in writes)
+          + f" — {card}", flush=True)
+    shutil.rmtree(tmp / "9a2_stream")
+
+    print("== 9b interrupt at 3.1 ns (62 steps, a forced final store) and resume to 5 ns", flush=True)
+    from qpsim_tpu_torch.solver import spectral_runner
+
+    short = with_params(loaded, total_time=3.1)
+    qpsim_tpu_torch.run_setup(short, save=False, snapshot_detail="integrated",
+                              stream_dir=tmp / "9b_stream", checkpoint_dir=tmp / "9b_ck")
+    interrupted = stored_steps(tmp / "9b_ck")
+    if interrupted != [0, 25, 50, 62]:
+        raise AssertionError(f"9b: the interrupted run stored steps {interrupted}")
+    with timed_calls(spectral_runner, "_usable_resume_prefix") as replay:
+        t0 = time.perf_counter()
+        resumed, _ = qpsim_tpu_torch.run_setup(loaded, save=False, snapshot_detail="integrated",
+                                               stream_dir=tmp / "9b_stream", checkpoint_dir=tmp / "9b_ck")
+        resumed_s = time.perf_counter() - t0
+    stream_b = load_frame_stream(tmp / "9b_stream")
+    equal_streams("9b: resumed against 9a", stream_b, stream_a)
+    if resumed.times != result.times or resumed.mass_over_time != result.mass_over_time or \
+            resumed.metadata["energy_qp_total"] != result.metadata["energy_qp_total"] or \
+            resumed.metadata["energy_phonon_total"] != result.metadata["energy_phonon_total"]:
+        raise AssertionError("9b: the resumed result differs from 9a's")
+    after = stored_steps(tmp / "9b_ck")
+    if after != [0, 25, 50, 75, 100]:
+        raise AssertionError(f"9b: after the resume the checkpoints hold steps {after}")
+    print(f"  9b: interrupted run stored steps {interrupted}; the resume replayed 3 indices in "
+          f"{replay[0][0]:.2f} s (restores; index 3, the forced step 62, discarded), whole resumed call "
+          f"{resumed_s:.2f} s against 9a's {call_s:.2f} s; checkpoints now hold steps {after}; times, mass, "
+          f"energy totals and the stream bit-equal to 9a — {card}", flush=True)
+    shutil.rmtree(tmp / "9b_ck")
+    shutil.rmtree(tmp / "9b_stream")
+    shutil.rmtree(tmp / "9a_stream")
+    return rows
+
+
+def phase_setup_ne100(card: str, tmp, rows_before) -> list[dict]:
+    print("== 9c 100 bins through run_setup: 1024² × 100, 40 steps, integrated detail, streamed", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.io.stream import load_frame_stream
+
+    setup = flagship_setup(1024, ne=100, steps=40, store_every=40, name="ne100")
+    stamps: list[float] = []
+    with engine_keywords() as kw:
+        reset_counts()
+        t_light = time.perf_counter()
+        qpsim_tpu_torch.run_setup(setup, save=False, snapshot_detail="integrated",
+                                  stream_dir=tmp / "9c_stream", progress_callback=stamp_into(stamps))
+        counts = read_counts()
+    check_counts("9c run_setup 1024² × 100", counts, coupled_expect(plan_of(setup), "collision_step_blocked"))
+    engine_kw = {k: v for k, v in kw.items()
+                 if k not in ("checkpointer", "frame_sink", "progress_callback", "phonon_history_out")}
+    engine_kw["snapshot_detail"] = "full"
+    full_stamps: list[float] = []
+    t_full = time.perf_counter()
+    full = qpsim_tpu_torch.run_2d_crank_nicolson(**engine_kw, progress_callback=stamp_into(full_stamps))
+    r = load_frame_stream(tmp / "9c_stream")
+    mask = engine_kw["mask"]
+    if r.times != full[0]:
+        raise AssertionError("9c: stored times differ")
+    frame_err = max(scaled_err_np(r.frame(i), full[1][i]) for i in range(r.count))
+    sums_err = max(scaled_err_np(r.energy_bin_sums(i), np.array([np.sum(f[mask]) for f in full[4][i]]))
+                   for i in range(r.count))
+    check("9c integrated frames against the full-detail call (float32)", frame_err, 1e-5)
+    check("9c bin sums against the full-detail call's energy frames (float32)", sums_err, 1e-5)
+    print(f"  9c: call to first stored frame / first to last stored frame (40 steps and the final "
+          f"stored frame): integrated + stream {stamps[0] - t_light:.3f} / {stamps[-1] - stamps[0]:.3f} s; "
+          f"full detail in memory {full_stamps[0] - t_full:.3f} / {full_stamps[-1] - full_stamps[0]:.3f} s "
+          f"— {card}", flush=True)
+    shutil.rmtree(tmp / "9c_stream")
+    return [copied_row(rows_before, "collision_step_blocked", "run_setup", counts["collision_step_blocked"], "4c")]
+
+
+def scaled_err_np(got, ref) -> float:
+    got, ref = np.nan_to_num(np.asarray(got, np.float64)), np.nan_to_num(np.asarray(ref, np.float64))
+    return float(np.max(np.abs(got - ref))) / max(1e-300, float(np.max(np.abs(ref))))
+
+
+def phase_setup_scalar(card: str, tmp, rows_before) -> list[dict]:
+    print("== 9d the scalar setup: bench.py's 1024² film, energy_gap 0, 2000 steps stored every 500, "
+          "streamed, float32", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.fields import default_initial_condition
+    from qpsim_tpu_torch.geometry.mask import extract_edge_segments
+    from qpsim_tpu_torch.io.stream import load_frame_stream
+    from qpsim_tpu_torch.models.params import BoundaryCondition, GeometryData, SetupData, SimulationParameters
+
+    n, steps = 1024, 2000
+    mask = np.ones((n, n), dtype=bool)
+    edges = extract_edge_segments(mask)
+    geo = GeometryData(name="film", source_path="intrinsic", layer=0, mesh_size=1.0,
+                       mask=mask.astype(int).tolist(), edges=edges, bounds=[0.0, 0.0, float(n), float(n)])
+    setup = SetupData(
+        setup_id="scalar001024", name="scalar film 1024²", created_at="2026-01-01T00:00:00+00:00", geometry=geo,
+        boundary_conditions={e.edge_id: BoundaryCondition(kind="reflective") for e in edges},
+        parameters=SimulationParameters(diffusion_coefficient=6.0, dt=0.1, total_time=0.1 * steps,
+                                        mesh_size=1.0, store_every=500, energy_gap=0.0),
+        initial_condition=default_initial_condition())
+    from qpsim_tpu_torch.io.stream import FrameStreamWriter
+
+    stamps: list[float] = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_calls(FrameStreamWriter, "write", shard_mb) as writes:
+        result, saved = qpsim_tpu_torch.run_setup(setup, save_path=tmp / "scalar.json", stream_dir=tmp / "9d_stream",
+                                                  progress_callback=stamp_into(stamps))
+    counts = read_counts()
+    check_counts("9d scalar run_setup 1024²", counts,
+                 {"adi_sep_x": steps, "adi_sep_y": steps, "adi_x_half": 0, "adi_y_half": 0, "thomas": 0})
+    back = qpsim_tpu_torch.load_simulation(saved)
+    r = load_frame_stream(tmp / "9d_stream")
+    if back.mass_over_time != result.mass_over_time or r.mass_over_time != result.mass_over_time:
+        raise AssertionError("9d: the saved result or the stream lost the mass history")
+    if r.times != result.times or len(r.times) != 1 + sum(s.stored for s in plan_of(setup)):
+        raise AssertionError(f"9d: stored times {r.times}")
+    check_frames([r.frame(i) for i in range(r.count)], mask)
+    mass = result.mass_over_time
+    drift = max(abs(m - mass[0]) for m in mass) / mass[0]
+    bound_ = steps * float(np.finfo(np.float32).eps)
+    print(f"  9d: mass {mass}; max relative drift {drift:.3e} (bound {bound_:.1e}); call to first frame "
+          f"{stamps[0] - t0:.3f} s, steady {1e3 * steady_ms(stamps, steps):.2f} µs/step = "
+          f"{n * n / (steady_ms(stamps, steps) * 1e-3):.4e} cell-steps/s (with the stored frames); shard "
+          f"writes " + ", ".join(f"{1e3 * s:.0f} ms ({mb:.2f} MB)" for s, mb in writes) + f" — {card}", flush=True)
+    if drift > bound_:
+        raise AssertionError(f"9d: mass drift {drift:.3e} > {bound_:.1e}")
+    shutil.rmtree(tmp / "9d_stream")
+    return [copied_row(rows_before, name, "run_setup", counts[name], "6") for name in ("adi_sep_x", "adi_sep_y")]
+
+
+def phase_setup_sweep(card: str, tmp) -> None:
+    print("== 9e a sweep: bath_temperature 0.1, 0.2 × dynes_gamma 0, 1e-4 on 256² × 16, 20 steps", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.sweep import build_variants, run_sweep
+
+    setup = flagship_setup(256, steps=20, store_every=20, name="sweep")
+    axes = [("bath_temperature", [0.1, 0.2]), ("dynes_gamma", [0.0, 1e-4])]
+    t0 = time.perf_counter()
+    summary = run_sweep(setup, axes, out_dir=tmp / "9e_sweep", device="cuda")
+    sweep_s = time.perf_counter() - t0
+    if summary["n_variants"] != 4 or summary["n_failed"]:
+        raise AssertionError(f"9e: {summary['n_failed']} of {summary['n_variants']} variants failed")
+    for i, (record, (overrides, variant)) in enumerate(zip(summary["variants"], build_variants(setup, axes))):
+        # streamed, so no frame is converted for JSON: the mass history is the same bits
+        alone, _ = qpsim_tpu_torch.run_setup(variant, save=False, stream_dir=tmp / f"9e_alone_{i}")
+        if record["overrides"] != overrides or record["mass_final"] != alone.mass_over_time[-1]:
+            raise AssertionError(f"9e: variant {overrides} differs from a lone run_setup call")
+    t0 = time.perf_counter()
+    again = run_sweep(setup, axes, out_dir=tmp / "9e_sweep", device="cuda", resume=True)
+    resume_s = time.perf_counter() - t0
+    if not all(r.get("resumed") for r in again["variants"]):
+        raise AssertionError("9e: resume=True re-ran a finished variant")
+    finals = ", ".join(f"{r['mass_final']:.6e}" for r in summary["variants"])
+    print(f"  9e: 4 variants in {sweep_s:.2f} s, each final mass bit-equal to a lone run_setup call "
+          f"({finals}); resume=True re-ran none, {resume_s:.2f} s — {card}", flush=True)
+    shutil.rmtree(tmp / "9e_sweep")
+
+
+#: the analytic suite's accuracy gates (``tests/test_testcases.py``): per group, the
+#: tolerance of each case in order (a single value for all); the donut's on its frame
+#: at t = 1 ns, the horizon that test gates (the polygon's eigenvalue differs from the
+#: continuum annulus's by a few %, so the error grows with t: 0.30 at the default 8 ns)
+SUITE_GATES = {"strip_1d_effective": 2e-2, "polygon_donut": 0.2, "recombination": (0.3, 1e-4, 0.3),
+               "scattering": (0.05, 1e-3)}
+
+
+def suite_errors(suite) -> dict:
+    """Each gated case's scaled error (and the recombination cases' early-time error),
+    raising where one exceeds its gate."""
+    groups = {g.geometry_id: g for g in suite.geometry_groups}
+    if list(groups) != ["strip_1d_effective", "rectangle_2d", "polygon_donut", "recombination", "scattering"] \
+            or sum(len(g.cases) for g in groups.values()) != 28:
+        raise AssertionError("the suite must hold 28 cases in its 5 groups")
+    worst = {}
+    for gid, gate in SUITE_GATES.items():
+        cases = groups[gid].cases
+        tols = gate if isinstance(gate, tuple) else (gate,) * len(cases)
+        for case, tol in zip(cases, tols):
+            sim, ana = case.simulated, case.analytic
+            if gid == "polygon_donut":
+                at = int(np.argmin(np.abs(np.asarray(case.times) - 1.0)))
+                sim, ana = [sim[at]], [ana[at]]
+            sim = np.array([[np.nan if v is None else v for v in np.ravel(np.asarray(x, dtype=object))]
+                            for x in sim], dtype=np.float64)
+            ana = np.array([[np.nan if v is None else v for v in np.ravel(np.asarray(x, dtype=object))]
+                            for x in ana], dtype=np.float64)
+            m = np.isfinite(ana)
+            scale = max(1e-12, float(np.max(np.abs(ana[m]))))
+            err = float(np.max(np.abs(sim[m] - ana[m]))) / scale
+            if not err < tol:
+                raise AssertionError(f"{case.case_id}: scaled error {err:.3e} ≥ {tol:g}")
+            worst[case.case_id] = err
+            if gid == "recombination":
+                k = max(2, sim.shape[1] // 20)
+                early = float(np.max(np.abs(sim[0, :k] - ana[0, :k]))) / scale
+                if not early < 0.02:
+                    raise AssertionError(f"{case.case_id}: early-time error {early:.3e} ≥ 0.02")
+    return worst
+
+
+def phase_setup_suite(card: str, tmp, validation_bins: dict) -> list[dict]:
+    print("== 9f generate_test_suite() at its defaults on the card, float64 and float32", flush=True)
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.io.storage import load_test_suite, save_test_suite
+
+    by_bins = {}
+    for dtype in (F64, F32):
+        reset_counts()
+        with launches_by_bins() as seen:
+            t0 = time.perf_counter()
+            suite = qpsim_tpu_torch.generate_test_suite(dtype=dtype)
+            elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        k3 = {f"{name} {ne} bins": n for (name, ne), n in sorted(seen.items(), key=lambda kv: kv[0][1])}
+        expect = {("collision_step", 1): 5000, ("collision_step", 10): 2000, ("collision_step", 15): 4000}
+        if seen != expect or counts["collision_step"] != 11000 or counts["collision_step_with_gen"]:
+            raise AssertionError(f"9f: K3 launches by bins {seen}, expected {expect}")
+        check_counts(f"9f suite {str(dtype)[6:]}: no K1/K2 (every film ≤ 4096 cells runs the dense "
+                     f"backend, as the JAX package's 'auto' picks)", counts,
+                     {"adi_sep_x": 0, "adi_sep_y": 0, "adi_x_half": 0, "adi_y_half": 0})
+        worst = suite_errors(suite)
+        path = save_test_suite(suite, tmp / f"suite_{str(dtype)[6:]}.json")
+        if len(load_test_suite(path).cases) != 28:
+            raise AssertionError("9f: the saved suite does not load 28 cases")
+        print(f"  9f {str(dtype)[6:]}: 28 cases in {elapsed:.2f} s; K3 launches {k3}; worst gated errors "
+              + ", ".join(f"{cid} {err:.2e}" for cid, err in worst.items())
+              + f"; saved and loaded back — {card}", flush=True)
+        by_bins = {ne: n for (_, ne), n in seen.items()}
+    # K3 on the suite's 1 × 1 cell at its bin counts, beside its plain version
+    rows = []
+    for ne, emax in ((1, 1.5), (10, 3.0), (15, 3.0)):
+        rows.append(small_k3_row(f"collision_step_suite_cell_ne{ne}", ne, 1, emax, by_bins[ne], card))
+    # and at 24 bins on the validation suite's 1 × 16 strip (the column walk), its launches phase 8c's
+    rows.append(small_k3_row("collision_step_validation_strip_ne24", 24, (1, 16), 4.0,
+                             validation_bins[("collision_step", 24)], card))
+    return rows
+
+
+def small_k3_row(name, ne, n, emax, launches, card) -> dict:
+    """A kernels-line row of K3 on a small grid (``n`` an int or (ny, nx)): a launch's
+    time on the card is its overhead; events over 200 calls."""
+    kern, plain, plan, tensors, q, ph, gen = collision_setup(ne, n, F32, emax=emax)
+    ref = plain(q, ph, 0.05, None)
+    got = kern(q, ph, 0.05, None)
+    torch.cuda.synchronize()
+    check(f"{name} float32 gen=False, q", scaled_err(got[0], ref[0]), TOL[("collision_step", F32)])
+    check(f"{name} float32 gen=False, ph", scaled_err(got[1], ref[1]), TOL[("collision_step", F32)])
+    row = dict(name=name, route="cuda", source="qpsim_tpu_torch/csrc/collisions.cu",
+               replaces="qpsim_tpu/ops/pallas_collisions.py:169", launches=launches,
+               max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
+               ms=time_ms(lambda: kern(q, ph, 0.05, None), 200),
+               plain_ms=time_ms(lambda: plain(q, ph, 0.05, None), 20),
+               **bound(*collision_work(plan, q, ph, None, tensors), F32), library_ms=None)
+    shape = f"{n}×{n}" if isinstance(n, int) else f"{n[0]}×{n[1]}"
+    print(f"  {name}: {ne} bins on {shape}, kernel {1e3 * row['ms']:.2f} µs, plain {1e3 * row['plain_ms']:.1f} µs, "
+          f"bound {1e3 * row['bound_ms']:.4f} µs ({row['bound_by']}), {launches} launches — {card}", flush=True)
+    return row
+
+
+def phase_setup_runner(card: str, rows_before: list[dict], validation_bins: dict) -> list[dict]:
+    """Phase 9: a setup file through ``run_setup``, streamed and resumed, a sweep and the
+    analytic suite, in a temporary directory deleted at the end."""
+    import tempfile
+    from pathlib import Path
+
+    tmp = Path(tempfile.mkdtemp(prefix="qpsim_smoke9_"))
+    rows = []
+    try:
+        for fn in (phase_setup_flagship, phase_setup_ne100, phase_setup_scalar):
+            rows += timed_phase(fn, card, tmp, rows_before)
+        timed_phase(phase_setup_sweep, card, tmp)
+        rows += timed_phase(phase_setup_suite, card, tmp, validation_bins)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("  phase 9 launches (the kernels line's *_run_setup and *_suite_cell rows): "
+          + ", ".join(f"{r['name']} {r['launches']}" for r in rows), flush=True)
+    return rows
 
 
 def timed_phase(fn, *args):
@@ -2006,7 +2564,8 @@ def main() -> int:
     rows += timed_phase(phase_other_diffusion_paths, card)
     rows += timed_phase(phase_photon_film, card)
     timed_phase(phase_photon_film_f64)
-    timed_phase(phase_validation, card)
+    validation_bins = timed_phase(phase_validation, card)
+    rows += timed_phase(phase_setup_runner, card, rows, validation_bins)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

@@ -7,11 +7,26 @@ The JAX package ``qpsim_tpu`` stays beside it as the reference; this
 package imports neither it nor JAX.
 
 Public entry points: :func:`run_2d_crank_nicolson` (energy-resolved and
-scalar branches) and :func:`run_fast_validation_suite` (the physics
-gates, ``device="cuda"`` by default).
+scalar branches), :func:`run_setup` (a setup file's run, streamed,
+checkpointed and saved), :func:`generate_test_suite` (the 28 analytic
+cases), :func:`run_fast_validation_suite` (the physics gates), and the
+file helpers :func:`load_setup`, :func:`save_setup` and
+:func:`load_simulation` — all on ``device="cuda"`` by default.
 """
 
-from .validation import ValidationReport, run_fast_validation_suite
+from .io.storage import load_setup, load_simulation, save_setup
+from .runner import run_setup
 from .solver.engine import run_2d_crank_nicolson
+from .testcases.generator import generate_test_suite
+from .validation import ValidationReport, run_fast_validation_suite
 
-__all__ = ["ValidationReport", "run_fast_validation_suite", "run_2d_crank_nicolson"]
+__all__ = [
+    "ValidationReport",
+    "generate_test_suite",
+    "load_setup",
+    "load_simulation",
+    "run_2d_crank_nicolson",
+    "run_fast_validation_suite",
+    "run_setup",
+    "save_setup",
+]

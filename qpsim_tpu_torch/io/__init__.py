@@ -1,1 +1,1 @@
-"""Host-side input/output: the precompute payload of gap maps."""
+"""Host-side input/output: files, frame streams, checkpoints and precompute payloads."""

@@ -138,6 +138,14 @@ def run_2d_crank_nicolson(
     * ``strang_mode`` — 'auto' ('merged', or 'exact' under a host-evaluated
       custom generation expression), 'exact' or 'merged'.
     * ``snapshot_detail`` — 'full' or 'integrated' (reduced on the device).
+    * ``checkpointer`` — a :class:`qpsim_tpu_torch.io.checkpoint.SimulationCheckpointer`
+      (or any object with its methods): every stored snapshot becomes a
+      resume point, and a rerun into the same checkpoints replays them and
+      continues, bit-identical to an uninterrupted run.
+    * ``frame_sink`` — an object with ``FrameStreamWriter.write``'s
+      signature (:mod:`qpsim_tpu_torch.io.stream`): stored snapshots are
+      streamed to it and not kept; the returned frames are then empty, the
+      energy frames None and the color limits the running ones.
 
     ``mesh_y_solve`` is accepted for signature compatibility and unused.
     The scalar branch ignores the collision, generation and Strang options,
@@ -160,10 +168,6 @@ def run_2d_crank_nicolson(
     # features outside this slice of the port fail loudly
     if mesh is not None:
         raise _deferred("mesh= (spatial sharding)", "queue 1, 'Sharding'")
-    if checkpointer is not None:
-        raise _deferred("checkpointer=", "queue 1, 'I/O'")
-    if frame_sink is not None:
-        raise _deferred("frame_sink=", "queue 1, 'I/O'")
 
     dev = _resolve_device(device)
     if dtype is None:
@@ -208,6 +212,8 @@ def run_2d_crank_nicolson(
                 diffusion_backend=diffusion_backend,
                 device=dev,
                 dtype=dtype,
+                checkpointer=checkpointer,
+                frame_sink=frame_sink,
             )
     with torch.inference_mode():
         return _run_energy_resolved(
@@ -253,4 +259,6 @@ def run_2d_crank_nicolson(
             collision_backend=collision_backend,
             strang_mode=strang_mode,
             snapshot_detail=snapshot_detail,
+            checkpointer=checkpointer,
+            frame_sink=frame_sink,
         )

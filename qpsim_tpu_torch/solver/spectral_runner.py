@@ -16,6 +16,11 @@ it is the JAX package's host state bit for bit); an ``initial_condition_spec``
 is evaluated on the host in float64 (``fields``), as in the JAX package, and
 copied over once.  The first stored frame is read back from the device
 state.
+
+With a ``checkpointer`` every stored snapshot's full state is saved (in
+light mode too: it is the resume data), and a rerun replays the aligned
+prefix of the checkpoints and skips the segments they cover; with a
+``frame_sink`` each stored snapshot is streamed instead of kept.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from ..ops.generation import evaluate_generation_host
 from .pauli import PauliEnforcer
 from .phonon_history import reconstruct_field
 from .program_build import build_engine_program
-from .stepping import _color_limits, _notify
+from .stepping import _color_limits, _limits_from_running, _notify, _usable_resume_prefix
 
 __all__ = ["_run_energy_resolved"]
 
@@ -113,6 +118,8 @@ def _run_energy_resolved(
     collision_backend="auto",
     strang_mode="exact",
     snapshot_detail="full",
+    checkpointer=None,
+    frame_sink=None,
 ):
     gap = float(energy_gap)
     ny, nx = mask.shape
@@ -254,33 +261,50 @@ def _run_energy_resolved(
     frames: list[np.ndarray] = []
     energy_frames: list[list[np.ndarray]] = []
     mass: list[float] = []
+    running_limits = [float("inf"), float("-inf")]  # streaming-mode color limits
+
+    def keep_or_stream(t: float, frame: np.ndarray, m: float, **extra) -> None:
+        """Record one stored snapshot: stream it to the sink or keep it, never both."""
+        idx = len(times)
+        times.append(float(t))
+        mass.append(m)
+        if frame_sink is not None:
+            running_limits[0] = min(running_limits[0], float(np.nanmin(frame)))
+            running_limits[1] = max(running_limits[1], float(np.nanmax(frame)))
+            frame_sink.write(idx, float(t), frame=frame, mass=m, **extra)
+            return
+        frames.append(frame)
+        if extra.get("energy_frames") is not None:
+            energy_frames.append(extra["energy_frames"])
+        if extra.get("phonon_frame") is not None:
+            phonon_frames_hist.append(extra["phonon_frame"])
+        if extra.get("phonon_energy_frames") is not None:
+            phonon_energy_frames_hist.append(extra["phonon_energy_frames"])
 
     def emit(t: float, q_host: np.ndarray, ph_host: np.ndarray | None) -> np.ndarray:
-        """One stored snapshot from the full host state."""
+        """One stored snapshot from the full host state (float64)."""
         interior = q_host[:, mask]
         integrated = np.sum(interior, axis=0) * dE
         frame = reconstruct_field(mask, integrated)
-        times.append(float(t))
-        mass.append(float(np.sum(integrated) * dx * dx))
-        frames.append(frame)
-        energy_frames.append([reconstruct_field(mask, interior[i]) for i in range(num_energy_bins)])
+        ph_frame = ph_eframes = None
         if record_phonons and ph_host is not None:
             ph_interior = ph_host[:, mask]
-            phonon_frames_hist.append(
-                reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
-            )
-            phonon_energy_frames_hist.append(
-                [reconstruct_field(mask, ph_interior[i]) for i in range(nw)]
-            )
+            ph_frame = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
+            ph_eframes = [reconstruct_field(mask, ph_interior[i]) for i in range(nw)]
+        keep_or_stream(
+            t, frame, float(np.sum(integrated) * dx * dx),
+            energy_frames=[reconstruct_field(mask, interior[i]) for i in range(num_energy_bins)],
+            phonon_frame=ph_frame, phonon_energy_frames=ph_eframes,
+        )
         return frame
 
     # light ("integrated") snapshots: the stored observables are reduced ON
     # DEVICE and only the reductions cross to the host — the integrated 2D
     # frame (already ×dE), per-bin pixel sums and, when recorded, the
-    # width-weighted phonon occupation frame
+    # width-weighted phonon occupation frame and per-ω pixel sums
     light = snapshot_detail == "integrated"
     if light:
-        mask_d = torch.as_tensor(mask, dtype=dtype, device=device)
+        mask_f = torch.as_tensor(mask, dtype=dtype, device=device)
         phw_d = (
             torch.as_tensor(phonon_widths, dtype=dtype, device=device)[:, None, None]
             if record_phonons
@@ -288,54 +312,108 @@ def _run_energy_resolved(
         )
 
     def light_reduce(q_dev: torch.Tensor, ph_dev: torch.Tensor) -> list[torch.Tensor | None]:
-        qm = q_dev * mask_d  # anything outside the mask must not leak in
-        out = [qm.sum(dim=0) * dE, qm.sum(dim=(1, 2)), None]
+        # the sums run over a contiguous copy: their order then does not
+        # depend on the layout a step left the state in, so a state restored
+        # from a checkpoint reduces to the same bits
+        qm = q_dev.contiguous() * mask_f  # anything outside the mask must not leak in
+        out = [qm.sum(dim=0) * dE, qm.sum(dim=(1, 2)), None, None]
         if phw_d is not None:
-            out[2] = (ph_dev * mask_d * phw_d).sum(dim=0)
+            phm = ph_dev.contiguous() * mask_f
+            out[2] = (phm * phw_d).sum(dim=0)
+            out[3] = phm.sum(dim=(1, 2))
         return out
 
-    def emit_light(t: float, integrated, bin_sums, ph_int) -> np.ndarray:
+    def light_on_host(q_host: np.ndarray, ph_host: np.ndarray | None) -> list:
+        """The light reductions of a float64 host state (the first frame's form)."""
+        interior = q_host[:, mask]
+        out = [reconstruct_field(mask, np.sum(interior, axis=0) * dE), np.sum(interior, axis=1), None, None]
+        if record_phonons and ph_host is not None:
+            ph_interior = ph_host[:, mask]
+            out[2] = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
+            out[3] = np.sum(ph_interior, axis=1)
+        return out
+
+    def emit_light(t: float, integrated, bin_sums, ph_int, ph_bin_sums) -> np.ndarray:
         frame = np.where(mask, np.asarray(integrated, dtype=np.float64), np.nan)
-        times.append(float(t))
-        mass.append(float(np.sum(np.asarray(bin_sums, dtype=np.float64)) * dE * dx * dx))
-        frames.append(frame)
-        if ph_int is not None:
-            phonon_frames_hist.append(np.where(mask, np.asarray(ph_int, dtype=np.float64), np.nan))
+        bin_sums = np.asarray(bin_sums, dtype=np.float64)
+        keep_or_stream(
+            t, frame, float(np.sum(bin_sums) * dE * dx * dx),
+            phonon_frame=(
+                None if ph_int is None else np.where(mask, np.asarray(ph_int, dtype=np.float64), np.nan)
+            ),
+            energy_bin_sums=bin_sums,
+            phonon_bin_sums=None if ph_bin_sums is None else np.asarray(ph_bin_sums, dtype=np.float64),
+        )
         return frame
 
     def start_copy(q_dev, ph_dev) -> _HostCopy:
+        # the full state IS the resume data: light mode saves the snapshot
+        # traffic, not the checkpoint traffic
         if light:
-            return _HostCopy(*light_reduce(q_dev, ph_dev))
-        return _HostCopy(q_dev, ph_dev if record_phonons else None)
+            full = [q_dev, ph_dev] if checkpointer is not None else []
+            return _HostCopy(*light_reduce(q_dev, ph_dev), *full)
+        keep_ph = record_phonons or checkpointer is not None
+        return _HostCopy(q_dev, ph_dev if keep_ph else None)
 
-    def store(t: float, copy: _HostCopy) -> None:
+    def as_f64(h: np.ndarray | None) -> np.ndarray | None:
+        return None if h is None else h.astype(np.float64)
+
+    stored_idx = 0
+
+    def store(t: float, step: int, copy: _HostCopy) -> None:
+        nonlocal stored_idx
+        stored_idx += 1
         host = copy.get()
         if light:
-            frame = emit_light(t, *host)
+            frame = emit_light(t, *host[:4])
+            state = host[4:]
         else:
-            q_host, ph_host = (None if h is None else h.astype(np.float64) for h in host)
-            frame = emit(t, q_host, ph_host)
+            frame = emit(t, as_f64(host[0]), as_f64(host[1]) if record_phonons else None)
+            state = host
         _notify(progress_callback, t, frame)
+        if checkpointer is not None:
+            checkpointer.save_step(stored_idx, step=step, time_ns=float(t), q=state[0], ph=state[1])
 
-    # the first frame is read from the device state; in either detail it is
-    # reduced on the host in float64, as the JAX package reduces its host state
-    if light:
-        q_host, ph_host = (
-            None if h is None else h.astype(np.float64)
-            for h in _HostCopy(q, ph if record_phonons else None).get()
-        )
-        interior = q_host[:, mask]
-        frame0 = emit_light(
-            0.0,
-            reconstruct_field(mask, np.sum(interior, axis=0) * dE),
-            np.sum(interior, axis=1),
-            reconstruct_field(mask, np.sum(ph_host[:, mask] * phonon_widths[:, None], axis=0))
-            if record_phonons
-            else None,
-        )
-        _notify(progress_callback, 0.0, frame0)
+    current_time = 0.0
+    step_counter = 0
+    completed_steps = 0
+    replay = _usable_resume_prefix(checkpointer, segments) if checkpointer is not None else []
+    if replay:
+        # rebuild the stored history from the checkpoints and continue from
+        # the last aligned one — results match an uninterrupted run exactly:
+        # each snapshot is reduced where the run reduced it (the first on the
+        # host in float64, a light one's later ones on the device)
+        for payload in replay:
+            t = payload["time_ns"]
+            q_r, ph_r = payload["q"], payload.get("ph")
+            if light and payload["stored_idx"] > 0:
+                on_device = (None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+                             for a in (q_r, ph_r))
+                emit_light(t, *_HostCopy(*light_reduce(*on_device)).get())
+            elif light:
+                emit_light(t, *light_on_host(as_f64(q_r), as_f64(ph_r)))
+            else:
+                emit(t, as_f64(q_r), as_f64(ph_r) if record_phonons else None)
+        resume = replay[-1]
+        q = torch.as_tensor(resume["q"], dtype=dtype, device=device).clone()
+        if "ph" in resume:
+            ph = torch.as_tensor(resume["ph"], dtype=dtype, device=device).clone()
+        completed_steps = step_counter = resume["step"]
+        current_time = resume["time_ns"]
+        # stored_idx advances through the skipped segments below, reaching
+        # resume["stored_idx"] exactly when the replay is complete
     else:
-        store(0.0, start_copy(q, ph))
+        # the first frame is read from the device state; in either detail it
+        # is reduced on the host in float64, as the JAX package reduces its
+        # host state
+        q0, ph0 = _HostCopy(q, ph if (record_phonons or checkpointer is not None) else None).get()
+        if light:
+            frame0 = emit_light(0.0, *light_on_host(as_f64(q0), as_f64(ph0)))
+        else:
+            frame0 = emit(0.0, as_f64(q0), as_f64(ph0) if record_phonons else None)
+        _notify(progress_callback, 0.0, frame0)
+        if checkpointer is not None:
+            checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
 
     # --- main loop --------------------------------------------------------------
     gen_mode = external_generation.normalized_mode() if external_generation else "none"
@@ -359,12 +437,15 @@ def _run_energy_resolved(
                 )
             enforcer.check_row(p["step_start"] + i + 1, t, stats_np[i])
         if p["snapshot"] is not None:
-            store(t, p["snapshot"])
+            store(t, p["step_start"] + p["seg"].length, p["snapshot"])
 
-    current_time = 0.0
-    step_counter = 0
     pending = None
+    cumulative = 0
     for seg in segments:
+        cumulative += seg.length
+        if cumulative <= completed_steps:  # replayed from the checkpoints
+            stored_idx += int(seg.stored)
+            continue
         if prog.host_gen:
             # host-evaluated generation needs the host between every step —
             # inherently sequential, no pipelining
@@ -382,7 +463,7 @@ def _run_energy_resolved(
                 current_time += seg.dt
                 enforcer.check_row(step_counter, current_time, stats.cpu().numpy())
             if seg.stored:
-                store(current_time, start_copy(q, ph))
+                store(current_time, step_counter, start_copy(q, ph))
             continue
         q, ph, stats, flags = prog.segment_runner(seg.dt, seg.length)(q, ph, current_time)
         new_pending = {
@@ -401,6 +482,8 @@ def _run_energy_resolved(
         pending = new_pending
     if pending is not None:
         drain(pending)
+    if checkpointer is not None:
+        checkpointer.finalize()
 
     if phonon_history_out is not None:
         phonon_history_out.clear()
@@ -413,8 +496,11 @@ def _run_energy_resolved(
                     "mode": "dynamic_local_coupled",
                     "field_units": "integrated_occupation",
                     "energy_frame_units": "occupation",
+                    **({"streamed": True} if frame_sink is not None else {}),
                     **({"detail": "integrated"} if light else {}),
                 },
             }
         )
+    if frame_sink is not None:
+        return times, [], mass, _limits_from_running(running_limits), None, E_bins
     return times, frames, mass, _color_limits(frames), (None if light else energy_frames), E_bins

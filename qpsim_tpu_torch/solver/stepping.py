@@ -13,30 +13,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..io.stream import widen_color_limits
+
 __all__ = [
     "default_dtype",
-    "widen_color_limits",
     "_split_time",
     "_Segment",
     "_plan_segments",
     "_notify",
     "_color_limits",
+    "_limits_from_running",
+    "_usable_resume_prefix",
 ]
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
     """float32 on the card, float64 on the CPU (where the parity tests run)."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
-
-
-def widen_color_limits(vmin: float, vmax: float) -> list[float]:
-    """[vmin, vmax] with degenerate (constant-field) ranges nudged open.
-
-    Copied from ``qpsim_tpu.io.stream`` (the viewer color-limit contract).
-    """
-    if abs(vmax - vmin) < 1e-12:
-        vmax = vmin + 1e-9
-    return [float(vmin), float(vmax)]
 
 
 def _split_time(total_time: float, dt: float) -> tuple[int, float, int]:
@@ -80,3 +73,43 @@ def _color_limits(frames: list[np.ndarray]) -> list[float]:
     return widen_color_limits(
         float(np.nanmin(np.stack(frames))), float(np.nanmax(np.stack(frames)))
     )
+
+
+def _limits_from_running(limits: list[float]) -> list[float]:
+    """Color limits from a streaming-mode running [vmin, vmax] pair."""
+    return widen_color_limits(limits[0], limits[1])
+
+
+def _usable_resume_prefix(checkpointer, segments) -> list[dict]:
+    """Checkpoints this run's segment plan can replay: the aligned prefix.
+
+    A run interrupted at a horizon that is not a store_every multiple wrote
+    a forced final-step snapshot (the always-store-the-final-step contract)
+    at a step the longer-horizon resume would never store.  Replaying it
+    would desynchronize the segment skip logic — snapshots land off their
+    boundaries and part of a segment is integrated twice.  Only the prefix
+    whose steps match this plan's stored boundaries is usable; everything
+    past it is discarded (and recomputed by the continuing run).
+    """
+    steps = checkpointer.all_steps()
+    if not steps:
+        return []
+    boundaries = [0]
+    cum = 0
+    for seg in segments:
+        cum += seg.length
+        if seg.stored:
+            boundaries.append(cum)
+    # restore lazily, stopping at the first misalignment: checkpoints past
+    # the break (possibly dozens of full device states) are discarded
+    # without ever being read
+    usable: list[dict] = []
+    for i, s in enumerate(steps):
+        if s != i or i >= len(boundaries):
+            break
+        payload = checkpointer.restore(s)
+        if payload["step"] != boundaries[i]:
+            break
+        usable.append(payload)
+    checkpointer.discard_from(len(usable))
+    return usable

@@ -199,19 +199,37 @@ def test_pauli_violation_mid_run_reports_the_same_step():
     assert "step=0," not in msg_b
 
 
-_DEFERRED = [
-    dict(mesh=object()),
-    dict(checkpointer=object()),
-    dict(frame_sink=object()),
-]
+_DEFERRED = ["mesh", "checkpointer", "frame_sink"]
 
 
-@pytest.mark.parametrize("extra", _DEFERRED, ids=["mesh", "checkpointer", "frame_sink"])
-def test_deferred_features_raise(extra):
+@pytest.mark.parametrize("feature", _DEFERRED)
+def test_deferred_features_raise(feature, tmp_path):
+    """``mesh=`` is still deferred and raises, also beside the I/O keywords;
+    ``checkpointer=`` and ``frame_sink=`` are ported: they run, and change
+    nothing of the run's result but where its frames go."""
+    from qpsim_tpu_torch.io.checkpoint import SimulationCheckpointer
+    from qpsim_tpu_torch.io.stream import FrameStreamWriter, load_frame_stream
+
     kw = _pauli_kwargs(initial_field=np.full((1, 4), 1e-5))
-    kw.update(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.run_2d_crank_nicolson(**kw, device="cpu")
+    io_kw = {"checkpointer": SimulationCheckpointer(tmp_path / "ck"),
+             "frame_sink": FrameStreamWriter(tmp_path / "s")}
+    if feature == "mesh":
+        for extra in ({}, io_kw):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                T.run_2d_crank_nicolson(**kw, mesh=object(), **extra, device="cpu")
+        return
+    plain = T.run_2d_crank_nicolson(**kw, device="cpu")
+    out = T.run_2d_crank_nicolson(**kw, **{feature: io_kw[feature]}, device="cpu")
+    assert out[0] == plain[0] and out[2] == plain[2] and out[3] == plain[3]
+    if feature == "checkpointer":
+        _assert_runs_match(out, plain)
+        assert io_kw["checkpointer"].all_steps() == list(range(len(plain[0])))
+    else:
+        assert out[1] == [] and out[4] is None
+        io_kw["frame_sink"].finalize()
+        stream = load_frame_stream(tmp_path / "s")
+        for i, frame in enumerate(plain[1]):
+            np.testing.assert_array_equal(stream.frame(i), frame)
 
 
 def test_no_quiet_cpu_and_no_kernel_on_cpu():
