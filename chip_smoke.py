@@ -120,10 +120,34 @@ a non-zero exit:
    (K3 launches by bin count; its films are ≤ 4096 cells, so no K1/K2),
    saved and loaded back, then K3 timed on the suite's 1 × 1 cell at 1,
    10 and 15 bins and on the validation suite's 1 × 16 strip at 24;
-10. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
+10. the slice of observables, the qubit model, differentiable simulation
+   and film ensembles: (10a) ``make_differentiable_sim`` on a 64² film ×
+   16 bins, 400 steps, ``remat_chunk=20``, float64, with the total,
+   spatial, phonon-spectrum and MKID observables and the gradient with
+   respect to D0, τ_s, τ_r and Δ — K10 launches forward and backward
+   exactly as predicted, value and gradient (by ``torch.autograd.grad``,
+   the MKID traces in the loss) held to the same 400-step call with
+   ``ThomasSolve`` on its plain solve (1e-10 scaled), d/dτ_r to a central
+   difference, the same call's observables in float32 to the float32 tier
+   (its gradient at 40 steps), the three remat modes' K10
+   launches and peak memory at 40 steps; (10b) ``fit_parameters`` on
+   the 1 × 64 wire (card against CPU) and ``fit_ensemble`` with 32
+   members in one batch (one K10 launch per half-step for all of them);
+   (10c) ``build_film_ensemble`` with 32 members of 64² × 8 bins, 200
+   steps in float32, uniform (K3), per-member gaps (K4), per-member τ
+   (K5's column walk with 32 int32 member ids), 8 members' τ (K3 with gap
+   ids) and per-member pulse windows with the photon drive at per-member
+   n̄ — exact launch counts, ms/step over a window with no host work,
+   members against solo runs, separator rows exactly 0, and float64
+   against the plain path; (10d) ``temperature_sweep`` over 50
+   temperatures on the card against the CPU and ``mkid_response_trace``
+   on phase 4's stored frames; (10e) ``"auto"`` launching K10 on CUDA
+   tensors and a kernel wrapper refusing an input that requires grad;
+11. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
    times at the same shapes from phases 4, 4c and 6 of this run, with
-   phase 9's launches, and the small-cell K3 rows), the card line, and a
-   last JSON line ``{"ok": true, "device": {...}}``.
+   phase 9's launches, and the small-cell K3 rows; phase 10's K10, K3,
+   K3-gid, K4 and column-walk rows at the slice's shapes), the card
+   line, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
 compared arrays.  Kernel timings use CUDA events after a warm-up; K1's and
@@ -1037,7 +1061,8 @@ def coupled_expect(segments, collision: str) -> dict:
     expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
     expect[f"{collision}_with_gen"] = steps
     return expect | {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0,
-                     "thomas": 0, "thomas_cols": 0, "thomas_relayout": 0} | {k: 0 for k in EXPLICIT_COUNTERS}
+                     "thomas": 0, "thomas_cols": 0, "thomas_relayout": 0, "thomas_backward": 0} | {
+                         k: 0 for k in EXPLICIT_COUNTERS}
 
 
 #: the counters of the explicit entry points (K8, K9, K7), which no path of
@@ -1046,9 +1071,11 @@ EXPLICIT_COUNTERS = ("collision_step_loop", "collision_step_loop_gid", "collisio
                      "adi_lines")
 
 
-def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, calls: int = 3) -> dict:
+def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, calls: int = 3,
+                      keep: dict | None = None) -> dict:
     """``calls`` timed calls of a coupled configuration with exact launch
-    counts and the physics checks; returns the launch counts of the first."""
+    counts and the physics checks; returns the launch counts of the first
+    (and puts its stored energy frames and bins into ``keep``)."""
     from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
 
     full, rem, _ = _split_time(kw["total_time"], kw["dt"])
@@ -1057,8 +1084,10 @@ def run_coupled_timed(label: str, kw: dict, expect_collision: str, card: str, ca
     expect = coupled_expect(segments, expect_collision)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    (times, frames, mass, clim, ef, _), first = timed_run(kw, steps)
+    (times, frames, mass, clim, ef, e_bins), first = timed_run(kw, steps)
     counts = read_counts()
+    if keep is not None:
+        keep.update(energy_frames=ef, E_bins=e_bins, times=times)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"  {label}: launches {counts} (expected {expect})")
     if counts != expect:
@@ -1124,16 +1153,16 @@ def collision_row(kind, line, launches, dt, *, ne=16, blocked=False):
     )
 
 
-def print_rows(rows, shape: str, card: str) -> None:
+def print_rows(rows, shape: str, card: str, dtype: str = "float32") -> None:
     for r in rows:
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms ({r.get('timing', 'events')}), plain "
               f"{r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3e} "
-              f"({shape}, float32) — {card}")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err {r['max_abs_err']:.3e}, "
+              f"{r['launches']} launches ({shape}, {dtype}) — {card}")
     sys.stdout.flush()
 
 
-def phase_main_path(card: str) -> list[dict]:
+def phase_main_path(card: str, keep: dict | None = None) -> list[dict]:
     print("== 4 main path: 1024² × 16 bins, 100 steps, float32, merged stepping", flush=True)
     import qpsim_tpu_torch
     from qpsim_tpu_torch.ops import adi_cuda
@@ -1144,7 +1173,7 @@ def phase_main_path(card: str) -> list[dict]:
     qpsim_tpu_torch.run_2d_crank_nicolson(**kw)  # warm-up
     torch.cuda.synchronize()
     print(f"  warm-up run {time.perf_counter() - t0:.2f} s", flush=True)
-    counts = run_coupled_timed("uniform gap", kw, "collision_step", card)
+    counts = run_coupled_timed("uniform gap", kw, "collision_step", card, keep=keep)
 
     # each kernel against its plain version at the main path's shapes, then their times
     rows = [collision_row("uniform", 169, counts["collision_step"], dt)]
@@ -1593,9 +1622,21 @@ def phase_other_diffusion_paths(card: str) -> list[dict]:
     reset_counts()
     kernel = run(**kw)
     check_counts("(c) auto on the 256² film", read_counts(), {"adi_sep_x": 200, "adi_sep_y": 200})
-    plain_adi = run(**kw, diffusion_backend="adi")
-    assert_runs_close("(c) K1 path vs 'adi'", kernel, plain_adi, 1e-10, 1e-12)
     saved = get_default_solver()
+    # the plain reference: 'adi' on the plain Thomas sweep, asked for by name
+    # ('auto' on the card runs K10, as 'pallas' does)
+    try:
+        set_default_solver("thomas")
+        reset_counts()
+        plain_adi = run(**kw, diffusion_backend="adi")
+        check_counts("(c) 'adi' on 'thomas'", read_counts(), {"thomas": 0})
+    finally:
+        set_default_solver(saved)
+    reset_counts()
+    auto_adi = run(**kw, diffusion_backend="adi")
+    check_counts("(c) 'adi' on 'auto'", read_counts(), {"thomas": 400})
+    assert_runs_close("(c) K1 path vs 'adi'", kernel, plain_adi, 1e-10, 1e-12)
+    assert_runs_close("(c) 'adi' on 'auto' (K10) vs 'adi' on 'thomas'", auto_adi, plain_adi, 1e-10, 1e-12)
     try:
         set_default_solver("pallas")
         reset_counts()
@@ -2543,6 +2584,569 @@ def phase_setup_runner(card: str, rows_before: list[dict], validation_bins: dict
     return rows
 
 
+# ---------------------------------------------------------------- phase 10: the slice
+
+
+#: the differentiable simulation of phase 10 (a): a 64² film (diff.py's own
+#: docstring size), 16 bins at E_max 4Δ, dt 0.05 ns, a seeded Gaussian
+#: burst on a uniform floor (a uniform field would give D0 no gradient)
+DIFF_STEPS, DIFF_CHUNK, DIFF_N = 400, 20, 64
+
+
+def diff_sim(dtype, *, n_steps=DIFF_STEPS, remat=True, remat_chunk=DIFF_CHUNK, device="cuda", store_every=50):
+    from qpsim_tpu_torch import diff as td
+
+    n = DIFF_N
+    yy, xx = np.mgrid[0:n, 0:n]
+    rng = np.random.default_rng(10)
+    field = 1e-5 * (1.0 + 4.0 * np.exp(-((xx - 20.0) ** 2 + (yy - 40.0) ** 2) / 60.0)) * rng.uniform(0.9, 1.1, (n, n))
+    return td.make_differentiable_sim(
+        mask=np.ones((n, n), dtype=bool), num_energy_bins=16, energy_max_factor=4.0, dt=0.05,
+        n_steps=n_steps, initial_field=field, dtype=dtype,
+        observables=("total", "spatial", "phonon_spectrum", "mkid"), store_every=store_every,
+        remat=remat, remat_chunk=remat_chunk, device=device)
+
+
+DIFF_PARAMS = {"D0": 6.0, "tau_s": 440.0, "tau_r": 440.0, "gap": 180.0}
+
+
+def diff_loss(out, w, mkid: tuple[float, float] | None = None):
+    """One scalar over the observables, each term of order one; ``w`` weighs
+    the last frame by the squared distance from the burst (its spread, which
+    D0 drives).  ``mkid`` (:func:`mkid_scale` of the reference call, fixed
+    weights) adds the MKID traces δf/f and δ(1/Q); float32 leaves them out,
+    their δσ/σ ≈ 1e-7 being at its resolution."""
+    s = out["spatial"]
+    loss = ((s[-1] * w).sum() / s[0].sum() + out["total"][-1] / out["total"][0]
+            + out["phonon_spectrum"].sum() / 1e3)
+    if mkid is not None:
+        loss = loss + out["mkid_df"].sum() / mkid[0] + out["mkid_dq"].sum() / mkid[1]
+    return loss
+
+
+def mkid_scale(out) -> tuple[float, float]:
+    """Σ|δf/f| and Σ|δ(1/Q)| over a call's traces: the MKID terms' weights."""
+    scale = float(out["mkid_df"].detach().abs().sum()), float(out["mkid_dq"].detach().abs().sum())
+    if not min(scale) > 0.0:
+        raise AssertionError(f"phase 10a: an MKID trace is zero throughout ({scale})")
+    return scale
+
+
+def log_grads(grads: dict) -> np.ndarray:
+    """The gradient with respect to the log-parameters (p·∂L/∂p, what the
+    fits step on): one array of commensurate entries, for scaled errors."""
+    return np.array([DIFF_PARAMS[k] * grads[k] for k in DIFF_PARAMS])
+
+
+def diff_value_and_grad(sim, dtype, loss_of, part_of=None):
+    """(observables, loss, gradients, K10 launches forward and in backward,
+    seconds, peak GiB, gradients of ``part_of``).  Gradients by
+    ``torch.autograd.grad`` through the remat checkpoints; ``part_of`` (a
+    second loss on the same observables) gets a second backward, after the
+    counts and the clock."""
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    p = {k: torch.tensor(v, dtype=dtype, device="cuda", requires_grad=True) for k, v in DIFF_PARAMS.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sim(p)
+    torch.cuda.synchronize()
+    fwd = {k: k10.LAUNCHES[k] for k in ("thomas", "thomas_cols", "thomas_relayout")}
+    reset_counts()
+    loss = loss_of(out)
+    grads = torch.autograd.grad(loss, list(p.values()), retain_graph=part_of is not None)
+    torch.cuda.synchronize()
+    bwd = {k: k10.LAUNCHES[k] for k in ("thomas", "thomas_cols", "thomas_relayout", "thomas_backward")}
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    part = None
+    if part_of is not None:
+        part = dict(zip(p, (float(g) for g in torch.autograd.grad(part_of(out), list(p.values())))))
+    return ({k: v.detach() for k, v in out.items()}, float(loss.detach()),
+            dict(zip(p, (float(g) for g in grads))), fwd, bwd, seconds, peak, part)
+
+
+def remat_expect(n: int, chunk: int | None, remat: bool = True) -> tuple[dict, dict]:
+    """K10 launches of an n-step call: n·2 forward; in backward the
+    transposed solves (n·2), with remat the step recompute (n·2) and
+    two-level the chunk recompute (n·2)."""
+    total = 2 * n * (1 + int(remat) + int(bool(chunk)))
+    fwd = {"thomas": 2 * n, "thomas_cols": n, "thomas_relayout": 0}
+    return fwd, {"thomas": total, "thomas_cols": total // 2, "thomas_relayout": 0, "thomas_backward": 2 * n}
+
+
+def phase_slice_diff(card: str) -> list[dict]:
+    print(f"== 10a make_differentiable_sim: 64² × 16 bins, {DIFF_STEPS} steps, remat_chunk={DIFF_CHUNK}, float64",
+          flush=True)
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    yy, xx = np.mgrid[0:DIFF_N, 0:DIFF_N]
+    w = torch.as_tensor(((xx - 20.0) ** 2 + (yy - 40.0) ** 2) / DIFF_N**2, device="cuda")
+    # the loss with the MKID traces, and (second backward) without them, for the float32 hold
+    out, loss, grads, fwd, bwd, secs, peak, grads_main = diff_value_and_grad(
+        diff_sim(F64), F64, lambda o: diff_loss(o, w, mkid_scale(o)), lambda o: diff_loss(o, w))
+    scale = mkid_scale(out)
+    expect_fwd, expect_bwd = remat_expect(DIFF_STEPS, DIFF_CHUNK)
+    n = DIFF_STEPS
+    print(f"  K10 launches: forward {fwd} (expected {expect_fwd}); backward {bwd} (expected {expect_bwd}); "
+          f"per half-step {(fwd['thomas'] + bwd['thomas']) / (2 * n):.2f} (n × 2 halves × 4 = {8 * n})")
+    if fwd != expect_fwd or bwd != expect_bwd:
+        raise AssertionError("phase 10a: K10 launch counts differ from the prediction")
+    print(f"  value and gradient {secs:.2f} s, peak device memory {peak:.3f} GiB; loss {loss:.12e} "
+          f"(MKID weights Σ|δf/f| {scale[0]:.6e}, Σ|δ(1/Q)| {scale[1]:.6e}); grads {grads}; "
+          f"without the MKID terms {grads_main} — {card}", flush=True)
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"phase 10a: {k} is not finite")
+    if tuple(out["spatial"].shape) != (DIFF_STEPS // 50 + 1, DIFF_N, DIFF_N):
+        raise AssertionError(f"phase 10a: spatial frames {tuple(out['spatial'].shape)}")
+
+    # one gradient of the 400-step call against a fourth-order central difference
+    # (forward calls only), on the loss without the MKID terms: h = 1 % of τ_r
+    # keeps that loss's float64 roundoff over 400 steps (≈ 1e-13) and the h⁴
+    # truncation both below 1e-7.  The MKID terms are differences δσ/σ ≈ 1e-8
+    # of two float64 integrals, whose roundoff a difference quotient at this h
+    # does not resolve to 1e-6: that reading is printed, not held
+    h = 1e-2 * DIFF_PARAMS["tau_r"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fd_sim = diff_sim(F64, remat=False, remat_chunk=None)
+        at = {s: fd_sim({**DIFF_PARAMS, "tau_r": DIFF_PARAMS["tau_r"] + s * h}) for s in (1, -1, 2, -2)}
+        quotient = lambda f: (8.0 * (f(at[1]) - f(at[-1])) - (f(at[2]) - f(at[-2]))) / (12.0 * h)
+        fd = quotient(lambda o: float(diff_loss(o, w)))
+        fd_mkid = quotient(lambda o: float(diff_loss(o, w, scale)))
+    print(f"  with the MKID terms: dL/dtau_r {grads['tau_r']:.9e}, central difference {fd_mkid:.9e} "
+          f"(rel {abs(grads['tau_r'] - fd_mkid) / abs(fd_mkid):.3e}; not held)")
+    check(f"10a dL/dtau_r (no MKID terms) {grads_main['tau_r']:.9e} vs a central difference {fd:.9e} "
+          f"({time.perf_counter() - t0:.2f} s)", abs(grads_main["tau_r"] - fd) / abs(fd), 1e-6)
+
+    # the three remat modes on the first 40 steps of the film: K10 launches and
+    # peak memory; the two-level run is the float64 side of the 40-step float32 hold
+    for remat, ch in ((False, None), (True, None), (True, 10)):
+        out40, _, grads40, mf, mb, msecs, mpeak, _ = diff_value_and_grad(
+            diff_sim(F64, n_steps=40, remat=remat, remat_chunk=ch, store_every=10), F64, lambda o: diff_loss(o, w))
+        want_f, want_b = remat_expect(40, ch, remat)
+        print(f"  remat={remat} remat_chunk={ch}, 40 steps: K10 {mf['thomas']} + {mb['thomas']} = "
+              f"{mf['thomas'] + mb['thomas']} (expected {want_f['thomas'] + want_b['thomas']}), {msecs:.2f} s, "
+              f"peak {mpeak:.3f} GiB — {card}", flush=True)
+        if mf != want_f or mb != want_b:
+            raise AssertionError(f"phase 10a: remat={remat}, chunk={ch}: K10 launches differ")
+
+    # the 400-step call with ThomasSolve on its plain solve on the card (forward
+    # and backward), on the one-level checkpoint: the two-level schedule's
+    # numbers to roundoff (the same operations, other summation boundaries),
+    # three solves a half-step instead of four, ≈ 8.6 ms each
+    real = k10._solve
+    k10._solve = lambda sub, diag, sup, rhs, backward=False: k10.thomas_plain(sub, diag, sup, rhs)
+    try:
+        ref, _, ref_grads, pf, pb, psecs, _, _ = diff_value_and_grad(
+            diff_sim(F64, remat_chunk=None), F64, lambda o: diff_loss(o, w, scale))
+    finally:
+        k10._solve = real
+    if pf["thomas"] or pb["thomas"]:
+        raise AssertionError("phase 10a: the plain solve launched K10")
+    print(f"  plain solve on the card, {n} steps: {psecs:.2f} s")
+    for k in out:
+        check(f"10a {k}: K10 vs the plain solve, float64, {n} steps", scaled_err(out[k], ref[k]), 1e-10)
+    lg, lg_ref = log_grads(grads), log_grads(ref_grads)
+    print(f"  p·dL/dp {dict(zip(DIFF_PARAMS, lg))}; per entry, K10 against plain "
+          f"{dict(zip(DIFF_PARAMS, np.abs(lg - lg_ref) / np.abs(lg_ref)))}")
+    check(f"10a p·dL/dp (MKID traces in the loss): K10 vs the plain solve, float64, {n} steps (scaled)",
+          float(np.max(np.abs(lg - lg_ref)) / np.max(np.abs(lg_ref))), 1e-10)
+
+    # the same 400-step call in float32: its observables against float64 at the
+    # float32 tier (docs/f32_tiers.md: ≤ 2e-3).  Its gradient is read against
+    # float64's, not held there: float32 arithmetic of the simulation itself
+    # moves the total trace's Δ and τ_s entries by ≈ 5e-3 over 400 steps (the
+    # plain path on the CPU shows it, PERF.md §6); the gradient is held at 40 steps
+    out32, _, grads32, f32_fwd, f32_bwd, secs32, peak32, _ = diff_value_and_grad(
+        diff_sim(F32), F32, lambda o: diff_loss(o, w.float()))
+    print(f"  float32, {n} steps: {secs32:.2f} s, peak {peak32:.3f} GiB, K10 {f32_fwd} / {f32_bwd}; "
+          f"MKID traces (not held: δσ/σ is at float32's resolution) δf/f[-1] {float(out32['mkid_df'][-1]):.3e} "
+          f"against {float(out['mkid_df'][-1]):.3e} in float64")
+    if f32_fwd != expect_fwd or f32_bwd != expect_bwd:
+        raise AssertionError("phase 10a: float32 K10 launch counts differ from the prediction")
+    for k in ("total", "spatial", "phonon_spectrum"):
+        check(f"10a {k}: float32 vs float64, {n} steps", scaled_err(out32[k], out[k]), 2e-3)
+    lg32, lg_main = log_grads(grads32), log_grads(grads_main)
+    print(f"  float32 p·dL/dp (no MKID terms), {n} steps, against float64: per entry "
+          f"{dict(zip(DIFF_PARAMS, np.abs(lg32 - lg_main) / np.abs(lg_main)))}, scaled "
+          f"{float(np.max(np.abs(lg32 - lg_main)) / np.max(np.abs(lg_main))):.3e} (not held)")
+    out32, _, grads32, _, _, _, _, _ = diff_value_and_grad(
+        diff_sim(F32, n_steps=40, remat_chunk=10, store_every=10), F32, lambda o: diff_loss(o, w.float()))
+    for k in ("total", "spatial", "phonon_spectrum"):
+        check(f"10a {k}: float32 vs float64, 40 steps", scaled_err(out32[k], out40[k]), 2e-3)
+    lg32, lg40 = log_grads(grads32), log_grads(grads40)
+    check("10a p·dL/dp (no MKID terms): float32 vs float64, 40 steps (scaled)",
+          float(np.max(np.abs(lg32 - lg40)) / np.max(np.abs(lg40))), 2e-3)
+
+    # K10 at the simulation's shapes: 16 × 64 lines of 64, rows (x half) and cols (y half), float64
+    rows = []
+    for form, key, launches in (("rows", "thomas_diff_rows", fwd["thomas"] - fwd["thomas_cols"]
+                                 + bwd["thomas"] - bwd["thomas_cols"]),
+                                ("cols", "thomas_diff_cols", fwd["thomas_cols"] + bwd["thomas_cols"])):
+        rows.append(thomas_row(key, tridiag_case(form, 16, 64, 64, F64, kind="dominant"), launches, F64))
+    print_rows(rows, "16 × 64 lines of 64, the differentiable simulation's halves", card, "float64")
+    return rows
+
+
+def thomas_row(name, system, launches, dtype) -> dict:
+    """A kernels-line row of K10 on ``system`` (the plain version on the same inputs)."""
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    ref = k10.thomas_plain(*system)
+    got = k10.thomas(*system)
+    torch.cuda.synchronize()
+    check(f"{name} {str(dtype)[6:]}", scaled_err(got, ref), TOL[("thomas", dtype)])
+    return dict(name=name, route="cuda", source="qpsim_tpu_torch/csrc/tridiag.cu",
+                replaces="qpsim_tpu/ops/pallas_tridiag.py:35", launches=launches,
+                max_abs_err=abs_err(got, ref), ms=time_ms(lambda: k10.thomas(*system), 20),
+                plain_ms=time_ms(lambda: k10.thomas_plain(*system), 3),
+                **bound(*thomas_work(system), dtype), library_ms=None)
+
+
+def phase_slice_fits(card: str) -> None:
+    print("== 10b fit_parameters (1 × 64 wire, 20 Adam iterations) and fit_ensemble (B = 32)", flush=True)
+    from qpsim_tpu_torch import diff as td
+    from qpsim_tpu_torch.ops import tridiag_cuda as k10
+
+    # the JAX package's fit configuration (tests/test_diff.py) on a 1 × 64
+    # wire, 15 steps; no remat (a wire's steps hold kilobytes)
+    cfg = dict(nx=64, num_energy_bins=8, energy_max_factor=4.0, dt=2.0, n_steps=15, n0=0.5,
+               bath_temperature=0.0, phonon_feedback=False, remat=False)
+    decay = td.make_differentiable_decay(**cfg)
+    fixed = {"D0": 6.0, "tau_s": 440.0}
+    with torch.no_grad():
+        observed = decay({**fixed, "tau_r": 250.0}).cpu().numpy()
+    t0 = time.perf_counter()
+    got = td.fit_parameters(observed, {"tau_r": 600.0}, decay_fn=lambda p: decay({**fixed, **p}),
+                            learning_rate=0.08, n_iters=20)
+    card_s = time.perf_counter() - t0
+    cpu_decay = td.make_differentiable_decay(**cfg, device="cpu")
+    t0 = time.perf_counter()
+    cpu = td.fit_parameters(observed, {"tau_r": 600.0}, decay_fn=lambda p: cpu_decay({**fixed, **p}),
+                            learning_rate=0.08, n_iters=20)
+    print(f"  fit_parameters: tau_r 600 → {got['tau_r']:.9f} (true 250) on the card in {card_s:.2f} s; "
+          f"{cpu['tau_r']:.9f} on the CPU in {time.perf_counter() - t0:.2f} s — {card}", flush=True)
+    check("10b fit_parameters card vs CPU", abs(got["tau_r"] - cpu["tau_r"]) / cpu["tau_r"], 1e-9)
+    if not got["tau_r"] < 400.0:
+        raise AssertionError("phase 10b: fit_parameters did not move towards the truth")
+
+    b = 32
+    true_r = np.linspace(200.0, 700.0, b)
+    with torch.no_grad():
+        reset_counts()
+        obs = decay({"D0": np.full(b, 6.0), "tau_s": np.full(b, 440.0), "tau_r": true_r})
+        one_call = dict(k10.LAUNCHES)
+    # one K10 launch a step for all 32 members: the x half (the y half's
+    # lines on a 1 × 64 wire are single cells, a division, no launch)
+    check_counts(f"10b one batched decay call (32 members, {cfg['n_steps']} steps)", one_call,
+                 {"thomas": cfg["n_steps"], "thomas_backward": 0})
+    init = {"D0": np.full(b, 6.0), "tau_s": np.full(b, 440.0), "tau_r": np.full(b, 400.0)}
+    obs_np = obs.cpu().numpy()
+    loss_of = lambda tr: float(((decay({**fixed, "tau_r": tr}) - obs) ** 2 / obs**2).mean(-1).sum())
+    reset_counts()
+    t0 = time.perf_counter()
+    fitted = td.fit_ensemble(obs_np, init, decay_fn=decay, learning_rate=0.1, n_iters=20)
+    secs = time.perf_counter() - t0
+    counts = dict(k10.LAUNCHES)
+    check_counts("10b fit_ensemble, 20 iterations (a solve and a transposed solve a step)", counts,
+                 {"thomas": 20 * 2 * cfg["n_steps"], "thomas_backward": 20 * cfg["n_steps"]})
+    with torch.no_grad():
+        before, after = loss_of(init["tau_r"]), loss_of(fitted["tau_r"])
+    print(f"  fit_ensemble: {secs:.2f} s; summed loss {before:.6e} → {after:.6e}; |tau_r − true| median "
+          f"{np.median(np.abs(fitted['tau_r'] - true_r)):.3f} (start {np.median(np.abs(400.0 - true_r)):.3f}) "
+          f"— {card}", flush=True)
+    if not after < 0.5 * before:
+        raise AssertionError("phase 10b: fit_ensemble did not reduce the loss")
+
+
+ENS_B, ENS_SHAPE, ENS_NE, ENS_STEPS = 32, (64, 64), 8, 200
+
+
+def ensemble_forms(b=ENS_B):
+    """The five forms of phase 10c: (name, build keywords, chunk keywords, launch counter)."""
+    from qpsim_tpu_torch.models.params import PhotonDriveSpec
+
+    ny = ENS_SHAPE[0]
+    spec = PhotonDriveSpec(mode="photon", photon_energy=2.6 * 180.0, occupancy=1.0, coupling=1e-4,
+                           window_start=1.0, window_duration=4.0)
+    return (
+        ("uniform", dict(), dict(), "collision_step"),
+        ("member_gaps", dict(gap=np.linspace(170.0, 190.0, b)), dict(), "collision_step_analytic"),
+        ("member_taus", dict(tau_r=np.linspace(200.0, 700.0, b), tau_s=np.linspace(300.0, 600.0, b)), dict(),
+         "collision_step_blocked_gid"),
+        ("member_taus_8", dict(n_members=8, tau_r=np.linspace(200.0, 700.0, 8)), dict(), "collision_step_gid"),
+        ("pulse_photon", dict(), dict(rates=np.linspace(1e-6, 4e-6, b), starts=np.linspace(0.5, 5.0, b),
+                                      photon=spec, occupancy=np.linspace(0.5, 3.0, b)), "collision_step"),
+    ), ny
+
+
+def ensemble_chunk(ens, extra, n_steps):
+    if not extra:
+        return ens.make_chunk(n_steps), False
+    return ens.make_chunk(n_steps, gen_plane=ens.generation_plane(extra["rates"]),
+                          pulse_window=(extra["starts"], 1.0), photon=extra["photon"],
+                          photon_occupancy=extra["occupancy"]), True
+
+
+def ensemble_state(ens, seed=12):
+    b, (ny, nx) = ens.n_members, ens.member_shape
+    rng = np.random.default_rng(seed)
+    rho = np.interp(np.arange(ens.num_energy_bins), [0, ens.num_energy_bins - 1], [1.0, 0.3])
+    q = rng.uniform(0.5e-5, 1.5e-5, (b, ens.num_energy_bins, ny, nx)) * rho[None, :, None, None]
+    return ens.pack(q, ens.thermal_phonons(np.full(b, 0.1)))
+
+
+def member_kwargs(build, extra, m, b):
+    """A solo run's build and chunk keywords: member m's parameters alone
+    (per-member gaps keep the largest gap as a second member, so the energy
+    grid is the ensemble's)."""
+    solo = {k: (np.asarray(v)[m] if np.ndim(v) else v) for k, v in build.items() if k != "n_members"}
+    n = 1
+    if "gap" in build:
+        solo["gap"] = np.array([build["gap"][m], build["gap"].max()])
+        n = 2
+    one = {k: (np.asarray(v)[m : m + 1] if k in ("rates", "starts", "occupancy") else v) for k, v in extra.items()}
+    if "rates" in one and n == 2:
+        one = {k: (np.repeat(v, 2) if k in ("rates", "starts", "occupancy") else v) for k, v in one.items()}
+    return solo, one, n
+
+
+def phase_slice_ensembles(card: str) -> list[dict]:
+    print(f"== 10c film ensembles: {ENS_B} members of {ENS_SHAPE[0]}²×{ENS_NE} bins, {ENS_STEPS} steps, "
+          "float32", flush=True)
+    from qpsim_tpu_torch.parallel import build_film_ensemble
+
+    forms, ny = ensemble_forms()
+    counters = [c for c in read_counts()]
+    rows, k10_rows = [], {}
+    for name, build, extra, counter in forms:
+        b = build.get("n_members", ENS_B)
+        kw = {k: v for k, v in build.items() if k != "n_members"}
+        t0 = time.perf_counter()
+        ens = build_film_ensemble(n_members=b, member_shape=ENS_SHAPE, num_energy_bins=ENS_NE, **kw)
+        set_up = time.perf_counter() - t0
+        chunk, timed = ensemble_chunk(ens, extra, ENS_STEPS)
+        q0, ph0 = ensemble_state(ens)
+        state = ens.to_device(q0, ph0)
+        call = (lambda q, ph: chunk(q, ph, 0.0)) if timed else chunk
+        reset_counts()
+        q, ph = call(*state)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {k: 0 for k in counters if k.startswith(("collision_step", "adi_", "thomas"))}
+        expect.update({counter: 2 * ENS_STEPS, "thomas": 2 * ENS_STEPS, "thomas_cols": ENS_STEPS})
+        got = {k: counts[k] for k in expect}
+        if got != expect:
+            raise AssertionError(f"10c {name}: launches {got} != {expect}")
+        print(f"  {name}: {counter} {counts[counter]}, K10 {counts['thomas']} ({counts['thomas_cols']} cols, "
+              f"{counts['thomas_relayout']} copied), nothing else launched; set-up {set_up:.2f} s", flush=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        q2, ph2 = call(*state)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / ENS_STEPS
+        print(f"  {name}: {ms:.4f} ms/step (CUDA events over a {ENS_STEPS}-step chunk, no host work in the "
+              f"window), {1e3 * ms / b:.2f} µs per member-step — {card}", flush=True)
+        if not (torch.equal(q, q2) and torch.equal(ph, ph2)):
+            raise AssertionError(f"10c {name}: a second call gave other bits")
+        stride = ny + 1
+        if torch.any(q[:, ny::stride] != 0) or torch.any(ph[:, ny::stride] != 0):
+            raise AssertionError(f"10c {name}: separator rows are not empty")
+        if not (torch.isfinite(q).all() and torch.isfinite(ph).all()):
+            raise AssertionError(f"10c {name}: non-finite state")
+        qm, pm = ens.unpack(q, ph)
+        for m in (0, b // 2, b - 1):
+            solo_kw, solo_extra, n_solo = member_kwargs(build, extra, m, b)
+            solo = build_film_ensemble(n_members=n_solo, member_shape=ENS_SHAPE, num_energy_bins=ENS_NE,
+                                       **solo_kw)
+            s_chunk, s_timed = ensemble_chunk(solo, solo_extra, ENS_STEPS)
+            qsm, psm = ens.unpack(q0, ph0)
+            pick = [m] * n_solo
+            s_state = solo.to_device(*solo.pack(qsm[pick], psm[pick]))
+            sq, sp = s_chunk(*s_state, 0.0) if s_timed else s_chunk(*s_state)
+            sqm, spm = solo.unpack(sq, sp)
+            err = max(scaled_err_np(qm[m], sqm[0]), scaled_err_np(pm[m], spm[0]))
+            check(f"10c {name}: member {m} vs its solo run", err, 5e-6)
+        row = next((r for r in rows if r["counter"] == counter), None)
+        if row is None:  # one row a kernel form, at the first form that runs it
+            rows.append(ensemble_kernel_row(name, ens, q, ph, counter, counts[counter]) | {"counter": counter})
+        else:
+            row["launches"] += counts[counter]
+        k10_rows["rows"] = k10_rows.get("rows", 0) + counts["thomas"] - counts["thomas_cols"]
+        k10_rows["cols"] = k10_rows.get("cols", 0) + counts["thomas_cols"]
+        del ens, q, ph, q2, ph2
+    for r in rows:
+        del r["counter"]
+    lines = ENS_B * (ENS_SHAPE[0] + 1) - 1
+    rows.append(thomas_row("thomas_ensemble_rows", tridiag_case("rows", ENS_NE, lines, ENS_SHAPE[1], F32,
+                                                                kind="dominant"), k10_rows["rows"], F32))
+    rows.append(thomas_row("thomas_ensemble_cols", tridiag_case("cols", ENS_NE, ENS_SHAPE[1], lines, F32,
+                                                                kind="dominant"), k10_rows["cols"], F32))
+    print_rows(rows, f"{ENS_B} × {ENS_SHAPE[0]}² × {ENS_NE} ensemble super-grid", card)
+    phase_slice_ensembles_f64()
+    return rows
+
+
+def ensemble_kernel_row(name, ens, q, ph, counter, launches) -> dict:
+    """A kernels-line row of the form's collision kernel on its own state after the run."""
+    step = ens.collision_half
+    ref = step.plain(q, ph)
+    got = step(q, ph)
+    torch.cuda.synchronize()
+    # float32 gates: K3 5e-7; K4 and the column walk 5e-6 (phase 3's)
+    tol = 5e-7 if counter in ("collision_step", "collision_step_gid") else 5e-6
+    check(f"{name}: {counter} vs its plain version on the ensemble's state, q", scaled_err(got[0], ref[0]), tol)
+    check(f"{name}: {counter} vs its plain version on the ensemble's state, ph", scaled_err(got[1], ref[1]), tol)
+    analytic = getattr(step, "analytic", None)
+    if analytic is not None:
+        tensors = kernel_tensors(step.tables, analytic.g2, analytic.E, analytic.inv_E, analytic.e2, analytic.zi)
+    else:  # the gap ids ride in the column tables; the pair walk reads the plan's
+        tensors = kernel_tensors(step.tables, step.plan.gap_id)
+    source = "offset_walk.cu" if counter == "collision_step_blocked_gid" else "collisions.cu"
+    replaces = ("qpsim_tpu/ops/pallas_collisions_blocked.py:930" if counter == "collision_step_blocked_gid"
+                else "qpsim_tpu/ops/pallas_collisions.py:721" if counter == "collision_step_analytic"
+                else "qpsim_tpu/ops/pallas_collisions.py:919")
+    return dict(name=f"{counter}_ensemble_{name}", route="cuda", source=f"qpsim_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=launches,
+                max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
+                ms=time_ms(lambda: step(q, ph), 20), plain_ms=time_ms(lambda: step.plain(q, ph), 3),
+                **bound(*collision_work(step.plan, q, ph, None, tensors, analytic=analytic is not None), F32),
+                library_ms=None)
+
+
+def phase_slice_ensembles_f64() -> None:
+    """The five forms in float64 on 32 members of 16² for 10 steps: the card
+    against the plain path (the same ensemble on the CPU, whose wrappers run
+    the plain versions), at the kernels' float64 gate."""
+    from qpsim_tpu_torch.parallel import build_film_ensemble
+
+    forms, _ = ensemble_forms()
+    for name, build, extra, counter in forms:
+        b = build.get("n_members", ENS_B)
+        kw = {k: v for k, v in build.items() if k != "n_members"}
+        out = []
+        for device in ("cuda", "cpu"):
+            ens = build_film_ensemble(n_members=b, member_shape=(16, 16), num_energy_bins=ENS_NE, dtype=F64,
+                                      device=device, **kw)
+            chunk, timed = ensemble_chunk(ens, extra, 10)
+            state = ens.to_device(*ensemble_state(ens))
+            reset_counts()
+            res = chunk(*state, 0.0) if timed else chunk(*state)
+            out.append([t.cpu() for t in res])
+            if device == "cuda" and read_counts()[counter] != 20:
+                raise AssertionError(f"10c f64 {name}: {counter} {read_counts()[counter]} launches, not 20")
+        for label, a, c in (("q", out[0][0], out[1][0]), ("ph", out[0][1], out[1][1])):
+            check(f"10c float64 {name} ({counter}) card vs plain path, {label}", scaled_err(a, c), 1e-10)
+
+
+def phase_slice_qubit_observables(card: str, main: dict) -> None:
+    print("== 10d the qubit model and the resonator observables", flush=True)
+    from qpsim_tpu_torch import qubit as tq
+    from qpsim_tpu_torch.observables import (
+        PLANCK_UEV_PER_GHZ,
+        mattis_bardeen_conductivity,
+        mattis_bardeen_conductivity_traced,
+        mkid_response_trace,
+        occupation_from_spectral,
+    )
+
+    p = tq.JunctionParams(gap_L=190.0, gap_R=180.0, omega_10=20.0, cooper_pairs_L=1.0e9, gamma_ph=3.0e-7,
+                          tau_R=5e4)
+    temps = np.linspace(0.02, 0.28, 50)
+    l_rates = dict(l_00=3.0, l_11=2.0, l_10=5.0, l_01=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = tq.temperature_sweep(p, temps, l_rates=l_rates)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = tq.temperature_sweep(p, temps, l_rates=l_rates, device="cpu")
+    print(f"  temperature_sweep, 50 temperatures: {card_s:.2f} s on the card, {time.perf_counter() - t0:.2f} s "
+          f"on the CPU; regimes {sorted(set(on_card['regimes']))} — {card}", flush=True)
+    for k in ("states", "parity_rate_per_ns"):
+        check(f"10d temperature_sweep {k}: card vs CPU", scaled_err_np(on_card[k], on_cpu[k]), 1e-10)
+    check("10d temperature_sweep μ (µeV): card vs CPU, absolute",
+          float(np.max(np.abs(on_card["mu_ueV"] - on_cpu["mu_ueV"]))), 1e-9)
+    if on_card["regimes"] != on_cpu["regimes"]:
+        raise AssertionError("10d: the regimes differ between the card and the CPU")
+    if on_card["regimes"][0] == "full_equilibrium" or on_card["regimes"][-1] != "full_equilibrium":
+        raise AssertionError(f"10d: no crossover to equilibrium: {on_card['regimes']}")
+
+    frames, e_bins = main["energy_frames"], np.asarray(main["E_bins"])
+    t0 = time.perf_counter()
+    trace = mkid_response_trace(frames, e_bins, 180.0)
+    secs = time.perf_counter() - t0
+    print(f"  mkid_response_trace on phase 4's {len(frames)} stored frames (1024² × 16) in {secs:.2f} s: "
+          f"t {list(main['times'])} ns, δf/f {trace['df_over_f']}, δ(1/Q) {trace['dQ_inv']}", flush=True)
+    # more quasiparticles always lower σ₂ (so f); σ₁'s sign follows the shape
+    # of f(E) (the pulse fills every bin alike, so f grows with E here)
+    if not (np.all(np.isfinite(trace["df_over_f"] + trace["dQ_inv"])) and trace["df_over_f"][0] == 0.0
+            and all(v < 0.0 for v in trace["df_over_f"][1:])):
+        raise AssertionError("10d: the pulse must lower the resonance frequency")
+    # the last frame's film-averaged occupation through the differentiable form on the card
+    stack = np.asarray([np.asarray(b, np.float64) for b in frames[-1]])
+    n_avg = np.nanmean(stack.reshape(stack.shape[0], -1), axis=1)
+    f_avg = occupation_from_spectral(n_avg, e_bins, 180.0)
+    hnu = PLANCK_UEV_PER_GHZ * 5.0
+    want = mattis_bardeen_conductivity(f_avg, e_bins, 180.0, hnu)
+    got = mattis_bardeen_conductivity_traced(torch.as_tensor(f_avg, device="cuda"), e_bins, 180.0, hnu)
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(f"10d σ{i + 1} differentiable (card) vs numpy", abs(float(a) - b) / abs(b), 1e-10)
+
+
+def phase_slice_repairs() -> None:
+    print("== 10e the repairs: 'auto' launches K10 on the card; kernel wrappers refuse gradients", flush=True)
+    from qpsim_tpu_torch.ops import adi_cuda, collisions_cuda, tridiag_cuda as k10
+    from qpsim_tpu_torch.ops.tridiag import get_default_solver, tridiag_solve
+
+    if get_default_solver() != "auto":
+        raise AssertionError("10e: the default solver must be 'auto'")
+    system = tridiag_case("rows", 1, 100, 64, F32, kind="dominant")
+    reset_counts()
+    x = tridiag_solve(*system)
+    torch.cuda.synchronize()
+    check_counts("10e tridiag_solve under 'auto' on CUDA tensors", read_counts(),
+                 {"thomas": 1, "thomas_backward": 0})
+    check("10e 'auto' vs the plain Thomas sweep", scaled_err(x, k10.thomas_plain(*system)), TOL[("thomas", F32)])
+    kern, _, plan, _, q, ph, gen = collision_setup(16, 32, F32)
+    q.requires_grad_(True)
+    for label, call in (("collision_step (K3)", lambda: kern(q, ph, 0.05, gen)),
+                        ("adi_x_half (K2)", lambda: adi_cuda.adi_x_half(q, adi_planes(rectangle(32), F32)[0],
+                                                                        0.025))):
+        reset_counts()
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            print(f"  {label} with an input that requires grad: RuntimeError: {str(e)[:110]}…")
+        else:
+            raise AssertionError(f"10e: {label} took an input that requires grad")
+        if any(read_counts().values()):
+            raise AssertionError(f"10e: {label} launched while refusing")
+    with torch.no_grad():
+        kern(q, ph, 0.05, gen)
+    if read_counts()["collision_step"] != 1:
+        raise AssertionError("10e: under no_grad the wrapper must launch")
+
+
+def phase_slice(card: str, main: dict) -> list[dict]:
+    """Phase 10: the slice of observables, the qubit model, differentiable
+    simulation and film ensembles, at the sizes its users run."""
+    t0 = time.perf_counter()
+    rows = timed_phase(phase_slice_diff, card)
+    timed_phase(phase_slice_fits, card)
+    rows += timed_phase(phase_slice_ensembles, card)
+    timed_phase(phase_slice_qubit_observables, card, main)
+    timed_phase(phase_slice_repairs)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def timed_phase(fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2555,7 +3159,8 @@ def main() -> int:
     card = timed_phase(phase_environment)
     timed_phase(phase_build)
     timed_phase(phase_kernels_vs_plain)
-    rows = timed_phase(phase_main_path, card)
+    main_frames: dict = {}
+    rows = timed_phase(phase_main_path, card, main_frames)
     rows += timed_phase(phase_gap_maps, card)
     rows += timed_phase(phase_blocked_path, card)
     rows += timed_phase(phase_explicit_entry_points, card)
@@ -2566,6 +3171,7 @@ def main() -> int:
     timed_phase(phase_photon_film_f64)
     validation_bins = timed_phase(phase_validation, card)
     rows += timed_phase(phase_setup_runner, card, rows, validation_bins)
+    rows += timed_phase(phase_slice, card, main_frames)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

@@ -32,7 +32,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..utils.cuda_build import load_kernels
+from ..utils.cuda_build import load_kernels, refuse_grad
 from .adi_sep import pick_chunks
 from .diffusion import SplitOperator
 from .tridiag import tridiag_solve_along, tridiag_solve_thomas, tridiag_solve_wang
@@ -92,6 +92,10 @@ class AdiPlanes:
     @property
     def num_bins(self) -> int:
         return int(self.scale.shape[0])
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.ax_lo, self.ax_hi, self.ax_diag, self.ay_lo, self.ay_hi, self.ay_diag,
+                self.src, self.scale)
 
 
 def _apply_dir(u, a_lo, a_hi, diag, dim: int):
@@ -200,6 +204,7 @@ def kernel_plan(half: str, dtype: torch.dtype, nb: int, ny: int, nx: int) -> dic
 
 def adi_x_half(u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
     """x half through the CUDA kernel (plain version on the CPU)."""
+    refuse_grad("the fused ADI kernel (K2)", "ops.adi_cuda.adi_x_half_plain", u, *planes.tensors())
     if u.device.type == "cpu":
         return adi_x_half_plain(u, planes, alpha)
     if u.device.type != "cuda":
@@ -209,6 +214,7 @@ def adi_x_half(u: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor
 
 def adi_y_half(v: torch.Tensor, planes: AdiPlanes, alpha: float) -> torch.Tensor:
     """y half through the CUDA kernel (plain version on the CPU)."""
+    refuse_grad("the fused ADI kernel (K2)", "ops.adi_cuda.adi_y_half_plain", v, *planes.tensors())
     if v.device.type == "cpu":
         return adi_y_half_plain(v, planes, alpha)
     if v.device.type != "cuda":
@@ -255,6 +261,7 @@ def solve_lines(rhs: torch.Tensor, lo: torch.Tensor, di: torch.Tensor, hi: torch
     decouple exactly; any B works.  CUDA tensors launch the kernel (counted
     as ``adi_lines``) or raise; CPU tensors run :func:`solve_lines_plain`.
     """
+    refuse_grad("the line-solve kernel (K7)", "ops.adi_cuda.solve_lines_plain", rhs, lo, di, hi, scale)
     if rhs.device.type == "cpu":
         return solve_lines_plain(rhs, lo, di, hi, scale, alpha=alpha, chunks=chunks)
     if rhs.device.type != "cuda":

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from ..utils.cuda_build import load_kernels
+from ..utils.cuda_build import load_kernels, refuse_grad
 from .adi_sep import SepFactors
 
 __all__ = [
@@ -149,6 +149,7 @@ def kernel_plan(half: str, dtype: torch.dtype, nb: int, ny: int, nx: int, k: int
 
 def adi_sep_x(u: torch.Tensor, f: SepFactors) -> torch.Tensor:
     """x half through the CUDA kernel (plain version on the CPU)."""
+    refuse_grad("the separable ADI kernel (K1)", "ops.adi_sep_cuda.adi_sep_x_half_plain", u)
     if u.device.type == "cpu":
         return adi_sep_x_half_plain(u, f)
     if u.device.type != "cuda":
@@ -158,6 +159,7 @@ def adi_sep_x(u: torch.Tensor, f: SepFactors) -> torch.Tensor:
 
 def adi_sep_y(v: torch.Tensor, f: SepFactors) -> torch.Tensor:
     """y half through the CUDA kernel (plain version on the CPU)."""
+    refuse_grad("the separable ADI kernel (K1)", "ops.adi_sep_cuda.adi_sep_y_half_plain", v)
     if v.device.type == "cpu":
         return adi_sep_y_half_plain(v, f)
     if v.device.type != "cuda":

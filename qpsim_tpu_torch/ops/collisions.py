@@ -13,7 +13,11 @@ CPU path and the plain versions the CUDA kernels (``ops.collisions_cuda``,
 * :func:`collision_step_analytic_plain` — continuous gap maps: K^s₀ and
   K^r₀ affine in Δ²(px) and the Dynes ρ in closed form of Δ², from four
   (NE, NE) tables and a Δ² plane (K4's plain version; the JAX package's
-  ``pallas_collisions._make_analytic_kernel``), with no bound on G.
+  ``pallas_collisions._make_analytic_kernel``), with no bound on G;
+* :func:`make_collision_step` — ``make_collision_step`` of the JAX package:
+  ``step(n_qp, n_ph[, gap_id])`` of a per-gap-table plan, the plain
+  version on the CPU and the kernels on the card
+  (``ops.collisions_blocked_cuda.plan_launcher``).
 
 Physics summary (per pixel, per collision substep of length dt):
 
@@ -42,7 +46,7 @@ injection the CUDA kernels fuse).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -58,6 +62,7 @@ __all__ = [
     "build_collision_plan_arrays",
     "collision_step_analytic_plain",
     "collision_step_plain",
+    "make_collision_step",
 ]
 
 #: default number of pixels processed per chunk.
@@ -434,3 +439,54 @@ def collision_step_analytic_plain(
         plan, n_qp, n_ph, gen,
         lambda q, ph, lo, hi: _analytic_chunk_update(plan, tables, q, ph, tables.g2[lo:hi], dt),
     )
+
+
+def make_collision_step(plan: CollisionPlan, dt: float, *, gap_id_arg: bool = False):
+    """``step(n_qp, n_ph) -> (n_qp, n_ph)`` for one collision substep of ``dt``.
+
+    The JAX package's ``make_collision_step``: states (NE, Ny, Nx) and (NW,
+    Ny, Nx), the plan's per-gap tables chosen by its ``gap_id`` plane, the
+    identity with no channel on.  A plan on the CPU runs
+    :func:`collision_step_plain`; a plan on the card launches the kernel of
+    ``ops.collisions_blocked_cuda.plan_launcher`` (K3 or K5; more than eight
+    per-gap tables on K5 with int32 gap ids), built here once, and raises
+    beyond 256 bins.  With ``gap_id_arg=True`` the step takes a third
+    argument, a dense (Ny, Nx) gap-id plane used instead of the plan's (the
+    form spatially sharded callers need); a uniform plan ignores it.
+    """
+    if plan.rho is None:
+        raise ValueError("make_collision_step takes a plan of per-gap tables; an analytic plan "
+                         "runs collision_step_analytic")
+    dt = float(dt)
+    if not plan.active:
+        if gap_id_arg:
+            return lambda n_qp, n_ph, gap_id: (n_qp, n_ph)
+        return lambda n_qp, n_ph: (n_qp, n_ph)
+    device = plan.emit_mask.device
+    launch = None
+    if device.type == "cuda":
+        from .collisions_blocked_cuda import plan_launcher  # the kernels; that module imports this one
+
+        launch = plan_launcher(plan)
+
+    def run(p: CollisionPlan, n_qp: torch.Tensor, n_ph: torch.Tensor):
+        if n_qp.device.type != device.type:
+            raise ValueError(f"n_qp is on {n_qp.device}; this step was built for {device}")
+        if launch is None:
+            return collision_step_plain(p, n_qp, n_ph, dt)
+        return launch(p, n_qp, n_ph, dt)
+
+    if not gap_id_arg:
+        step = lambda n_qp, n_ph: run(plan, n_qp, n_ph)
+        # what a caller timing the kernel needs: the plan, the tables, the plain version
+        step.plan, step.tables = plan, getattr(launch, "tables", None)
+        step.plain = lambda n_qp, n_ph: collision_step_plain(plan, n_qp, n_ph, dt)
+        return step
+
+    def step_with_gid(n_qp: torch.Tensor, n_ph: torch.Tensor, gap_id) -> tuple[torch.Tensor, torch.Tensor]:
+        if plan.gap_id is None:  # one gap: every pixel takes its tables
+            return run(plan, n_qp, n_ph)
+        ids = torch.as_tensor(gap_id, device=device).reshape(-1).to(plan.gap_id.dtype).contiguous()
+        return run(replace(plan, gap_id=ids), n_qp, n_ph)
+
+    return step_with_gid

@@ -6,7 +6,10 @@ Port of ``qpsim_tpu.ops.pallas_collisions``:
   ``_make_kernel``, K3), for a uniform gap and for piecewise gap maps of at
   most :data:`MAX_GAP_IDS` unique gaps (per-pixel gap ids);
 * :func:`collision_step_analytic` — ``build_pallas_collision_step_analytic``
-  (kernel ``_make_analytic_kernel``, K4), for continuous gap maps.
+  (kernel ``_make_analytic_kernel``, K4), for continuous gap maps;
+* :func:`build_collision_step`, :func:`build_collision_step_analytic` —
+  those two builders' form: the plan and the tables built once from host
+  arrays, ``step(n_qp, n_ph[, gen])`` returned.
 
 Each takes the arguments of its plain version
 (:func:`qpsim_tpu_torch.ops.collisions.collision_step_plain`,
@@ -36,10 +39,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.cuda_build import load_kernels
+from ..utils.cuda_build import load_kernels, refuse_grad
 from .collisions import (
     AnalyticTables,
     CollisionPlan,
+    build_analytic_plan,
+    build_collision_plan_arrays,
     collision_step_analytic_plain,
     collision_step_plain,
 )
@@ -52,6 +57,8 @@ __all__ = [
     "WALK_BINS",
     "CollisionKernelTables",
     "PairWalk",
+    "build_collision_step",
+    "build_collision_step_analytic",
     "build_kernel_tables",
     "collision_step",
     "collision_step_analytic",
@@ -511,6 +518,7 @@ def collision_step(
     launch on another stream than the last one's first waits for that
     stream's queued work.
     """
+    refuse_grad("the collision kernel (K3)", "ops.collisions.collision_step_plain", n_qp, n_ph, gen)
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
     return _table_step(plan, tables, n_qp, n_ph, dt, gen)
@@ -531,6 +539,78 @@ def collision_step_analytic(
     ``build_kernel_tables(plan, analytic)``.  Streams as in
     :func:`collision_step`.
     """
+    refuse_grad("the analytic collision kernel (K4)", "ops.collisions.collision_step_analytic_plain",
+                n_qp, n_ph, gen, analytic.g2)
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
     return _analytic_step(plan, analytic, tables, n_qp, n_ph, dt, gen)
+
+
+# ---------------------------------------------------------------- builders of the JAX form
+
+
+def _device_dtype(device, dtype):
+    """The builders' device and dtype: float32 on CUDA, float64 on the CPU unless asked."""
+    device = torch.device(device)
+    return device, dtype or (torch.float32 if device.type == "cuda" else torch.float64)
+
+
+def build_collision_step(*, E_bins: np.ndarray, dE: float, rho: np.ndarray, K_s0: np.ndarray | None,
+                         K_r0: np.ndarray | None, pmap, dt: float, update_phonons: bool = True,
+                         gap_id: np.ndarray | None = None, device="cuda", dtype: torch.dtype | None = None):
+    """K3 in the form of ``qpsim_tpu.ops.pallas_collisions.build_pallas_collision_step``.
+
+    ``step(n_qp, n_ph, gen=None) -> (n_qp, n_ph)`` for one substep of ``dt``,
+    the plan and the kernel's tables built once on ``device`` in ``dtype``
+    (float32 on CUDA, float64 on the CPU by default).  ``rho``/``K_s0``/
+    ``K_r0`` are (NE,)/(NE, NE), or stacked per gap with a dense ``gap_id``
+    plane (at most :data:`MAX_GAP_IDS` gaps); a channel is off when its
+    kernel is None (neither: the identity, after the ``gen`` add).  Beyond
+    64 bins the step is K5.  The kernel's float64 entry runs float64 on the
+    card: the JAX package's Mosaic limit on float64 does not apply.  The
+    step launches on CUDA tensors and runs the plain version on CPU ones.
+    """
+    device, dtype = _device_dtype(device, dtype)
+    plan = build_collision_plan_arrays(
+        dE=dE, rho=rho, K_r0=K_r0, K_s0=K_s0, pmap=pmap, enable_recombination=K_r0 is not None,
+        enable_scattering=K_s0 is not None, update_phonons=update_phonons, device=device,
+        dtype=dtype, gap_id=gap_id)
+    del E_bins  # the grid is in pmap and the tables; the name keeps the JAX signature
+    if not plan.active:
+        return lambda n_qp, n_ph, gen=None: (n_qp if gen is None else n_qp + gen[None], n_ph)
+    from .collisions_blocked_cuda import kernel_forms  # the dispatch; that module imports this one
+
+    wrapper, tables_of = kernel_forms(plan.num_energy_bins, plan.num_gaps, analytic=False)
+    tables = tables_of(plan)
+    dt = float(dt)
+    step = lambda n_qp, n_ph, gen=None: wrapper(plan, tables, n_qp, n_ph, dt, gen)
+    # what a caller timing the kernel needs: its plan, tables and plain version
+    step.plan, step.tables = plan, tables
+    step.plain = lambda n_qp, n_ph, gen=None: collision_step_plain(plan, n_qp, n_ph, dt, gen)
+    return step
+
+
+def build_collision_step_analytic(*, E_bins: np.ndarray, dE: float, gap_plane: np.ndarray, pmap,
+                                  dt: float, tau_s: float | None, tau_r: float | None, T_c: float,
+                                  dynes_gamma: float = 0.0, update_phonons: bool = True,
+                                  device="cuda", dtype: torch.dtype | None = None):
+    """K4 in the form of ``build_pallas_collision_step_analytic``: the
+    per-pixel constants from the dense (Ny, Nx) ``gap_plane`` (µeV);
+    ``tau_s``/``tau_r`` None turn a channel off.  Same step as
+    :func:`build_collision_step`; beyond 64 bins K6."""
+    device, dtype = _device_dtype(device, dtype)
+    plan, atab = build_analytic_plan(
+        E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap, tau_s=tau_s, tau_r=tau_r, T_c=T_c,
+        dynes_gamma=dynes_gamma, update_phonons=update_phonons, device=device, dtype=dtype)
+    if not plan.active:
+        return lambda n_qp, n_ph, gen=None: (n_qp if gen is None else n_qp + gen[None], n_ph)
+    from .collisions_blocked_cuda import kernel_forms  # the dispatch; that module imports this one
+
+    wrapper, tables_of = kernel_forms(plan.num_energy_bins, 0, analytic=True)
+    tables = tables_of(plan, atab)
+    dt = float(dt)
+    step = lambda n_qp, n_ph, gen=None: wrapper(plan, atab, tables, n_qp, n_ph, dt, gen)
+    step.plan, step.tables, step.analytic = plan, tables, atab
+    step.plain = lambda n_qp, n_ph, gen=None: collision_step_analytic_plain(plan, atab, n_qp, n_ph, dt, gen)
+    return step
+

@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.cuda_build import refuse_grad
 from .collisions import _affine_growth_update, _relaxation_update
 from .collisions_cuda import LAUNCHES
 from .column_walk import ColumnTables, column_tables, launch_column_walk, row_lists
@@ -261,6 +262,8 @@ class WalkStep:
         return self.tables(n_qp.dtype)
 
     def __call__(self, n_qp: torch.Tensor, n_ph: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        refuse_grad(f"the offset-walk kernel ({self.counter})",
+                    "ops.collisions_loop_cuda.collision_step_loop_plain", n_qp, n_ph)
         if n_qp.device.type == "cpu":
             return collision_step_loop_plain(self, n_qp, n_ph)
         tables = self._checked(n_qp, n_ph)

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.cuda_build import load_kernels
+from ..utils.cuda_build import load_kernels, refuse_grad
 from .collisions import AnalyticTables
 
 __all__ = [
@@ -194,6 +194,9 @@ def launch_column_walk(tables: ColumnTables, n_qp: torch.Tensor, n_ph: torch.Ten
     """Launch ``csrc/offset_walk.cu`` on CUDA tensors (inputs checked by the
     caller) and return (q_out, ph_out), at :func:`column_pixels` pixels per
     lane.  Counting is the caller's."""
+    refuse_grad("the column walk kernel (csrc/offset_walk.cu)",
+                "ops.collisions.collision_step_plain or ops.collisions_loop_cuda.collision_step_loop_plain",
+                n_qp, n_ph, gen)
     if n_qp.device.type != "cuda":
         raise ValueError(f"column walk kernel runs on CUDA tensors, got {n_qp.device}")
     if n_qp.dtype not in (torch.float32, torch.float64):

@@ -11,10 +11,11 @@ the forward recurrence and a zero super-diagonal entry ends the backward
 one, so interval boundaries decouple exactly in every algorithm.
 
 :func:`tridiag_solve` dispatches by :func:`set_default_solver`, which
-takes the JAX package's names: 'auto' (Thomas on the CPU; on CUDA tensors
-PCR below 8192 lines and Thomas at or above, the JAX package's GPU rule),
-'thomas', 'pcr', 'wang' (chunk 64) and 'pallas', which selects the CUDA
-tridiagonal kernel (``ops.tridiag_cuda``).  :func:`tridiag_solve_thomas` is the
+takes the JAX package's names: 'auto' and 'pallas' (the Thomas solve of
+``ops.tridiag_cuda.ThomasSolve``: the CUDA kernel K10 on CUDA tensors, the
+plain Thomas sweep on CPU tensors, with K10's transposed solve as its
+backward), 'thomas', 'pcr' and 'wang' (chunk 64), the plain algorithms.
+:func:`solver_route` is the decision.  :func:`tridiag_solve_thomas` is the
 plain Thomas solve that the kernels' plain versions call directly.
 """
 
@@ -35,6 +36,7 @@ __all__ = [
     "wang_apply",
     "set_default_solver",
     "get_default_solver",
+    "solver_route",
 ]
 
 
@@ -318,10 +320,6 @@ def wang_apply(fac: dict[str, torch.Tensor], rhs: torch.Tensor) -> torch.Tensor:
 _SOLVERS = ("auto", "thomas", "pcr", "wang", "pallas")
 _DEFAULT_SOLVER = "auto"
 
-#: with at least this many lines solved together, 'auto' takes Thomas over
-#: PCR on CUDA tensors (the JAX package's rule for its GPU/TPU backends)
-_THOMAS_BATCH_THRESHOLD = 8192
-
 #: Wang partition chunk length of the 'wang' solver
 _WANG_CHUNK = 64
 
@@ -329,14 +327,13 @@ _WANG_CHUNK = 64
 def set_default_solver(name: str) -> None:
     """Select the batched tridiagonal algorithm behind :func:`tridiag_solve`.
 
-    'auto'   — Thomas on the CPU; on CUDA tensors PCR below 8192 lines and
-               Thomas at or above;
-    'thomas' — the sequential Thomas sweep;
+    'auto'   — the Thomas solve of ``ops.tridiag_cuda.ThomasSolve``: the
+               CUDA kernel (K10) on CUDA tensors, the plain Thomas sweep on
+               CPU tensors, differentiable on both;
+    'pallas' — the same (the JAX package's name for its kernel);
+    'thomas' — the plain sequential Thomas sweep;
     'pcr'    — parallel cyclic reduction;
-    'wang'   — Wang partition with chunk 64;
-    'pallas' — the CUDA tridiagonal kernel (``ops.tridiag_cuda``; the
-               plain Thomas solve on CPU tensors).  The name is the JAX
-               package's.
+    'wang'   — Wang partition with chunk 64.
     """
     global _DEFAULT_SOLVER
     if name not in _SOLVERS:
@@ -349,6 +346,24 @@ def get_default_solver() -> str:
     return _DEFAULT_SOLVER
 
 
+def solver_route(name: str, device_type: str) -> str:
+    """The algorithm :func:`tridiag_solve` runs under solver ``name`` for
+    tensors on ``device_type`` ("cpu" or "cuda"), at any number of lines.
+
+    "kernel" is ``ThomasSolve``: K10 on "cuda", the plain Thomas sweep on
+    "cpu" (the JAX package's 'auto' on the CPU), both with K10's transposed
+    solve as the backward.  The JAX package's 'auto' chooses among its XLA
+    scans, whose counterparts here are the plain versions, kept for tests;
+    so on the card 'auto' launches the kernel.  'thomas', 'pcr' and 'wang'
+    asked for by name are the plain algorithms on either device.
+    """
+    if name not in _SOLVERS:
+        raise ValueError(f"Unknown tridiagonal solver: {name!r}")
+    if device_type not in ("cpu", "cuda"):
+        raise ValueError(f"tridiagonal solves run on 'cpu' or 'cuda' tensors, got {device_type!r}")
+    return "kernel" if name in ("auto", "pallas") else name
+
+
 def tridiag_solve(
     sub: torch.Tensor, diag: torch.Tensor, sup: torch.Tensor, rhs: torch.Tensor
 ) -> torch.Tensor:
@@ -356,19 +371,16 @@ def tridiag_solve(
 
     ``sub[..., i]`` couples row i to i−1 (ignored at i=0) and ``sup[..., i]``
     couples row i to i+1 (ignored at the last row).  Dispatches by
-    :func:`set_default_solver`.
+    :func:`set_default_solver` through :func:`solver_route`.
     """
-    solver = _DEFAULT_SOLVER
-    if solver == "pallas":
+    route = solver_route(_DEFAULT_SOLVER, rhs.device.type)
+    if route == "kernel":
         from .tridiag_cuda import thomas
 
         return thomas(sub, diag, sup, rhs)
-    if solver == "wang":
+    if route == "wang":
         return tridiag_solve_wang(sub, diag, sup, rhs, chunk=_WANG_CHUNK)
-    if solver == "auto" and rhs.device.type == "cuda":
-        batch = rhs.numel() // max(1, rhs.shape[-1])
-        solver = "thomas" if batch >= _THOMAS_BATCH_THRESHOLD else "pcr"
-    if solver == "pcr":
+    if route == "pcr":
         return tridiag_solve_pcr(sub, diag, sup, rhs)
     return tridiag_solve_thomas(sub, diag, sup, rhs)
 

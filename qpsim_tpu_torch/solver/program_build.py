@@ -59,19 +59,8 @@ from ..ops.collisions import (
     collision_step_analytic_plain,
     collision_step_plain,
 )
-from ..ops.collisions_blocked_cuda import (
-    MAX_BLOCKED_BINS,
-    build_column_tables,
-    collision_step_blocked,
-    collision_step_blocked_analytic,
-)
-from ..ops.collisions_cuda import (
-    MAX_GAP_IDS,
-    MAX_KERNEL_BINS,
-    build_kernel_tables,
-    collision_step,
-    collision_step_analytic,
-)
+from ..ops.collisions_blocked_cuda import KERNEL_STEPS, MAX_BLOCKED_BINS, collision_kernel_for
+from ..ops.collisions_cuda import MAX_GAP_IDS
 from ..ops.diffusion import build_directional_stencils, fold_diffusion
 from ..ops.dos import (
     diffusion_coefficient_of_energy,
@@ -91,37 +80,6 @@ from .diffusion_backends import choose_backend
 from .pauli import make_pauli_stats_fn
 
 __all__ = ["EngineProgram", "build_engine_program", "collision_kernel_for"]
-
-
-def collision_kernel_for(ne: int, n_gaps: int) -> str | None:
-    """The collision kernel for NE bins and G unique gaps, as ``qpsim_tpu`` dispatches.
-
-    "K3" (uniform gap) or "K3_gid" (G ≤ 8 gap ids) up to 64 bins, "K5" /
-    "K5_gid" from 65 to 256; continuous maps (G > 8) "K4" up to 64 bins,
-    "K6" to 256.  None above 256 bins, where only the plain versions run
-    (the JAX package runs its XLA integrator there).
-    """
-    if ne > MAX_BLOCKED_BINS:
-        return None
-    if n_gaps > MAX_GAP_IDS:
-        return "K4" if ne <= MAX_KERNEL_BINS else "K6"
-    kernel = "K3" if ne <= MAX_KERNEL_BINS else "K5"
-    return kernel if n_gaps == 1 else f"{kernel}_gid"
-
-
-#: each code's (wrapper, table builder): K3/K4 read the pair-walk tables of
-#: ``build_kernel_tables(plan, analytic)``, K5/K6 the column tables of
-#: ``build_column_tables(plan, analytic)``; the table wrappers take the
-#: gap-id form from ``plan.gap_id``, the analytic ones (K4, K6) also take
-#: the Δ² tables
-_KERNEL_STEPS: dict[str, tuple[Callable, Callable]] = {
-    "K3": (collision_step, build_kernel_tables),
-    "K3_gid": (collision_step, build_kernel_tables),
-    "K4": (collision_step_analytic, build_kernel_tables),
-    "K5": (collision_step_blocked, build_column_tables),
-    "K5_gid": (collision_step_blocked, build_column_tables),
-    "K6": (collision_step_blocked_analytic, build_column_tables),
-}
 
 
 @dataclass
@@ -280,7 +238,7 @@ def build_engine_program(
         )
     step = tables = None
     if kernel is not None:
-        step, build_tables = _KERNEL_STEPS[kernel]
+        step, build_tables = KERNEL_STEPS[kernel]
         tables = build_tables(plan, atab)
 
     # the Pauli ρ state, formed on the device: ρ columns broadcast over the

@@ -24,7 +24,9 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_kernels", "build_dir", "ptxas_report"]
+import torch
+
+__all__ = ["load_kernels", "build_dir", "ptxas_report", "refuse_grad"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -38,6 +40,22 @@ _NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def refuse_grad(kernel: str, plain: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop a gradient.
+
+    A kernel writes its outputs through raw pointers, so they carry no
+    ``grad_fn``: with grad mode on and any of ``tensors`` (None skipped)
+    requiring grad, a later ``backward()`` would see no gradient and say
+    nothing.  ``plain`` names the plain version to differentiate instead.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad, and the kernel's output would "
+            f"carry none. Differentiate through its plain version, {plain}, or call it under "
+            "torch.no_grad()."
+        )
 
 
 def build_dir() -> Path:

@@ -348,15 +348,15 @@ def test_collision_kernel_for_boundaries(ne, n_gaps, kernel):
     ids=["uniform-72", "trap-72", "gradient-72", "uniform-16", "gradient-16"],
 )
 def test_engine_steps_through_the_dispatched_wrapper(monkeypatch, ne, gap_expression, wrapper):
-    from qpsim_tpu_torch.solver import program_build
+    from qpsim_tpu_torch.ops import collisions_blocked_cuda
 
     calls = {}
-    for code, (real, build_tables) in list(program_build._KERNEL_STEPS.items()):
+    for code, (real, build_tables) in list(collisions_blocked_cuda.KERNEL_STEPS.items()):
         def spy(*args, _real=real):
             calls[_real.__name__] = calls.get(_real.__name__, 0) + 1
             return _real(*args)
 
-        monkeypatch.setitem(program_build._KERNEL_STEPS, code, (spy, build_tables))
+        monkeypatch.setitem(collisions_blocked_cuda.KERNEL_STEPS, code, (spy, build_tables))
     extra = dict(gap_expression=gap_expression) if gap_expression else {}
     T.run_2d_crank_nicolson(**_strip_kwargs("torch", num_energy_bins=ne, **extra), device="cpu")
     assert list(calls) == [wrapper] and calls[wrapper] > 0
