@@ -18,7 +18,9 @@ a non-zero exit:
    0.12), at NE = 1 and 2 (the validation suite's recombination gate runs
    one bin), 8, 9, 16 (the pair walk's 16 bins in registers), 11 (a
    split ω diagonal), and 17, 32, 33, 50 and 64 (where they run the column
-   walk), the fused ADI halves (K2) with one plane and with NB
+   walk) — every form at 11, 16 and 50 bins, at the others the uniform
+   gap with frozen phonons, G = 8 mixed ids and the Dynes analytic form
+   (cut in PR 14 to make room for phase 11) —, the fused ADI halves (K2) with one plane and with NB
    per-pixel planes on the rectangle and the masked donut, on 250 × 255
    and 250 × 301 (ragged tiles; K = 1, and 32 chunks on 301 cells with the
    last padded), on 24 × 16384 (the two-pass form for long rows) and on
@@ -32,7 +34,8 @@ a non-zero exit:
    mixed layouts), with exact launch counts; beyond 64
    bins the collision step on the column walk (K5) on a uniform gap and
    with gap ids, and its analytic form (K6), at NE = 65 (split ω
-   diagonals), 72 (ω rows shared by a difference and a sum), 100 and 256;
+   diagonals), 72 (ω rows shared by a difference and a sum; with phonons
+   updated and frozen), 100 and 256;
    the offset walks, explicit entry points on the same kernel: K8
    (uniform and G = 3 gap ids) at NE = 16, 72, 100 and 256 and with G = 9
    ids at 16, K9 at 16, 72 and the split 66 (there also against K3's plain
@@ -53,11 +56,11 @@ a non-zero exit:
    on NB planes timed against their plain versions at 1024² × 16;
 4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 40
    steps stored at the start and the end — uniform on the 1024²
-   rectangle through K5 (two timed calls), the trap (K5 with gap ids) and
-   a gradient (K6) on 512² (one each) — with exact launch counts and no
-   K3/K4 launch; then K5,
-   K5-gid (random ids, and the trap disc's coherent ids) and K6 timed
-   against their plain versions at 1024² × 100, and K5 at 256 bins;
+   rectangle through K5, the trap (K5 with gap ids) and a gradient (K6)
+   on 512², one timed call each — with exact launch counts and no K3/K4
+   launch; then K5, K5-gid (random ids, and the trap disc's coherent ids)
+   and K6 timed against their plain versions at 1024² × 100 (beyond 256
+   bins: phase 11);
 4d. the explicit entry points at full width, float32: each called once
    with exact launch counts — K8 at 1024² × 100 on phase 4c's inputs
    (uniform and gap ids) and at 1024² × 256, K9 at 1024² × 72 and × 16,
@@ -94,7 +97,7 @@ a non-zero exit:
    map (K3 gap ids) and the gradient (K4) under the per-pixel photon
    substep, the photon substep and the traced generation timed alone, and
    K3 with no plane and K2 on the film's planes against their plain
-   versions; (8b) the layout at 4.03 µm (256²) in float64 against the
+   versions; (8b) the layout at 8.13 µm (128²) in float64 against the
    plain path, uniform and gradient, and host-mode generation on 64²
    ("auto" → exact); (8c) ``run_fast_validation_suite(device="cuda")``
    in float64 and float32 with its figures and kernel counters (K3
@@ -113,13 +116,9 @@ a non-zero exit:
    discarded; (9c) 1024² × 100, 40 steps, integrated and streamed — 41 K5
    launches, within 1e-5 of a full-detail call's reductions; (9d) the
    scalar 1024² film, 2000 steps, streamed — 2 K1 launches a step, mass
-   drift ≤ steps × float32 ε; (9e) a 2 × 2 ``run_sweep`` on 256² × 16,
+   drift ≤ steps × float32 ε; (9e) a 2 × 1 ``run_sweep`` on 256² × 16,
    each variant bit-equal to a lone ``run_setup``, ``resume=True``
-   re-running none; (9f) ``generate_test_suite()`` at its defaults in
-   float64 and float32 against the gates of ``tests/test_testcases.py``
-   (K3 launches by bin count; its films are ≤ 4096 cells, so no K1/K2),
-   saved and loaded back, then K3 timed on the suite's 1 × 1 cell at 1,
-   10 and 15 bins and on the validation suite's 1 × 16 strip at 24;
+   re-running none (the analytic suite, 9f until PR 14: phase 11f);
 10. the slice of observables, the qubit model, differentiable simulation
    and film ensembles: (10a) ``make_differentiable_sim`` on a 64² film ×
    16 bins, 400 steps, ``remat_chunk=20``, float64, with the total,
@@ -143,10 +142,36 @@ a non-zero exit:
    temperatures on the card against the CPU and ``mkid_response_trace``
    on phase 4's stored frames; (10e) ``"auto"`` launching K10 on CUDA
    tensors and a kernel wrapper refusing an input that requires grad;
-11. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
+11. more than 256 bins, the command line and the GUI's run worker:
+   (11a) phase 4's physics at 1024² × 512 bins (NW 1535), float32, 10
+   steps, the pulse on from t = 0, light snapshots: K5 in the staged form
+   (12 launches, none in the device-memory form), ms/step; the same at 96²
+   against the plain path; (11b) 512 bins in float64 at 128² (the
+   device-memory form: 8 launches, all counted as ``column_walk_device``)
+   against the plain path at 1e-10; (11c) 256² × 1024 bins (NW 3071),
+   float32, 2 steps, the device-memory form, and K5 at 1024 bins held to
+   its plain version at 128² to the float32 tier (2e-3); (11d) the two
+   forms on the same float32 inputs at 256² × 512 (the trap's ids),
+   bit-equality printed, each timed; (11e) the trap map (K5 gap ids) and
+   a gradient (K6) at 256² × 300, 6 steps each; each form's kernel row
+   held to its plain version (on 256² or 128², the plain version's time
+   growing with the pixels) and timed at the run's shape; (11f) ``python
+   -m qpsim_tpu_torch info`` and ``validate --json`` as subprocesses, then
+   in process ``run`` (1024² × 16, 40 steps, streamed and checkpointed:
+   42 K3 and 40 + 40 K2 launches), ``profile --trace-dir`` on 256² (the
+   trace must name the CUDA kernels), ``gen-tests`` at its defaults in
+   float32 (the 28 cases against the gates of ``tests/test_testcases.py``,
+   K3 launches by bin count, no K1/K2: its films are ≤ 4096 cells; then K3
+   timed on the suite's 1 × 1 cell at 1, 10 and 15 bins and on the
+   validation suite's 1 × 16 strip at 24) and ``qubit-sweep --json`` on
+   the card against the CPU; (11g) ``ui.run_worker`` driving
+   ``run_setup`` on the card at 256² × 16 without Tk, bit-equal to a
+   direct call;
+12. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
    times at the same shapes from phases 4, 4c and 6 of this run, with
    phase 9's launches, and the small-cell K3 rows; phase 10's K10, K3,
-   K3-gid, K4 and column-walk rows at the slice's shapes), the card
+   K3-gid, K4 and column-walk rows at the slice's shapes; phase 11's K5
+   and K6 rows beyond 256 bins, each with its form and shapes), the card
    line, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
@@ -164,6 +189,8 @@ the main path's time goes, run ``tools/profile_main.py``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import shutil
@@ -574,9 +601,10 @@ def sep_factors(geometry, nb, dtype, dt=0.1, seed=2):
 
 
 def launch_tables():
-    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, collisions_cuda, tridiag_cuda
+    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, collisions_cuda, column_walk, tridiag_cuda
 
-    return (collisions_cuda.LAUNCHES, adi_cuda.LAUNCHES, adi_sep_cuda.LAUNCHES, tridiag_cuda.LAUNCHES)
+    return (collisions_cuda.LAUNCHES, adi_cuda.LAUNCHES, adi_sep_cuda.LAUNCHES, tridiag_cuda.LAUNCHES,
+            column_walk.LAUNCHES)
 
 
 def reset_counts():
@@ -644,7 +672,7 @@ def phase_build() -> None:
             r"|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
         o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ENS_\d+"
-                      r"(TableConsts|AnalyticConsts)I[fd]E", line)
+                      r"(TableConsts|AnalyticConsts)I[fd]E(?:ELb([01])E)?", line)
         c = re.search(r"Compiling entry function '.*?(collision_step_kernel)I([fd])Lb([01])ENS_\d+"
                       r"(TableConsts|AnalyticConsts)I[fd](?:Lb([01])E)?E", line)
         if c:
@@ -661,8 +689,9 @@ def phase_build() -> None:
                 form = f", {'rows' if flag == '1' else 'cols'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{form}>"
         elif o:
+            form = {"1": ", device-memory", "0": ", staged", None: ""}[o.group(5)]
             name = (f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, P={o.group(3)}, "
-                    f"{o.group(4)}>")
+                    f"{o.group(4)}{form}>")
         elif "Compiling entry function" in line:
             name = None
         elif name and ("stack frame" in line or "Used" in line):
@@ -709,8 +738,8 @@ def phase_kernels_vs_plain() -> None:
     print("== 3 kernels against their plain versions on the card", flush=True)
     from qpsim_tpu_torch.ops import adi_cuda
 
-    check_pair_walk()
-    check_blocked()
+    timed_phase(check_pair_walk)
+    timed_phase(check_blocked)
     # K2: the main rectangle, the masked donut (zero coupling rows), each with
     # one plane and NB planes; ragged tiles in both halves on 250 × 255 (K = 1
     # along x, 2 along y) and 250 × 301 (K = 1 asked along x, 32 launched,
@@ -718,7 +747,7 @@ def phase_kernels_vs_plain() -> None:
     # two-pass form in both dtypes; lines of 16385 = 5·29·113 cells, whose
     # 32 padded chunks take two passes (x half; y half in float64)
     for name, geometry, nb, pixel_forms in (
-        ("rectangle 1024²", rectangle(1024), 16, (False, True)),
+        ("rectangle 1024²", rectangle(1024), 16, (False,)),  # NB planes at 1024²: phase 4b
         ("donut 256²", donut(256), 16, (False, True)),
         ("film 250×255", film(250, 255, MIXED_FACES), 16, (False,)),
         ("film 250×301", film(250, 301, MIXED_FACES), 16, (False, True)),
@@ -769,9 +798,9 @@ def phase_kernels_vs_plain() -> None:
             check(f"adi_sep_x {tag}", scaled_err(ux, ux_ref), tol)
             check(f"adi_sep_y {tag}", scaled_err(uy, uy_ref), tol)
             check(f"adi_sep_step {tag}", scaled_err(step, uy_ref), tol)
-    check_thomas()
-    check_offset_walks()
-    check_adi_lines()
+    timed_phase(check_thomas)
+    timed_phase(check_offset_walks)
+    timed_phase(check_adi_lines)
 
 
 def check_pair_walk() -> None:
@@ -789,6 +818,11 @@ def check_pair_walk() -> None:
     forms = [("uniform", 0.0, True), ("uniform", 0.0, False), ("gid", 0.0, True),
              ("gid", 0.0, False), ("gid8", 0.0, True), ("trap", 0.0, True),
              ("analytic", 0.0, True), ("analytic", 0.12, True), ("analytic", 0.12, False)]
+    # every form at the split diagonal (11), the main path's 16 and the
+    # column walk's 50; at the other bin counts one of each kernel: the
+    # uniform gap with frozen phonons, G = 8 ids mixed in every warp, and
+    # the Dynes analytic form
+    few = [forms[1], forms[4], forms[7]]
     for ne, n, emax in ((1, (45, 50), 4.0), (2, (45, 50), 4.0),
                         (8, (45, 50), 4.0), (9, (45, 50), 4.0), (11, (45, 50), 4.0), (16, 256, 4.0),
                         (16, (45, 50), 5.0), (16, (45, 50), 9.0), (17, (45, 50), 4.0),
@@ -796,7 +830,7 @@ def check_pair_walk() -> None:
                         (64, (64, 50), 4.0)):
         grid = f"{n}²" if isinstance(n, int) else f"{n[0]}×{n[1]}"
         grid += "" if emax == 4.0 else f" E_max={emax:g}Δ"
-        for kind, gamma, phonons in forms:
+        for kind, gamma, phonons in (forms if (ne, emax) in ((11, 4.0), (16, 4.0), (50, 4.0)) else few):
             name = COLLISION_KINDS[{"gid8": "gid", "trap": "gid"}.get(kind, kind)]
             for dtype in (F64, F32):
                 kern, plain, plan, _, q, ph, gen = collision_setup(
@@ -837,7 +871,7 @@ def check_blocked() -> None:
             n_pix = n * n if isinstance(n, int) else n[0] * n[1]
             grid = f"{n}²" if isinstance(n, int) else f"{n[0]}×{n[1]}"
             for dtype in (F64, F32):
-                for phonons in (True, False):
+                for phonons in ((True, False) if ne == 72 else (True,)):
                     for gamma in ((0.0, 0.12) if kind == "analytic" else (0.0,)):
                         kern, plain, _, _, q, ph, gen = collision_setup(
                             ne, n, dtype, kind=kind, phonons=phonons, gamma=gamma, blocked=True,
@@ -996,7 +1030,9 @@ def check_thomas() -> None:
                       scaled_err(got, ref), TOL[("thomas", dtype)])
                 del system, got, ref
     torch.cuda.empty_cache()
-    for lead, lines, n in ((16, 1024, 1024), (1, 1000, 257), (2, 333, 1023), (1, 64, 16385)):
+    # (lines of 16385 are held above on masked lines: the plain sweep's host
+    # loop of 16385 steps made them a third of this check)
+    for lead, lines, n in ((16, 1024, 1024), (1, 1000, 257), (2, 333, 1023)):
         for form in ("rows", "cols"):
             for dtype in (F64, F32):
                 for alpha_s in (10.0, 1e3):
@@ -1061,8 +1097,8 @@ def coupled_expect(segments, collision: str) -> dict:
     expect[collision] = sum(s.length + 1 if s.length > 1 else 2 for s in segments)
     expect[f"{collision}_with_gen"] = steps
     return expect | {"adi_x_half": steps, "adi_y_half": steps, "adi_sep_x": 0, "adi_sep_y": 0,
-                     "thomas": 0, "thomas_cols": 0, "thomas_relayout": 0, "thomas_backward": 0} | {
-                         k: 0 for k in EXPLICIT_COUNTERS}
+                     "thomas": 0, "thomas_cols": 0, "thomas_relayout": 0, "thomas_backward": 0,
+                     "column_walk_device": 0} | {k: 0 for k in EXPLICIT_COUNTERS}
 
 
 #: the counters of the explicit entry points (K8, K9, K7), which no path of
@@ -1213,7 +1249,7 @@ def phase_gap_maps(card: str) -> list[dict]:
                   gap_expression=GAP_MAPS[map_name])
         # two timed calls each (three on the uniform gap): the script's time
         # budget holds the 100-bin path's checks
-        counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card, calls=2)
+        counts[map_name] = run_coupled_timed(f"{map_name} map", kw, collision, card, calls=1)
 
     rows = [collision_row("gid", 169, counts["trap"]["collision_step_gid"], dt),
             collision_row("trap", 169, counts["trap"]["collision_step_gid"], dt),
@@ -1253,7 +1289,7 @@ def phase_blocked_path(card: str) -> list[dict]:
         "uniform gap 1024² × 100",
         dict(main_path_kwargs(1024), num_energy_bins=100, dt=dt, total_time=dt * steps,
              store_every=steps),
-        "collision_step_blocked", card, calls=2)}
+        "collision_step_blocked", card, calls=1)}
     for map_name, collision in (("trap", "collision_step_blocked_gid"),
                                 ("gradient", "collision_step_blocked_analytic")):
         kw_map = dict(main_path_kwargs(512), num_energy_bins=100, dt=dt, total_time=dt * steps,
@@ -1271,24 +1307,6 @@ def phase_blocked_path(card: str) -> list[dict]:
             collision_row("analytic", 972, counts["gradient"]["collision_step_blocked_analytic"], dt,
                           ne=100, blocked=True)]
     print_rows(rows, "1024² × 100, NW 299", card)
-    # K5 at the 256-bin envelope: the kernel on 1024², its plain version
-    # (whose time grows with the pixels) on 256², each checked on its own shape
-    kern, plain, plan, tensors, q, ph, gen = collision_setup(256, 256, F32, blocked=True, pixel_chunk=1024)
-    ref, plain_once = timed_once(lambda: plain(q, ph, dt, gen))
-    got = kern(q, ph, dt, gen)
-    torch.cuda.synchronize()
-    check("collision_step_blocked NE=256 256² float32 gen=True phonons=True",
-          max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1])), blocked_tol(F32, 256))
-    small_ms = time_ms(lambda: kern(q, ph, dt, gen), 5)
-    del kern, plain, plan, tensors, q, ph, gen, ref, got
-    kern, _, plan, tensors, q, ph, gen = collision_setup(256, 1024, F32, blocked=True)
-    ms = time_ms(lambda: kern(q, ph, dt, gen), 3)
-    b = bound(*collision_work(plan, q, ph, gen, tensors), F32)
-    print(f"  collision_step_blocked NE=256 (NW 767): kernel {ms:.4f} ms at 1024², bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); at 256²: kernel {small_ms:.4f} ms, plain "
-          f"{plain_once:.3f} ms (one call) — float32, {card}", flush=True)
-    del kern, plan, tensors, q, ph, gen
-    torch.cuda.empty_cache()
     return rows
 
 
@@ -1984,14 +2002,14 @@ def phase_photon_film(card: str) -> list[dict]:
 
 
 def phase_photon_film_f64() -> None:
-    print("== 8b the GDS film at 4.03 µm (256²), float64, 30 steps: IC, traced generation and photons "
+    print("== 8b the GDS film at 8.13 µm (128²), float64, 30 steps: IC, traced generation and photons "
           "against the plain path; host-mode generation on 64²", flush=True)
     import qpsim_tpu_torch
 
     run = qpsim_tpu_torch.run_2d_crank_nicolson
-    mask, edges, bcs, _ = gds_film(4.03)
-    if mask.shape != (256, 256):
-        raise AssertionError(f"the 4.03 µm film is {mask.shape}, expected 256²")
+    mask, edges, bcs, _ = gds_film(8.13)
+    if mask.shape != (128, 128):
+        raise AssertionError(f"the 8.13 µm film is {mask.shape}, expected 128²")
     # 30 steps cross both windows: generation [0.5, 2.0), photons [1.0, 3.5);
     # the kernels' run diffuses through K2 ('auto'), the plain one on 'adi'
     kw = film_kwargs((mask, edges, bcs), steps=30, store_every=10, dtype=F64)
@@ -2002,8 +2020,8 @@ def phase_photon_film_f64() -> None:
         kw_map = dict(kw, gap_expression=GAP_MAPS[map_name]) if map_name != "uniform" else kw
         reset_counts()
         a = run(**kw_map)
-        check_counts(f"256² {map_name}", read_counts(), film_expect(collision, 30, 3))
-        assert_runs_close(f"256² {map_name}, photons + traced generation: kernels vs plain", a,
+        check_counts(f"128² {map_name}", read_counts(), film_expect(collision, 30, 3))
+        assert_runs_close(f"128² {map_name}, photons + traced generation: kernels vs plain", a,
                           run(**kw_map, **plain_kw), 1e-10, 1e-12)
     # host-mode generation: 'auto' resolves to exact (two collision calls a
     # step); the 64² film's interior takes the dense backend on both sides
@@ -2436,16 +2454,16 @@ def phase_setup_scalar(card: str, tmp, rows_before) -> list[dict]:
 
 
 def phase_setup_sweep(card: str, tmp) -> None:
-    print("== 9e a sweep: bath_temperature 0.1, 0.2 × dynes_gamma 0, 1e-4 on 256² × 16, 20 steps", flush=True)
+    print("== 9e a sweep: bath_temperature 0.1, 0.2 × dynes_gamma 1e-4 on 256² × 16, 20 steps", flush=True)
     import qpsim_tpu_torch
     from qpsim_tpu_torch.sweep import build_variants, run_sweep
 
     setup = flagship_setup(256, steps=20, store_every=20, name="sweep")
-    axes = [("bath_temperature", [0.1, 0.2]), ("dynes_gamma", [0.0, 1e-4])]
+    axes = [("bath_temperature", [0.1, 0.2]), ("dynes_gamma", [1e-4])]
     t0 = time.perf_counter()
     summary = run_sweep(setup, axes, out_dir=tmp / "9e_sweep", device="cuda")
     sweep_s = time.perf_counter() - t0
-    if summary["n_variants"] != 4 or summary["n_failed"]:
+    if summary["n_variants"] != 2 or summary["n_failed"]:
         raise AssertionError(f"9e: {summary['n_failed']} of {summary['n_variants']} variants failed")
     for i, (record, (overrides, variant)) in enumerate(zip(summary["variants"], build_variants(setup, axes))):
         # streamed, so no frame is converted for JSON: the mass history is the same bits
@@ -2458,7 +2476,7 @@ def phase_setup_sweep(card: str, tmp) -> None:
     if not all(r.get("resumed") for r in again["variants"]):
         raise AssertionError("9e: resume=True re-ran a finished variant")
     finals = ", ".join(f"{r['mass_final']:.6e}" for r in summary["variants"])
-    print(f"  9e: 4 variants in {sweep_s:.2f} s, each final mass bit-equal to a lone run_setup call "
+    print(f"  9e: 2 variants in {sweep_s:.2f} s, each final mass bit-equal to a lone run_setup call "
           f"({finals}); resume=True re-ran none, {resume_s:.2f} s — {card}", flush=True)
     shutil.rmtree(tmp / "9e_sweep")
 
@@ -2505,39 +2523,12 @@ def suite_errors(suite) -> dict:
     return worst
 
 
-def phase_setup_suite(card: str, tmp, validation_bins: dict) -> list[dict]:
-    print("== 9f generate_test_suite() at its defaults on the card, float64 and float32", flush=True)
-    import qpsim_tpu_torch
-    from qpsim_tpu_torch.io.storage import load_test_suite, save_test_suite
-
-    by_bins = {}
-    for dtype in (F64, F32):
-        reset_counts()
-        with launches_by_bins() as seen:
-            t0 = time.perf_counter()
-            suite = qpsim_tpu_torch.generate_test_suite(dtype=dtype)
-            elapsed = time.perf_counter() - t0
-        counts = read_counts()
-        k3 = {f"{name} {ne} bins": n for (name, ne), n in sorted(seen.items(), key=lambda kv: kv[0][1])}
-        expect = {("collision_step", 1): 5000, ("collision_step", 10): 2000, ("collision_step", 15): 4000}
-        if seen != expect or counts["collision_step"] != 11000 or counts["collision_step_with_gen"]:
-            raise AssertionError(f"9f: K3 launches by bins {seen}, expected {expect}")
-        check_counts(f"9f suite {str(dtype)[6:]}: no K1/K2 (every film ≤ 4096 cells runs the dense "
-                     f"backend, as the JAX package's 'auto' picks)", counts,
-                     {"adi_sep_x": 0, "adi_sep_y": 0, "adi_x_half": 0, "adi_y_half": 0})
-        worst = suite_errors(suite)
-        path = save_test_suite(suite, tmp / f"suite_{str(dtype)[6:]}.json")
-        if len(load_test_suite(path).cases) != 28:
-            raise AssertionError("9f: the saved suite does not load 28 cases")
-        print(f"  9f {str(dtype)[6:]}: 28 cases in {elapsed:.2f} s; K3 launches {k3}; worst gated errors "
-              + ", ".join(f"{cid} {err:.2e}" for cid, err in worst.items())
-              + f"; saved and loaded back — {card}", flush=True)
-        by_bins = {ne: n for (_, ne), n in seen.items()}
-    # K3 on the suite's 1 × 1 cell at its bin counts, beside its plain version
-    rows = []
-    for ne, emax in ((1, 1.5), (10, 3.0), (15, 3.0)):
-        rows.append(small_k3_row(f"collision_step_suite_cell_ne{ne}", ne, 1, emax, by_bins[ne], card))
-    # and at 24 bins on the validation suite's 1 × 16 strip (the column walk), its launches phase 8c's
+def suite_rows(card: str, by_bins: dict, validation_bins: dict) -> list[dict]:
+    """K3 timed on the analytic suite's 1 × 1 cell at its bin counts (launches
+    ``by_bins``: the suite of phase 11f's ``gen-tests``) and on the validation
+    suite's 1 × 16 strip at 24 bins (launches: phase 8c's)."""
+    rows = [small_k3_row(f"collision_step_suite_cell_ne{ne}", ne, 1, emax, by_bins[ne], card)
+            for ne, emax in ((1, 1.5), (10, 3.0), (15, 3.0))]
     rows.append(small_k3_row("collision_step_validation_strip_ne24", 24, (1, 16), 4.0,
                              validation_bins[("collision_step", 24)], card))
     return rows
@@ -2564,9 +2555,10 @@ def small_k3_row(name, ne, n, emax, launches, card) -> dict:
     return row
 
 
-def phase_setup_runner(card: str, rows_before: list[dict], validation_bins: dict) -> list[dict]:
-    """Phase 9: a setup file through ``run_setup``, streamed and resumed, a sweep and the
-    analytic suite, in a temporary directory deleted at the end."""
+def phase_setup_runner(card: str, rows_before: list[dict]) -> list[dict]:
+    """Phase 9: a setup file through ``run_setup``, streamed and resumed, and a
+    sweep, in a temporary directory deleted at the end (the analytic suite:
+    phase 11f's ``gen-tests``)."""
     import tempfile
     from pathlib import Path
 
@@ -2576,10 +2568,9 @@ def phase_setup_runner(card: str, rows_before: list[dict], validation_bins: dict
         for fn in (phase_setup_flagship, phase_setup_ne100, phase_setup_scalar):
             rows += timed_phase(fn, card, tmp, rows_before)
         timed_phase(phase_setup_sweep, card, tmp)
-        rows += timed_phase(phase_setup_suite, card, tmp, validation_bins)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print("  phase 9 launches (the kernels line's *_run_setup and *_suite_cell rows): "
+    print("  phase 9 launches (the kernels line's *_run_setup rows): "
           + ", ".join(f"{r['name']} {r['launches']}" for r in rows), flush=True)
     return rows
 
@@ -3147,6 +3138,306 @@ def phase_slice(card: str, main: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+#: the float32 tier of docs/f32_tiers.md: what float32 adds to a run's error (≤ 2e-3)
+F32_TIER = 2e-3
+
+
+def beyond_kwargs(n, ne, steps, **extra):
+    """Phase 4's physics at ``ne`` bins on the n² rectangle, ``steps`` steps of
+    0.05 ns stored at the start, the middle and the end, the pulse on from
+    t = 0 (so the mass rises within the run), light snapshots."""
+    from qpsim_tpu_torch.models.params import ExternalGenerationSpec
+
+    gen = ExternalGenerationSpec(mode="pulse", pulse_start=0.0, pulse_duration=1.0, pulse_rate=1e-5)
+    # pixel_chunk bounds the plain version's (chunk, NE, NE) pair tensors (2 GiB
+    # in float64 at 512 bins); the kernels do not read it
+    return dict(main_path_kwargs(n), num_energy_bins=ne, dt=0.05, total_time=0.05 * steps,
+                store_every=max(1, steps // 2), external_generation=gen, pixel_chunk=1024, **extra)
+
+
+def beyond_run(label: str, kw: dict, collision: str, device_form: bool, card: str):
+    """One call of the coupled path with exact launch counts per form: its
+    result, the collision launches and ms/step (whole call, CUDA events)."""
+    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
+
+    full, rem, _ = _split_time(kw["total_time"], kw["dt"])
+    segments = _plan_segments(full, rem, kw["dt"], kw["store_every"])
+    steps = sum(s.length for s in segments)
+    expect = coupled_expect(segments, collision)
+    expect["column_walk_device"] = expect[collision] if device_form else 0
+    if kw["mask"].sum() <= 4096:
+        expect.update(adi_x_half=0, adi_y_half=0)  # the dense backend
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, (steady, set_up, whole) = timed_run(kw, steps)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    got = {k: counts[k] for k in expect}
+    print(f"  {label}: launches {got}", flush=True)
+    if got != expect:
+        raise AssertionError(f"{label}: launch counts {got} != {expect}")
+    check_frames(out[1], kw["mask"])
+    if not out[2][-1] > out[2][0]:
+        raise AssertionError(f"{label}: mass must rise during the pulse: {out[2]}")
+    print(f"  {label}: steady {steady:.3f} ms/step over {steps} steps (host clock, first to last stored "
+          f"frame); set-up {set_up:.2f} s; whole call {whole / 1e3:.2f} s (CUDA events); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mass {out[2]} — {card}", flush=True)
+    return out, counts[collision]
+
+
+def beyond_row(name: str, kind: str, ne: int, dtype, launches: int, *, n: int, plain_n: int, tol: float,
+               line: int = 930, dt: float = 0.05) -> dict:
+    """A kernels-line row for K5/K6 beyond 256 bins: the kernel held against its
+    plain version on plain_n² (the plain version's time grows with the
+    pixels); the kernel timed on n², the shape its bound is reckoned on.
+    Each is one call timed with CUDA events: the same kernel at the same
+    bins has run in this phase's engine call, and one call at these bins
+    takes tens of ms to seconds."""
+    from qpsim_tpu_torch.ops.column_walk import column_form
+
+    kern, plain, plan, tensors, q, ph, gen = collision_setup(ne, plain_n, dtype, kind=kind, blocked=True,
+                                                             pixel_chunk=512)
+    ref, plain_once = timed_once(lambda: plain(q, ph, dt, gen))
+    got, small_ms = timed_once(lambda: kern(q, ph, dt, gen))
+    label = f"{name} NE={ne} {plain_n}² {str(dtype)[6:]} ({column_form(dtype, ne)} form)"
+    check(f"{label}, q", scaled_err(got[0], ref[0]), tol)
+    check(f"{label}, ph", scaled_err(got[1], ref[1]), tol)
+    err = max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1]))
+    ms = small_ms
+    if n != plain_n:
+        del kern, plain, plan, tensors, q, ph, gen, ref, got
+        torch.cuda.empty_cache()
+        kern, _, plan, tensors, q, ph, gen = collision_setup(ne, n, dtype, kind=kind, blocked=True)
+        ms = timed_once(lambda: kern(q, ph, dt, gen))[1]
+    b = bound(*collision_work(plan, q, ph, gen, tensors, analytic=kind == "analytic"), dtype)
+    del kern, plan, tensors, q, ph, gen
+    torch.cuda.empty_cache()
+    return dict(name=name, route="cuda", source="qpsim_tpu_torch/csrc/offset_walk.cu",
+                replaces=f"qpsim_tpu/ops/pallas_collisions_blocked.py:{line}", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_once, **b, library_ms=None,
+                shape=f"{n}² × {ne}, {str(dtype)[6:]}", form=column_form(dtype, ne),
+                plain_shape=f"{plain_n}²", ms_at_plain_shape=small_ms, timing="events, one call")
+
+
+def phase_beyond_256(card: str) -> list[dict]:
+    """Phase 11 (a)–(e): more than 256 bins on the card, the column walk's
+    staged and device-memory forms."""
+    import qpsim_tpu_torch
+    from qpsim_tpu_torch.ops.collisions_blocked_cuda import build_column_tables
+    from qpsim_tpu_torch.ops.column_walk import column_form, launch_column_walk
+
+    run = qpsim_tpu_torch.run_2d_crank_nicolson
+    print("== 11a the flagship physics at 1024² × 512 bins (NW 1535), float32, staged form: 10 steps",
+          flush=True)
+    assert column_form(F32, 512) == "staged" and column_form(F64, 512) == "device"
+    assert column_form(F32, 1024) == "device"
+    _, k5_512 = beyond_run("1024² × 512", beyond_kwargs(1024, 512, 10, snapshot_detail="integrated"),
+                           "collision_step_blocked", False, card)
+    # held against the plain path at 96² (K2 on both sides; at ≤ 4096 cells
+    # the dense backend's set-up factorises one 4096² operator per bin)
+    kw = beyond_kwargs(96, 512, 10)
+    a, _ = beyond_run("96² × 512 kernels", kw, "collision_step_blocked", False, card)
+    assert_runs_close("96² × 512, float32: kernels vs plain", a, run(**kw, collision_backend="plain"),
+                      blocked_tol(F32, 512), blocked_tol(F32, 512))
+    rows = [beyond_row("collision_step_blocked_512", "uniform", 512, F32, k5_512, n=1024, plain_n=256,
+                       tol=blocked_tol(F32, 512))]
+
+    print("== 11b 512 bins in float64 (device-memory form) at 128², 6 steps, against the plain path",
+          flush=True)
+    kw = beyond_kwargs(128, 512, 6, dtype=F64)
+    a, k5_f64 = beyond_run("128² × 512 float64", kw, "collision_step_blocked", True, card)
+    assert_runs_close("128² × 512, float64: kernels vs plain", a, run(**kw, collision_backend="plain"),
+                      1e-10, 1e-12)
+    rows.append(beyond_row("collision_step_blocked_device_512_f64", "uniform", 512, F64, k5_f64,
+                           n=128, plain_n=128, tol=1e-10))
+
+    print("== 11c 256² × 1024 bins (NW 3071), float32 (device-memory form): 2 steps", flush=True)
+    _, k5_1024 = beyond_run("256² × 1024", beyond_kwargs(256, 1024, 2, snapshot_detail="integrated"),
+                            "collision_step_blocked", True, card)
+    rows.append(beyond_row("collision_step_blocked_device_1024", "uniform", 1024, F32, k5_1024,
+                           n=128, plain_n=128, tol=F32_TIER))
+
+    print("== 11d the staged and device-memory forms on the same float32 inputs: 256² × 512, the trap's ids",
+          flush=True)
+    _, _, plan, _, q, ph, gen = collision_setup(512, 256, F32, kind="trap", blocked=True)
+    tables = build_column_tables(plan)
+    forms = {}
+    for form in ("staged", "device"):
+        reset_counts()
+        out = launch_column_walk(tables, q, ph, 0.05, gen, True, form=form)
+        ms = time_ms(lambda: launch_column_walk(tables, q, ph, 0.05, gen, True, form=form), 2)
+        forms[form] = (out, ms, read_counts()["column_walk_device"])
+    (qs, ps), ms_s, n_s = forms["staged"]
+    (qd, pd), ms_d, n_d = forms["device"]
+    same = bool(torch.equal(qs, qd) and torch.equal(ps, pd))
+    check("11d device-memory form vs staged, q", scaled_err(qd, qs), blocked_tol(F32, 512))
+    check("11d device-memory form vs staged, ph", scaled_err(pd, ps), blocked_tol(F32, 512))
+    if (n_s, n_d) != (0, 4):
+        raise AssertionError(f"11d column_walk_device counted {n_s} (staged) and {n_d} (device), not 0 and 4")
+    print(f"  11d bit-equal: {same}; staged {ms_s:.3f} ms, device-memory {ms_d:.3f} ms "
+          f"({ms_d / ms_s:.2f}x; events over 2 calls) — float32, {card}", flush=True)
+    del plan, tables, q, ph, gen, forms, qs, ps, qd, pd
+    torch.cuda.empty_cache()
+
+    print("== 11e the trap map (K5 gap ids) and a continuous map (K6) at 256² × 300 bins, 6 steps "
+          "(a map's per-pixel D(E, x) fold takes 18–22 s of set-up at 512² × 300)", flush=True)
+    launched = {}
+    for map_name, collision in (("trap", "collision_step_blocked_gid"),
+                                ("gradient", "collision_step_blocked_analytic")):
+        kw = beyond_kwargs(256, 300, 6, gap_expression=GAP_MAPS_100[map_name], snapshot_detail="integrated")
+        _, launched[map_name] = beyond_run(f"{map_name} 256² × 300", kw, collision, False, card)
+    rows.append(beyond_row("collision_step_blocked_gid_300_trap_ids", "trap", 300, F32, launched["trap"],
+                           n=256, plain_n=256, tol=blocked_tol(F32, 300)))
+    rows.append(beyond_row("collision_step_blocked_analytic_300", "analytic", 300, F32,
+                           launched["gradient"], n=256, plain_n=256, tol=blocked_tol(F32, 300), line=972))
+    print_rows(rows, "beyond 256 bins", card, "each row's shape")
+    return rows
+
+
+def run_module(*args) -> subprocess.CompletedProcess:
+    """``python -m qpsim_tpu_torch <args>`` from the checkout root, its output captured."""
+    from pathlib import Path
+
+    return subprocess.run([sys.executable, "-m", "qpsim_tpu_torch", *args], capture_output=True, text=True,
+                          timeout=600, cwd=Path(__file__).resolve().parent)
+
+
+def phase_cli(card: str, tmp) -> dict:
+    """Phase 11 (f): the command line on the card; returns the float32 suite's K3 launches by bins."""
+    from qpsim_tpu_torch import cli
+    from qpsim_tpu_torch.io.storage import load_simulation, load_test_suite, save_setup
+    from qpsim_tpu_torch.io.stream import load_frame_stream
+
+    print("== 11f the command line: info and validate --json as subprocesses, then run, profile, "
+          "gen-tests and qubit-sweep in process", flush=True)
+    info = run_module("info")
+    print("  " + info.stdout.strip().replace("\n", "\n  "))
+    name = torch.cuda.get_device_name(0)
+    if info.returncode != 0 or name not in info.stdout or "kernel library: built" not in info.stdout:
+        raise AssertionError(f"11f info: rc {info.returncode}, {info.stderr[-500:]}")
+    t0 = time.perf_counter()
+    val = run_module("validate", "--json")
+    if val.returncode != 0 or not json.loads(val.stdout)["overall_passed"]:
+        raise AssertionError(f"11f validate --json: rc {val.returncode}, {val.stderr[-500:]}")
+    print(f"  validate --json (float32 on the card, a subprocess): rc 0, overall_passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    setup_path = save_setup(flagship_setup(1024, steps=40, store_every=20), tmp / "flagship.json")
+    argv = ["run", str(setup_path), "--output", str(tmp / "sim.json"), "--stream-dir", str(tmp / "stream"),
+            "--checkpoint-dir", str(tmp / "ck")]
+    reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("11f run: non-zero exit")
+    check_counts(f"11f run 1024² × 16, 40 steps, streamed and checkpointed ({time.perf_counter() - t0:.1f} s)",
+                 read_counts(), {"collision_step": 42, "collision_step_with_gen": 40, "adi_x_half": 40,
+                                 "adi_y_half": 40, "column_walk_device": 0})
+    stream = load_frame_stream(tmp / "stream")
+    if stream.count != 3 or load_simulation(tmp / "sim.json").metadata.get("streamed_frames_dir") is None:
+        raise AssertionError("11f run: expected 3 streamed frames and a result that points at them")
+
+    # profile's two run_setup calls keep full-detail frames as JSON-ready
+    # lists (≈ 20 s a 1024² × 16 frame on the host): it profiles a 256² film
+    small_path = save_setup(flagship_setup(256, steps=20, store_every=20), tmp / "flagship256.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(["profile", str(small_path), "--steps", "20", "--trace-dir", str(tmp / "trace")]) != 0:
+        raise AssertionError("11f profile: non-zero exit")
+    trace = (tmp / "trace" / "trace.json").read_text()
+    kernels = {k: k in trace for k in ("collision_step_kernel", "adi_kernel")}
+    print(f"  11f profile 256² × 16 --steps 20 --trace-dir: {time.perf_counter() - t0:.1f} s; trace.json "
+          f"{len(trace) / 2**20:.1f} MiB names the CUDA kernels {kernels}; launches {read_counts()['collision_step']} "
+          "K3 over the two runs", flush=True)
+    if not all(kernels.values()):
+        raise AssertionError(f"11f profile: the trace must name the CUDA kernels: {kernels}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with launches_by_bins() as seen:
+        if cli.main(["gen-tests", "--output", str(tmp / "suite.json")]) != 0:
+            raise AssertionError("11f gen-tests: non-zero exit")
+    suite = load_test_suite(tmp / "suite.json")
+    worst = suite_errors(suite)
+    expect = {("collision_step", 1): 5000, ("collision_step", 10): 2000, ("collision_step", 15): 4000}
+    if seen != expect:
+        raise AssertionError(f"11f gen-tests: K3 launches by bins {seen}, expected {expect}")
+    check_counts("11f gen-tests: no K1/K2 (every film ≤ 4096 cells runs the dense backend, as the JAX "
+                 "package's 'auto' picks)", read_counts(),
+                 {"collision_step": 11000, "collision_step_with_gen": 0, "adi_sep_x": 0, "adi_sep_y": 0,
+                  "adi_x_half": 0, "adi_y_half": 0})
+    print(f"  11f gen-tests (float32, the defaults): 28 cases in {time.perf_counter() - t0:.1f} s, written and "
+          f"loaded back; K3 launches by bins { {ne: n for (_, ne), n in seen.items()} }; worst gated errors "
+          + ", ".join(f"{cid} {err:.2e}" for cid, err in worst.items()) + f" — {card}", flush=True)
+
+    rows = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["qubit-sweep", "--json", "--device", device])
+        if rc != 0:
+            raise AssertionError(f"11f qubit-sweep --device {device}: rc {rc}")
+        rows[device] = json.loads(buf.getvalue())
+    err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-300) for a, b in zip(rows["cuda"], rows["cpu"])
+              for k in ("x_L", "p1", "parity_hz"))
+    check(f"11f qubit-sweep --json: {len(rows['cuda'])} temperatures, card vs CPU", err, 1e-10)
+    return {ne: n for (_, ne), n in seen.items()}
+
+
+def phase_ui_worker(card: str) -> None:
+    """Phase 11 (g): the GUI's run worker drives run_setup on the card, without Tk."""
+    from qpsim_tpu_torch.runner import run_setup
+    from qpsim_tpu_torch.ui.run_worker import SimulationWorker
+
+    print("== 11g ui.run_worker on the card: 256² × 16, 40 steps, no Tk", flush=True)
+    if "tkinter" in sys.modules:
+        raise AssertionError("11g: importing the run worker must not import tkinter")
+    setup = flagship_setup(256, steps=40, store_every=10)
+    reset_counts()
+    worker = SimulationWorker(setup=setup, save=False, device="cuda")
+    t0 = time.perf_counter()
+    worker.start()
+    worker.join(300)
+    if worker.is_running():
+        raise AssertionError("11g worker: not finished within 300 s")
+    kind, payload = worker.result.get_nowait()
+    if kind != "ok":
+        raise AssertionError(f"11g worker: {payload!r}")
+    live = worker.drain_live()
+    counts = read_counts()
+    check_counts(f"11g worker ({time.perf_counter() - t0:.1f} s, {len(live)} live frames)", counts,
+                 {"collision_step": 44, "collision_step_with_gen": 40, "adi_x_half": 40, "adi_y_half": 40})
+    result, _ = payload
+    direct, _ = run_setup(setup, save=False)
+    if result.times != direct.times or len(live) != 5:
+        raise AssertionError("11g worker: stored times or live frames differ from a direct run")
+    np.testing.assert_array_equal(result.mass_over_time, direct.mass_over_time)
+    print("  11g the worker's result is bit-equal to a direct run_setup on the card (mass, stored times)",
+          flush=True)
+
+
+def phase_beyond_and_cli(card: str, validation_bins: dict) -> list[dict]:
+    """Phase 11: more than 256 bins, the command line (with the analytic
+    suite's small-cell K3 rows) and the GUI's run worker."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    rows = timed_phase(phase_beyond_256, card)
+    tmp = Path(tempfile.mkdtemp(prefix="qpsim_smoke11_"))
+    try:
+        suite_bins = timed_phase(phase_cli, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows += suite_rows(card, suite_bins, validation_bins)
+    timed_phase(phase_ui_worker, card)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def timed_phase(fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3170,8 +3461,9 @@ def main() -> int:
     rows += timed_phase(phase_photon_film, card)
     timed_phase(phase_photon_film_f64)
     validation_bins = timed_phase(phase_validation, card)
-    rows += timed_phase(phase_setup_runner, card, rows, validation_bins)
+    rows += timed_phase(phase_setup_runner, card, rows)
     rows += timed_phase(phase_slice, card, main_frames)
+    rows += timed_phase(phase_beyond_and_cli, card, validation_bins)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

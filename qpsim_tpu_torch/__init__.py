@@ -11,8 +11,12 @@ scalar branches), :func:`run_setup` (a setup file's run, streamed,
 checkpointed and saved), :func:`generate_test_suite` (the 28 analytic
 cases), :func:`run_fast_validation_suite` (the physics gates), and the
 file helpers :func:`load_setup`, :func:`save_setup` and
-:func:`load_simulation` — all on ``device="cuda"`` by default.
+:func:`load_simulation` — all on ``device="cuda"`` by default.  The
+command line is ``python -m qpsim_tpu_torch <command>`` (:mod:`.cli`), the
+GUI ``python -m qpsim_tpu_torch.ui.main_app``.
 """
+
+__version__ = "0.1.0"
 
 from .io.storage import load_setup, load_simulation, save_setup
 from .runner import run_setup
@@ -21,6 +25,7 @@ from .testcases.generator import generate_test_suite
 from .validation import ValidationReport, run_fast_validation_suite
 
 __all__ = [
+    "__version__",
     "ValidationReport",
     "generate_test_suite",
     "load_setup",

@@ -2,8 +2,9 @@
 //
 // column_walk_kernel replaces four TPU kernels of qpsim_tpu/ops:
 //   K5  pallas_collisions_blocked.py, build_pallas_collision_step_blocked
-//       (kernel :101, body :324, call :930): 65–256 bins, a uniform gap or
-//       G ≤ 8 per-pixel gap ids, with the dt·g generation plane fused;
+//       (kernel :101, body :324, call :930): beyond 64 bins (the TPU
+//       kernel's envelope ends at 256, the walk here at none), a uniform
+//       gap or G ≤ 8 per-pixel gap ids, with the dt·g plane fused;
 //   K6  the same file's build_pallas_collision_step_blocked_analytic
 //       (:972): continuous gap maps, constants affine in the pixel's Δ²;
 //   K8  pallas_collisions_loop.py, build_pallas_collision_step_loop (kernel
@@ -66,6 +67,18 @@
 // phonon values in shared memory too, and P = 4, were measured the same
 // way and lost: both cost blocks per SM, which hid more latency than they
 // saved.
+//
+// Two launch forms of the one walk.  The staged form above holds the tile's
+// q and partner in shared memory: 2·NE·32·P·sizeof(T) bytes, up to NE 908
+// in float32 and 454 in float64 at P = 1 on this card's 227-KB opt-in.
+// Beyond that the device-memory form (kDevice) runs the same walk with
+// sq/sp pointing at the block's own slice of a scratch buffer in device
+// memory ([2][NE][32], P = 1), written by the same staging loop: the
+// block's threads see each other's writes after __syncthreads, and the
+// walk then reads the slice through L1/L2 with ordinary loads (not the
+// read-only path: the kernel wrote it).  It computes what the staged form
+// computes, in the same order.  The host picks the form from NE and the
+// dtype alone (ops/column_walk.py, column_form).
 
 #include <cuda_runtime.h>
 
@@ -420,15 +433,18 @@ __device__ __forceinline__ void walk(const Consts& consts, const typename Consts
 // float32 tile at P = 2 leaves 4 by shared memory, and at the 100
 // registers ptxas took unbounded K5 ran 1.27x slower on 2 blocks
 // (tools/time_blocked.py, PERF.md §6); a few spilled words cost less
-template <typename T, int P, typename Consts>
+template <typename T, int P, typename Consts, bool kDevice>
 __global__ void __launch_bounds__(kThreads, 4) column_walk_kernel(
     const T* __restrict__ q_in, const T* __restrict__ ph_in, const T* __restrict__ gen,
     T* __restrict__ q_out, T* __restrict__ ph_out, Consts consts, Columns cols, int ne, int nw,
-    long long n_pix, T dt, int update_phonons) {
+    long long n_pix, T dt, int update_phonons, T* scratch) {
   constexpr int kTile = 32 * P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);  // [ne][kTile] q (+ dt·g)
-  T* sp = sq + ne * kTile;                 // [ne][kTile] partner
+  // [ne][kTile] q (+ dt·g), then [ne][kTile] partner: in shared memory, or
+  // in the block's slice of the scratch buffer (the device-memory form)
+  T* sq = kDevice ? scratch + static_cast<long long>(blockIdx.x) * (2LL * ne * kTile)
+                  : reinterpret_cast<T*>(smem_raw);
+  T* sp = sq + ne * kTile;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
 
   // staging: consecutive threads take consecutive pixels (coalesced reads);
@@ -472,11 +488,13 @@ __global__ void __launch_bounds__(kThreads, 4) column_walk_kernel(
   }
 }
 
-template <typename T, int P, typename Consts>
+// the staged form (scratch null) or the device-memory form (scratch: the
+// blocks' slices, 2·NE·32·P entries each)
+template <typename T, int P, typename Consts, bool kDevice>
 int launch_form(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out,
                 const Consts& consts, const Columns& cols, int ne, int nw, long long n_pix,
-                double dt, int update_phonons, cudaStream_t stream) {
-  const long long smem = 2LL * ne * 32 * P * static_cast<long long>(sizeof(T));
+                double dt, int update_phonons, T* scratch, cudaStream_t stream) {
+  const long long smem = kDevice ? 0 : 2LL * ne * 32 * P * static_cast<long long>(sizeof(T));
   int device = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -484,37 +502,45 @@ int launch_form(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > max_smem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = column_walk_kernel<T, P, Consts>;
-  // above 48 KB only after the opt-in; a refused launch would never run
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = column_walk_kernel<T, P, Consts, kDevice>;
+  if (!kDevice) {
+    // above 48 KB only after the opt-in; a refused launch would never run
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const unsigned int blocks = static_cast<unsigned int>((n_pix + 32 * P - 1) / (32 * P));
   kernel<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
       q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw, n_pix, static_cast<T>(dt),
-      update_phonons);
+      update_phonons, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
 // P = 2 reads a lane's column values as one pair: even pixel counts and a
-// pair-aligned phonon state only
+// pair-aligned phonon state only; the device-memory form (scratch given)
+// takes P = 1
 template <typename T, typename Consts>
 int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, const Consts& consts,
            const Columns& cols, int ne, int nw, long long n_pix, double dt, int update_phonons,
-           int pixels, void* stream) {
+           int pixels, T* scratch, void* stream) {
   const bool pairs_ok =
       n_pix % 2 == 0 && reinterpret_cast<unsigned long long>(ph_in) % (2 * sizeof(T)) == 0;
-  if (ne < 2 || pixels < 1 || pixels > 2 || (pixels == 2 && !pairs_ok)) {
+  if (ne < 2 || pixels < 1 || pixels > 2 || (pixels == 2 && !pairs_ok) ||
+      (scratch != nullptr && pixels != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pixels == 2) {
-    return launch_form<T, 2>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw, n_pix, dt,
-                             update_phonons, s);
+  if (scratch != nullptr) {
+    return launch_form<T, 1, Consts, true>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
+                                           n_pix, dt, update_phonons, scratch, s);
   }
-  return launch_form<T, 1>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw, n_pix, dt,
-                           update_phonons, s);
+  if (pixels == 2) {
+    return launch_form<T, 2, Consts, false>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
+                                            n_pix, dt, update_phonons, nullptr, s);
+  }
+  return launch_form<T, 1, Consts, false>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
+                                          n_pix, dt, update_phonons, nullptr, s);
 }
 
 }  // namespace
@@ -528,9 +554,11 @@ int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, con
 // Dynes constants.  A channel's tables (with their
 // index arrays) may be null (channel off), gen null (no generation), ph_out
 // null when update_phonons is 0.  pixels (1 or 2) picks the lane's width.
+// scratch null launches the staged form; else the device-memory form, at
+// pixels 1, with scratch holding 2·NE·32 entries per 32-pixel tile.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a width the inputs do not allow or a tile that does not fit the block's
-// shared memory.
+// a width the inputs do not allow or a staged tile that does not fit the
+// block's shared memory.
 #define QP_COLUMN_WALK_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out,       \
                       const int* gid, const T* rho, const T* scat,                             \
@@ -539,7 +567,7 @@ int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, con
                       const int* scat_k, const int* scat_row, const int* k_count, int n_scat,  \
                       const int* rec_s, const int* rec_row, const int* s_ptr, int n_rec,       \
                       const int* row_ptr, const int* row_code, int ne, int nw, long long n_pix, \
-                      double dt, int update_phonons, int pixels, void* stream) {               \
+                      double dt, int update_phonons, int pixels, T* scratch, void* stream) {   \
     const int ns = scat != nullptr ? n_scat : 0, nr = rec != nullptr ? n_rec : 0;              \
     const Columns cols{scat_k, scat_row, k_count, rec_s, rec_row, s_ptr, row_ptr, row_code,    \
                        ns, nr};                                                                \
@@ -547,11 +575,11 @@ int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, con
       const AnalyticConsts<T> c{g2,     e_bins, inv_e, e2, zim, scat, scat_t, rec,             \
                                 rec_t,  static_cast<T>(gamma), ne, ns, nr};                    \
       return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, ne, nw, n_pix, dt,            \
-                       update_phonons, pixels, stream);                                        \
+                       update_phonons, pixels, scratch, stream);                               \
     }                                                                                          \
     const TableConsts<T> c{gid, rho, scat, scat_t, rec, rec_t, ne, ns, nr};                   \
     return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, ne, nw, n_pix, dt,              \
-                     update_phonons, pixels, stream);                                          \
+                     update_phonons, pixels, scratch, stream);                                 \
   }
 
 QP_COLUMN_WALK_ENTRY(qp_column_walk_f32, float)

@@ -19,7 +19,7 @@ from .ops.collisions import (
     build_collision_plan_arrays,
 )
 from .ops.diffusion import SplitOperator
-from .ops.phonon_map import PhononFrequencyMap, _one_hot
+from .ops.phonon_map import PhononFrequencyMap
 
 __all__ = [
     "split_operator_from_numpy",
@@ -125,17 +125,12 @@ def analytic_tables_from_numpy(
 
 def phonon_map_from_numpy(omega_bins, idx_diff, idx_sum, diff_sign) -> PhononFrequencyMap:
     """A port ``PhononFrequencyMap`` from the maps of a ``qpsim_tpu`` one
-    (its one-hot scatter matrices rebuilt from the index maps)."""
-    omega_bins = np.array(omega_bins, dtype=np.float64)
-    idx_diff = np.array(idx_diff, dtype=np.int32)
-    idx_sum = np.array(idx_sum, dtype=np.int32)
+    (its one-hot scatter matrices are formed from the index maps when read)."""
     return PhononFrequencyMap(
-        omega_bins=omega_bins,
-        idx_diff=idx_diff,
-        idx_sum=idx_sum,
+        omega_bins=np.array(omega_bins, dtype=np.float64),
+        idx_diff=np.array(idx_diff, dtype=np.int32),
+        idx_sum=np.array(idx_sum, dtype=np.int32),
         diff_sign=np.array(diff_sign, dtype=np.int8),
-        scatter_diff=_one_hot(idx_diff, omega_bins.size),
-        scatter_sum=_one_hot(idx_sum, omega_bins.size),
     )
 
 

@@ -95,8 +95,6 @@ class CollisionPlan:
     idx_sum: torch.Tensor  # (NE*NE,) int64
     emit_mask: torch.Tensor  # (NE, NE) 1.0 where E_i > E_j
     absorb_mask: torch.Tensor  # (NE, NE) 1.0 where E_i < E_j
-    scatter_diff: torch.Tensor  # (NE*NE, NW)
-    scatter_sum: torch.Tensor  # (NE*NE, NW)
     enable_recombination: bool
     enable_scattering: bool
     update_phonons: bool
@@ -126,8 +124,6 @@ def _pair_map_fields(pmap: PhononFrequencyMap, device, dtype: torch.dtype) -> di
         idx_sum=torch.as_tensor(pmap.idx_sum.reshape(-1), dtype=torch.int64, device=device),
         emit_mask=as_dev(sign > 0),
         absorb_mask=as_dev(sign < 0),
-        scatter_diff=as_dev(pmap.scatter_diff),
-        scatter_sum=as_dev(pmap.scatter_sum),
         num_omega=pmap.num_omega,
         idx_diff_np=np.asarray(pmap.idx_diff, dtype=np.int32),
         idx_sum_np=np.asarray(pmap.idx_sum, dtype=np.int32),
@@ -306,8 +302,13 @@ def _pair_update(plan: CollisionPlan, q, ph, partner, ks, kr2, dt: float):
     """The substep of a (C, NE) / (C, NW) block from its per-pixel constants.
 
     ``ks`` is dE·K^s₀ and ``kr2`` 2dE·K^r₀, each (C or 1, NE, NE) or None.
+    The pair terms reach their ω rows by ``index_add_`` over the plan's
+    pair-to-row maps, where the JAX package multiplies by (NE², NW) one-hot
+    matrices: the same sums, in another order, without those matrices
+    (2 × 12.9 GB in float32 at 1024 bins).
     """
     ne = plan.num_energy_bins
+    to_rows = lambda terms, idx: torch.zeros_like(ph).index_add_(1, idx, terms.reshape(-1, ne * ne))
     # the accumulators are updated in place: no new (C, NE)/(C, NW) buffer
     # per term
     gain = torch.zeros_like(q)
@@ -323,8 +324,8 @@ def _pair_update(plan: CollisionPlan, q, ph, partner, ks, kr2, dt: float):
         loss += torch.einsum("cij,cj->ci", Ks_eff, partner)
         if plan.update_phonons:
             base_sc = q[:, :, None] * ks * partner[:, None, :]
-            emit = (base_sc * plan.emit_mask).reshape(-1, ne * ne) @ plan.scatter_diff
-            absorb = (base_sc * plan.absorb_mask).reshape(-1, ne * ne) @ plan.scatter_diff
+            emit = to_rows(base_sc * plan.emit_mask, plan.idx_diff)
+            absorb = to_rows(base_sc * plan.absorb_mask, plan.idx_diff)
             a_ph += emit
             b_ph += emit - absorb
 
@@ -334,8 +335,8 @@ def _pair_update(plan: CollisionPlan, q, ph, partner, ks, kr2, dt: float):
         gain += partner * torch.einsum("cij,cj->ci", kr2 * n_sum, partner)
         if plan.update_phonons:
             kr = 0.5 * kr2  # dE·K^r₀
-            rec = (q[:, :, None] * kr * q[:, None, :]).reshape(-1, ne * ne) @ plan.scatter_sum
-            pb = (partner[:, :, None] * kr * partner[:, None, :]).reshape(-1, ne * ne) @ plan.scatter_sum
+            rec = to_rows(q[:, :, None] * kr * q[:, None, :], plan.idx_sum)
+            pb = to_rows(partner[:, :, None] * kr * partner[:, None, :], plan.idx_sum)
             a_ph += rec
             b_ph += rec - pb
 
@@ -449,10 +450,10 @@ def make_collision_step(plan: CollisionPlan, dt: float, *, gap_id_arg: bool = Fa
     identity with no channel on.  A plan on the CPU runs
     :func:`collision_step_plain`; a plan on the card launches the kernel of
     ``ops.collisions_blocked_cuda.plan_launcher`` (K3 or K5; more than eight
-    per-gap tables on K5 with int32 gap ids), built here once, and raises
-    beyond 256 bins.  With ``gap_id_arg=True`` the step takes a third
-    argument, a dense (Ny, Nx) gap-id plane used instead of the plan's (the
-    form spatially sharded callers need); a uniform plan ignores it.
+    per-gap tables on K5 with int32 gap ids), built here once.  With
+    ``gap_id_arg=True`` the step takes a third argument, a dense (Ny, Nx)
+    gap-id plane used instead of the plan's (the form spatially sharded
+    callers need); a uniform plan ignores it.
     """
     if plan.rho is None:
         raise ValueError("make_collision_step takes a plan of per-gap tables; an analytic plan "

@@ -18,8 +18,9 @@ Port of ``qpsim_tpu.ops.pallas_collisions_blocked``:
   :func:`qpsim_tpu_torch.ops.collisions.make_collision_step` on the card.
 
 They compute the same function as K3 and K4
-(:mod:`qpsim_tpu_torch.ops.collisions_cuda`), for up to
-:data:`MAX_BLOCKED_BINS` bins, so their plain versions are K3's and K4's
+(:mod:`qpsim_tpu_torch.ops.collisions_cuda`), at any number of bins
+beyond 64 (the JAX package's TPU kernels stop at 256 and run its XLA
+integrator beyond), so their plain versions are K3's and K4's
 (:func:`~qpsim_tpu_torch.ops.collisions.collision_step_plain`,
 :func:`~qpsim_tpu_torch.ops.collisions.collision_step_analytic_plain`).
 On the card they walk the TPU kernel's energy offsets and anti-diagonals
@@ -27,7 +28,9 @@ in K9's column form (one column per (offset, ω row) and (anti-diagonal, ω
 row) group, :func:`~qpsim_tpu_torch.ops.collisions_rows_cuda.columns`), so
 split ω diagonals stay exact, with the dt·g plane fused; the tables come
 from :func:`build_column_tables`, once per program, and the launch from
-:mod:`qpsim_tpu_torch.ops.column_walk`.  For tensors on the CPU
+:mod:`qpsim_tpu_torch.ops.column_walk` — the tile staged in shared memory
+up to 908 bins in float32 and 454 in float64, in device memory beyond
+(:func:`~qpsim_tpu_torch.ops.column_walk.column_form`).  For tensors on the CPU
 a wrapper runs its plain version; for CUDA tensors it launches the kernel
 or raises — it never falls back.  Launches are counted in
 :data:`~qpsim_tpu_torch.ops.collisions_cuda.LAUNCHES`.
@@ -60,7 +63,6 @@ from .column_walk import ColumnTables, column_tables
 
 __all__ = [
     "KERNEL_STEPS",
-    "MAX_BLOCKED_BINS",
     "build_column_tables",
     "collision_kernel_for",
     "collision_step_blocked",
@@ -68,14 +70,6 @@ __all__ = [
     "kernel_forms",
     "plan_launcher",
 ]
-
-#: energy bins the blocked kernels take: the JAX package's envelope
-#: (``_MAX_LOOP_BINS``).  Shared memory holds more — q and partner of a
-#: 32-pixel tile take 64 KB (float32) / 128 KB (float64) of the block's
-#: 227 KB at 256 bins — but nothing beyond 256 is checked against the
-#: reference.
-MAX_BLOCKED_BINS = 256
-
 
 def _host(t: torch.Tensor | None):
     return None if t is None else t.detach().to("cpu", torch.float64).numpy()
@@ -132,7 +126,7 @@ def collision_step_blocked(
     if n_qp.device.type == "cpu":
         return collision_step_plain(plan, n_qp, n_ph, dt, gen)
     name = "collision_step_blocked" if plan.gap_id is None else "collision_step_blocked_gid"
-    return launch_columns(name, plan, tables, n_qp, n_ph, dt, gen, max_bins=MAX_BLOCKED_BINS)
+    return launch_columns(name, plan, tables, n_qp, n_ph, dt, gen, max_bins=None)
 
 
 def collision_step_blocked_analytic(
@@ -155,19 +149,18 @@ def collision_step_blocked_analytic(
     if n_qp.device.type == "cpu":
         return collision_step_analytic_plain(plan, analytic, n_qp, n_ph, dt, gen)
     return launch_columns("collision_step_blocked_analytic", plan, tables, n_qp, n_ph, dt, gen, analytic,
-                          MAX_BLOCKED_BINS)
+                          max_bins=None)
 
 
-def collision_kernel_for(ne: int, n_gaps: int) -> str | None:
-    """The collision kernel for NE bins and G unique gaps, as ``qpsim_tpu`` dispatches.
+def collision_kernel_for(ne: int, n_gaps: int) -> str:
+    """The collision kernel for NE bins and G unique gaps.
 
     "K3" (uniform gap) or "K3_gid" (G ≤ 8 gap ids) up to 64 bins, "K5" /
-    "K5_gid" from 65 to 256; continuous maps (G > 8) "K4" up to 64 bins,
-    "K6" to 256.  None above 256 bins, where only the plain versions run
-    (the JAX package runs its XLA integrator there).
+    "K5_gid" beyond; continuous maps (G > 8) "K4" up to 64 bins, "K6"
+    beyond.  ``qpsim_tpu`` dispatches so up to 256 bins and runs its XLA
+    integrator beyond, with per-gap stacks also for G > 8 (refused past 4
+    GB); the port keeps K5/K6 there.
     """
-    if ne > MAX_BLOCKED_BINS:
-        return None
     if n_gaps > MAX_GAP_IDS:
         return "K4" if ne <= MAX_KERNEL_BINS else "K6"
     kernel = "K3" if ne <= MAX_KERNEL_BINS else "K5"
@@ -191,14 +184,8 @@ KERNEL_STEPS: dict[str, tuple[Callable, Callable]] = {
 
 def kernel_forms(ne: int, n_gaps: int, analytic: bool) -> tuple[Callable, Callable]:
     """(wrapper, table builder) of the kernel :func:`collision_kernel_for`
-    names: K3/K4 up to 64 bins, K5/K6 to 256; more bins raise (ROADMAP.md,
-    queue 1 item 14)."""
-    code = collision_kernel_for(ne, MAX_GAP_IDS + 1 if analytic else n_gaps)
-    if code is None:
-        raise NotImplementedError(
-            f"{ne} energy bins: the collision kernels hold at most 256; the integrator beyond "
-            "them is not ported to the card (ROADMAP.md, queue 1 item 14: NE > 256 on CUDA).")
-    return KERNEL_STEPS[code]
+    names: K3/K4 up to 64 bins, K5/K6 beyond."""
+    return KERNEL_STEPS[collision_kernel_for(ne, MAX_GAP_IDS + 1 if analytic else n_gaps)]
 
 
 def plan_launcher(plan: CollisionPlan):
@@ -206,13 +193,12 @@ def plan_launcher(plan: CollisionPlan):
     the plan or a copy of it with other gap ids.
 
     The kernel of :func:`kernel_forms`: K3 (uniform gap or at most
-    :data:`MAX_GAP_IDS` gaps by id) to 64 bins, K5 to 256.  More per-gap
+    :data:`MAX_GAP_IDS` gaps by id) to 64 bins, K5 beyond.  More per-gap
     tables than that — they are not affine in Δ² (a τ per ensemble member,
     say), so K4/K6 cannot take them — run K5 with gap ids
     (``collision_step_blocked_gid``), whose column walk reads any number of
     int32 ids.  Tables are built here once.
     """
-    # (raises beyond 256 bins)
     wrapper, tables_of = kernel_forms(plan.num_energy_bins, min(plan.num_gaps, MAX_GAP_IDS), analytic=False)
     if plan.num_gaps > MAX_GAP_IDS:
         wrapper, tables_of = collision_step_blocked, build_column_tables

@@ -330,16 +330,17 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def check_inputs(plan, n_qp, n_ph, gen, named_tables, max_bins: int) -> None:
+def check_inputs(plan, n_qp, n_ph, gen, named_tables, max_bins: int | None) -> None:
     """Refuse a collision kernel's inputs that do not match ``plan``: shapes,
     dtype, device, contiguity of the states, ``gen`` and ``named_tables``
-    ((name, tensor) pairs, None skipped), and more than ``max_bins`` bins."""
+    ((name, tensor) pairs, None skipped), and more than ``max_bins`` bins
+    (None: the column walk of K5/K6, which takes any number)."""
     if not plan.active:
         raise ValueError("collision kernel called with no collision channel enabled")
     if n_qp.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"collision kernel takes float32 or float64, got {n_qp.dtype}")
     ne, nw = plan.num_energy_bins, plan.num_omega
-    if ne > max_bins:
+    if max_bins is not None and ne > max_bins:
         raise ValueError(f"collision kernel holds at most {max_bins} bins, got {ne}")
     if n_qp.ndim != 3 or n_qp.shape[0] != ne:
         raise ValueError(f"n_qp must be ({ne}, Ny, Nx), got {tuple(n_qp.shape)}")
@@ -429,7 +430,7 @@ def _on_device(name: str, tables: CollisionKernelTables, n_qp) -> None:
 
 
 def launch_columns(name: str, plan: CollisionPlan, tables: ColumnTables, n_qp, n_ph, dt: float, gen,
-                   analytic: AnalyticTables | None = None, max_bins: int = MAX_KERNEL_BINS) -> tuple:
+                   analytic: AnalyticTables | None = None, max_bins: int | None = MAX_KERNEL_BINS) -> tuple:
     """Launch the column walk (``csrc/offset_walk.cu``) on CUDA tensors, counted as ``name``:
     K5/K6, and K3/K4 beyond the register buckets."""
     if n_qp.device.type != "cuda":

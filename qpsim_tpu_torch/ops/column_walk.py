@@ -10,7 +10,10 @@ K8 groups by offset and anti-diagonal
 (offset, ω row) and (anti-diagonal, ω row)
 (:func:`~qpsim_tpu_torch.ops.collisions_rows_cuda.columns`).  This module
 moves such host tables to the device (:func:`column_tables`), picks the
-launch's pixels per lane (:func:`column_pixels`) and launches the kernel
+launch's form (:func:`column_form`: the tile's q and partner staged in
+shared memory, or past what a block's shared memory holds — 908 bins in
+float32, 454 in float64 — in a scratch buffer in device memory) and
+pixels per lane (:func:`column_pixels`), and launches the kernel
 (:func:`launch_column_walk`).  Gap ids are read as int32.
 """
 
@@ -25,19 +28,26 @@ from ..utils.cuda_build import load_kernels, refuse_grad
 from .collisions import AnalyticTables
 
 __all__ = [
+    "LAUNCHES",
     "MAX_SHARED_BYTES",
     "ColumnTables",
     "blocks_per_sm",
+    "column_form",
     "column_pixels",
     "column_tables",
     "launch_column_walk",
     "row_lists",
 ]
 
-#: dynamic shared memory a block may opt into on the H100 (227 KB); q and
-#: partner of a tile must fit it: NE ≤ 907 in float32, 453 in float64 at
-#: one pixel per lane
+#: dynamic shared memory a block may opt into on the H100 (227 KB); the
+#: staged form's q and partner of a tile must fit it: NE ≤ 908 in float32,
+#: 454 in float64 at one pixel per lane
 MAX_SHARED_BYTES = 232_448
+
+#: launches of the column walk's device-memory form since import (or since
+#: the caller reset it), whichever wrapper launched it; each is also counted
+#: under its wrapper's own name
+LAUNCHES = {"column_walk_device": 0}
 
 
 def row_lists(num_omega: int, scat_row: np.ndarray | None, rec_row: np.ndarray | None):
@@ -169,20 +179,24 @@ def blocks_per_sm(smem: int) -> int:
     return min(8, 233_472 // (smem + 1024))
 
 
+def column_form(dtype: torch.dtype, ne: int) -> str:
+    """The column walk's launch form at NE bins: "staged" while q and partner
+    of a 32-pixel tile (2·NE·32 entries) fit a block's shared memory
+    (:data:`MAX_SHARED_BYTES`), else "device", which keeps them in a
+    scratch buffer in device memory."""
+    size = 4 if dtype == torch.float32 else 8
+    return "staged" if 2 * ne * 32 * size <= MAX_SHARED_BYTES else "device"
+
+
 def column_pixels(dtype: torch.dtype, ne: int, n_pix: int) -> int:
     """Pixels per lane of the column walk's launch, the rule measured with
     ``tools/column_walk_levers.py``: 2 while the tile (q and partner of 64
-    pixels) still leaves 3 blocks per SM and the pixel count is even, else 1."""
+    pixels) still leaves 3 blocks per SM and the pixel count is even, else 1
+    (the device-memory form launches at 1 whatever this says)."""
     size = 4 if dtype == torch.float32 else 8
-    state = 2 * ne * 64 * size
-    if n_pix % 2 == 0 and blocks_per_sm(state) >= 3:
+    if n_pix % 2 == 0 and blocks_per_sm(2 * ne * 64 * size) >= 3:
         return 2
-    if state // 2 <= MAX_SHARED_BYTES:
-        return 1
-    raise ValueError(
-        f"column walk: q and partner of {ne} bins take {2 * ne * 32 * size} B of shared memory "
-        f"for a 32-pixel tile, a block holds {MAX_SHARED_BYTES}"
-    )
+    return 1
 
 
 def _ptr(t: torch.Tensor | None):
@@ -190,10 +204,14 @@ def _ptr(t: torch.Tensor | None):
 
 
 def launch_column_walk(tables: ColumnTables, n_qp: torch.Tensor, n_ph: torch.Tensor, dt: float,
-                       gen: torch.Tensor | None, update_phonons: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                       gen: torch.Tensor | None, update_phonons: bool,
+                       form: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/offset_walk.cu`` on CUDA tensors (inputs checked by the
-    caller) and return (q_out, ph_out), at :func:`column_pixels` pixels per
-    lane.  Counting is the caller's."""
+    caller) and return (q_out, ph_out), in :func:`column_form`'s form (or
+    ``form``, "staged" or "device", to hold one against the other; a staged
+    tile that does not fit raises) at :func:`column_pixels` pixels per lane.
+    Counting under the wrapper's name is the caller's; a device-memory
+    launch also counts in :data:`LAUNCHES`."""
     refuse_grad("the column walk kernel (csrc/offset_walk.cu)",
                 "ops.collisions.collision_step_plain or ops.collisions_loop_cuda.collision_step_loop_plain",
                 n_qp, n_ph, gen)
@@ -212,9 +230,16 @@ def launch_column_walk(tables: ColumnTables, n_qp: torch.Tensor, n_ph: torch.Ten
     if gid is not None and (gid.device != n_qp.device or gid.numel() != n_pix
                             or gid.dtype != torch.int32 or not gid.is_contiguous()):
         raise ValueError(f"gap ids must be {n_pix} contiguous int32 entries on {n_qp.device}")
+    form = column_form(n_qp.dtype, ne) if form is None else form
+    if form not in ("staged", "device"):
+        raise ValueError(f"column walk form must be 'staged' or 'device', got {form!r}")
+    device_form = form == "device"
     pixels = column_pixels(n_qp.dtype, ne, n_pix)
-    if n_ph.data_ptr() % (2 * n_ph.element_size()):
+    if device_form or n_ph.data_ptr() % (2 * n_ph.element_size()):
         pixels = 1  # a pair of column values is one load: pair-aligned rows only
+    # the device-memory form's tiles: q and partner of 32 pixels per block
+    scratch = (torch.empty(-(-n_pix // 32) * 2 * ne * 32, dtype=n_qp.dtype, device=n_qp.device)
+               if device_form else None)
     lib = load_kernels()
     fn = lib.qp_column_walk_f32 if n_qp.dtype == torch.float32 else lib.qp_column_walk_f64
     q_out = torch.empty_like(n_qp)
@@ -229,9 +254,10 @@ def launch_column_walk(tables: ColumnTables, n_qp: torch.Tensor, n_ph: torch.Ten
         _ptr(tables.scat_k), _ptr(tables.scat_row), _ptr(tables.k_count), n_scat,
         _ptr(tables.rec_s), _ptr(tables.rec_row), _ptr(tables.s_ptr), n_rec,
         _ptr(tables.row_ptr), _ptr(tables.row_code),
-        ne, nw, n_pix, float(dt), int(update_phonons), int(pixels),
+        ne, nw, n_pix, float(dt), int(update_phonons), int(pixels), _ptr(scratch),
         torch.cuda.current_stream(n_qp.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"column walk kernel launch (P={pixels}) failed with CUDA error {err}")
+        raise RuntimeError(f"column walk kernel launch ({form} form, P={pixels}) failed with CUDA error {err}")
+    LAUNCHES["column_walk_device"] += device_form
     return q_out, ph_out

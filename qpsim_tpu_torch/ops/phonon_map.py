@@ -7,12 +7,11 @@ grid of all energies a QP pair can emit or absorb:
 given the energy grid, so they are computed once on the host and baked into
 the collision step as static int32 tables.
 
-For the plain collision integrator we additionally precompute **one-hot scatter
-matrices** S_diff/S_sum of shape (NE², NW): summing pair quantities onto ω
-bins then becomes a single (P, NE²) @ (NE², NW) matmul instead of
-a scatter-add (the reference uses np.bincount per pixel, solver.py:757-787).
-For a uniform energy grid NW is only O(NE) (sums/diffs are Toeplitz/Hankel in
-(i,j)), so this matmul is cheap.
+The JAX package's plain integrator sums pair quantities onto ω bins by
+**one-hot scatter matrices** S_diff/S_sum of shape (NE², NW); the map still
+offers them (``scatter_diff``/``scatter_sum``, formed when read, as the
+differentiable simulation reads them), but the port's plain substep scatters
+by the index maps instead: at 1024 bins each matrix holds 3.2·10⁹ entries.
 """
 
 from __future__ import annotations
@@ -34,7 +33,8 @@ class PhononFrequencyMap:
     idx_diff   : (NE, NE) int32 — ω index of |Eᵢ−Eⱼ|.
     idx_sum    : (NE, NE) int32 — ω index of Eᵢ+Eⱼ.
     diff_sign  : (NE, NE) int8  — sign(Eᵢ−Eⱼ): +1 emission, −1 absorption.
-    scatter_diff : (NE², NW) float — one-hot rows mapping pair (i,j) → ω bin.
+    scatter_diff : (NE², NW) float — one-hot rows mapping pair (i,j) → ω bin
+                   (formed on each read).
     scatter_sum  : (NE², NW) float — same for sums.
     """
 
@@ -42,12 +42,18 @@ class PhononFrequencyMap:
     idx_diff: np.ndarray
     idx_sum: np.ndarray
     diff_sign: np.ndarray
-    scatter_diff: np.ndarray
-    scatter_sum: np.ndarray
 
     @property
     def num_omega(self) -> int:
         return int(self.omega_bins.size)
+
+    @property
+    def scatter_diff(self) -> np.ndarray:
+        return _one_hot(self.idx_diff, self.num_omega)
+
+    @property
+    def scatter_sum(self) -> np.ndarray:
+        return _one_hot(self.idx_sum, self.num_omega)
 
 
 def _one_hot(indices: np.ndarray, depth: int, dtype=np.float64) -> np.ndarray:
@@ -69,12 +75,9 @@ def build_phonon_frequency_map(E_bins: np.ndarray) -> PhononFrequencyMap:
     idx_diff = inverse[: ne * ne].reshape(ne, ne).astype(np.int32)
     idx_sum = inverse[ne * ne :].reshape(ne, ne).astype(np.int32)
     diff_sign = np.sign(E[:, None] - E[None, :]).astype(np.int8)
-    nw = int(omega_bins.size)
     return PhononFrequencyMap(
         omega_bins=omega_bins,
         idx_diff=idx_diff,
         idx_sum=idx_sum,
         diff_sign=diff_sign,
-        scatter_diff=_one_hot(idx_diff, nw),
-        scatter_sum=_one_hot(idx_sum, nw),
     )

@@ -268,11 +268,13 @@ class CudaADI(ADIDiffusion):
         self.separable = _separable_applies(op, coupled)
 
     def make_step(self, dt: float):
+        # the kernels take contiguous states; the plain collision substep
+        # (collision_backend='plain') hands back a transposed view
         if self.separable:
             factors = SepFactors.build(self._op, dt, self.device, self.dtype)
-            return lambda state: adi_sep_step(state, factors)
+            return lambda state: adi_sep_step(state.contiguous(), factors)
         planes, alpha = self.planes, 0.5 * float(dt)
-        return lambda state: adi_step(state, planes, alpha)
+        return lambda state: adi_step(state.contiguous(), planes, alpha)
 
 
 def choose_backend(

@@ -17,14 +17,14 @@ Dispatch (mirrors ``program_build.py:67-231`` and
 * collisions — ``collision_backend='auto'`` runs the CUDA kernel wrappers,
   which launch their kernels for CUDA tensors and run the plain versions
   for CPU tensors (:func:`collision_kernel_for`): with per-gap tables for
-  G ≤ 8 unique gaps (gap ids when G > 1) K3 up to 64 bins and K5 up to
-  256, from the per-pixel Δ² for G > 8 (no per-gap stacks) K4 and K6;
-  beyond 256 bins the plain versions on the CPU, an error on CUDA.
-  ``'kernel'`` does the same but raises on the CPU; ``'plain'`` runs the
-  plain per-gap gather version everywhere, which refuses stacks above 4
-  GB.  The JAX package's names are aliases: ``'pallas'`` is ``'kernel'``
-  (beyond 256 bins with the JAX package's ``ValueError``), ``'xla'`` is
-  ``'plain'``.  K3/K4 read the pair-walk tables of ``build_kernel_tables``,
+  G ≤ 8 unique gaps (gap ids when G > 1) K3 up to 64 bins and K5 beyond,
+  from the per-pixel Δ² for G > 8 (no per-gap stacks) K4 and K6, at any
+  number of bins (the JAX package runs its XLA gather integrator beyond
+  256 bins, per-gap stacks for G > 8 included, which it refuses past 4
+  GB).  ``'kernel'`` does the same but raises on the CPU; ``'plain'`` runs
+  the plain per-gap gather version everywhere, which refuses stacks above
+  4 GB.  The JAX package's names are aliases: ``'pallas'`` is ``'kernel'``,
+  ``'xla'`` is ``'plain'``.  K3/K4 read the pair-walk tables of ``build_kernel_tables``,
   K5/K6 the column tables of ``build_column_tables``, both built here once.
 * diffusion — see :func:`~qpsim_tpu_torch.solver.diffusion_backends.choose_backend`.
 * generation — constant and pulse: the dt·g plane is fused into the
@@ -59,7 +59,7 @@ from ..ops.collisions import (
     collision_step_analytic_plain,
     collision_step_plain,
 )
-from ..ops.collisions_blocked_cuda import KERNEL_STEPS, MAX_BLOCKED_BINS, collision_kernel_for
+from ..ops.collisions_blocked_cuda import KERNEL_STEPS, collision_kernel_for
 from ..ops.collisions_cuda import MAX_GAP_IDS
 from ..ops.diffusion import build_directional_stencils, fold_diffusion
 from ..ops.dos import (
@@ -158,17 +158,6 @@ def build_engine_program(
     # per-pixel constants from Δ² (K4, K6), no per-gap stacks
     analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
     kernel = collision_kernel_for(num_energy_bins, int(unique_gaps.size)) if use_kernel else None
-    if use_kernel and kernel is None and collision_backend == "pallas":
-        raise ValueError(
-            "collision_backend='pallas' requested but the configuration is outside the kernel's "
-            f"envelope (2-{MAX_BLOCKED_BINS} bins)"
-        )
-    if use_kernel and kernel is None and device.type == "cuda":
-        raise NotImplementedError(
-            f"{num_energy_bins} energy bins: the collision kernels hold at most "
-            f"{MAX_BLOCKED_BINS}; the integrator beyond them is not ported to the "
-            "card (ROADMAP.md, queue 1 item 14: NE > 256 on CUDA)."
-        )
 
     # --- diffusion backend -------------------------------------------------
     backend = None

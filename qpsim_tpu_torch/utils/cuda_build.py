@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_kernels", "build_dir", "ptxas_report", "refuse_grad"]
+__all__ = ["load_kernels", "build_dir", "library_path", "nvcc_version", "ptxas_report", "refuse_grad"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -81,7 +81,19 @@ def _nvcc() -> str:
     )
 
 
-def _library_path() -> Path:
+def nvcc_version() -> str | None:
+    """The last line of ``nvcc --version`` (its release), or None without nvcc."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, timeout=60).stdout
+    except (RuntimeError, OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.strip().splitlines()
+    return lines[-1] if lines else None
+
+
+def library_path() -> Path:
+    """The kernel library for the sources in this checkout: named by a hash of
+    the sources, their headers and the flags (it exists once built)."""
     h = hashlib.sha256()
     # the headers the sources include count too
     for src in sorted(_sources() + list(_CSRC.glob("*.cuh"))):
@@ -126,7 +138,7 @@ def load_kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = _library_path()
+            path = library_path()
             if not path.is_file():
                 _build(path)
             _lib = _declare(ctypes.CDLL(str(path)))
@@ -167,9 +179,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # q_in, ph_in, gen, q_out, ph_out, gid, rho, scat, scat_t, rec,
         # rec_t, g2, e_bins, inv_e, e2, zim, gamma, scat_k, scat_row,
         # k_count, n_scat, rec_s, rec_row, s_ptr, n_rec, row_ptr, row_code,
-        # ne, nw, n_pix, dt, update_phonons, pixels, stream
+        # ne, nw, n_pix, dt, update_phonons, pixels, scratch, stream
         fn.argtypes = ([P] * 16 + [D] + [P] * 3 + [I] + [P] * 3 + [I] + [P] * 2
-                       + [I, I, LL, D, I, I, P])
+                       + [I, I, LL, D, I, I, P, P])
         fn.restype = I
         fn = getattr(lib, f"qp_adi_lines_{suffix}")
         # rhs, lo, di, hi, scale, out, nb, nbp, n, batch, k, alpha, stream

@@ -11,7 +11,10 @@ columns with k ≤ i, then those with i + k < NE, then the recombination
 columns of s ∈ [i, i + NE), from the [bin][column] tables; per ω row its
 column list in order, from the [column][bin] copies.  Each
 lane's walk is vectorised over the tile's pixels, which changes no sum's
-order.  Imported by the CPU tests of K5/K6 and K8/K9.
+order.  ``form="device"`` is the device-memory form (``kDevice``, P = 1):
+the staging writes each block's q and partner into its own [2][NE][32]
+slice of one scratch buffer, and the walk reads them from there.
+Imported by the CPU tests of K5/K6 and K8/K9.
 """
 
 import numpy as np
@@ -51,10 +54,13 @@ def _np(t):
     return None if t is None else t.detach().cpu().numpy()
 
 
-def transcribe(tables, q, ph, gen, dt, update_phonons, pixels):
-    """One substep of the kernel at ``pixels`` per lane: (q_out, ph_out) as (NE, …), (NW, …)."""
+def transcribe(tables, q, ph, gen, dt, update_phonons, pixels, form="staged"):
+    """One substep of the kernel at ``pixels`` per lane in ``form`` ("staged"
+    or "device"): (q_out, ph_out) as (NE, …), (NW, …)."""
     ne, nw = tables.num_energy_bins, tables.num_omega
     tile = 32 * pixels
+    if form not in ("staged", "device") or (form == "device" and pixels != 1):
+        raise ValueError(f"the {form} form runs at {pixels} pixels per lane")
     scat, rec, rho = _np(tables.scat), _np(tables.rec), _np(tables.rho)
     scat_t, rec_t = _np(tables.scat_t), _np(tables.rec_t)  # the phonon side's copies
     scat_k, scat_row, k_count, rec_s, rec_row, s_ptr, row_ptr, row_code = (
@@ -71,6 +77,7 @@ def transcribe(tables, q, ph, gen, dt, update_phonons, pixels):
         keys = _np(a.g2)
         e_b, inv_e, e2, zim = (_np(t) for t in (a.E, a.inv_E, a.e2, a.zi))
     q_out, ph_out = np.empty_like(qf), phf.copy()
+    scratch = np.full((-(-n_pix // tile), 2, ne, tile), np.nan) if form == "device" else None
     for t0 in range(0, n_pix, tile):
         p = t0 + np.arange(tile)
         valid = p < n_pix
@@ -86,6 +93,9 @@ def transcribe(tables, q, ph, gen, dt, update_phonons, pixels):
                                    zim[:, None], a.gamma)
             sp = rh * np.maximum(1.0 - sq * inv, 0.0)
         sp = np.where(valid, sp, 0.0)
+        if scratch is not None:  # the block's slice: written by the staging, read by the walk
+            scratch[t0 // tile, 0], scratch[t0 // tile, 1] = sq, sp
+            sq, sp = scratch[t0 // tile, 0], scratch[t0 // tile, 1]
         sd = np.where(valid, phf[scat_row[:n_scat]][:, pc], 0.0)
         ss = np.where(valid, phf[rec_row[:n_rec]][:, pc], 0.0)
         # the warp-uniform test over the lanes' P pixels

@@ -19,7 +19,8 @@ K4's, the same function over more bins):
   a trap and a gradient, against the JAX engine on its blocked kernels
   (mass 1e-9, frames 1e-8, as ``tests/test_engine.py`` holds them);
 * the dispatch (``collision_kernel_for``) at its boundaries, the wrapper
-  the engine steps through, and the error on CUDA beyond 256 bins;
+  the engine steps through, and beyond 256 bins K5 chosen on CUDA (the
+  cap is gone: ``tests/test_torch_beyond_256.py``), plain on the CPU;
 * the new modules under the port's no-JAX rule.
 """
 
@@ -60,7 +61,6 @@ from qpsim_tpu_torch.ops import collisions_cuda  # noqa: E402
 from qpsim_tpu_torch.ops.collisions import collision_step_analytic_plain, collision_step_plain  # noqa: E402
 from qpsim_tpu_torch.ops import collisions_rows_cuda as t_rows  # noqa: E402
 from qpsim_tpu_torch.ops.collisions_blocked_cuda import (  # noqa: E402
-    MAX_BLOCKED_BINS,
     build_column_tables,
     collision_step_blocked,
     collision_step_blocked_analytic,
@@ -333,11 +333,10 @@ def test_engine_at_72_bins_matches_the_jax_blocked_kernels(gap_expression):
 @pytest.mark.parametrize(
     "ne,n_gaps,kernel",
     [(64, 1, "K3"), (65, 1, "K5"), (64, 8, "K3_gid"), (65, 8, "K5_gid"), (256, 2, "K5_gid"),
-     (64, 9, "K4"), (65, 9, "K6"), (256, 9, "K6"), (256, 1, "K5"), (257, 1, None), (257, 9, None)],
+     (64, 9, "K4"), (65, 9, "K6"), (256, 9, "K6"), (256, 1, "K5"), (257, 1, "K5"), (257, 9, "K6")],
 )
 def test_collision_kernel_for_boundaries(ne, n_gaps, kernel):
     assert collision_kernel_for(ne, n_gaps) == kernel
-    assert MAX_BLOCKED_BINS == 256
 
 
 @pytest.mark.parametrize(
@@ -363,13 +362,23 @@ def test_engine_steps_through_the_dispatched_wrapper(monkeypatch, ne, gap_expres
 
 
 def test_beyond_the_cap_cuda_raises_and_the_cpu_runs_plain(monkeypatch):
+    """Past 256 bins the engine on CUDA dispatches K5 (under "auto" and the JAX
+    name "pallas") instead of raising; this machine then stops it before any
+    tensor reaches the card.  On the CPU it runs the plain version."""
+    from qpsim_tpu_torch.solver import program_build
+
+    class Dispatched(Exception):
+        pass
+
+    def spy(ne, n_gaps):
+        raise Dispatched(collision_kernel_for(ne, n_gaps))
+
     kw = _strip_kwargs("torch", num_energy_bins=257, total_time=0.05, enable_scattering=False)
     monkeypatch.setattr(t_engine, "_resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="256.*ROADMAP"):
-        T.run_2d_crank_nicolson(**kw, dtype=torch.float64)
-    # the JAX package's name for the kernel path raises its envelope error there
-    with pytest.raises(ValueError, match="collision_backend='pallas' requested but .*2-256 bins"):
-        T.run_2d_crank_nicolson(**kw, dtype=torch.float64, collision_backend="pallas")
+    monkeypatch.setattr(program_build, "collision_kernel_for", spy)
+    for backend in ("auto", "pallas"):
+        with pytest.raises(Dispatched, match="^K5$"):
+            T.run_2d_crank_nicolson(**kw, dtype=torch.float64, collision_backend=backend)
     monkeypatch.undo()
     before = dict(collisions_cuda.LAUNCHES)
     out = T.run_2d_crank_nicolson(**kw, device="cpu")

@@ -188,7 +188,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted(_PORT.rglob("*.py")) + [_PORT.parent / "chip_smoke.py"]
     assert len(files) > 20
     assert _PORT / "io" / "checkpoint.py" in files and _PORT / "runner.py" in files
-    for name in ("observables.py", "qubit.py", "diff.py", "parallel/__init__.py", "parallel/ensemble.py"):
+    for name in ("observables.py", "qubit.py", "diff.py", "parallel/__init__.py", "parallel/ensemble.py",
+                 "cli.py", "__main__.py", "utils/profiling.py", "utils/cuda_build.py",
+                 *(f"ui/{m}.py" for m in ("theme", "playback", "run_worker", "dialogs", "viewers",
+                                          "launch_dialog", "setup_editor", "main_app"))):
         assert _PORT / name in files, name
     bad = [
         (str(f.relative_to(_PORT.parent)), name)
