@@ -167,12 +167,35 @@ a non-zero exit:
    the card against the CPU; (11g) ``ui.run_worker`` driving
    ``run_setup`` on the card at 256² × 16 without Tk, bit-equal to a
    direct call;
-12. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
+12. sharding on the card (``qpsim_tpu_torch.parallel``), 4 shards of
+   card 0 (``make_mesh`` with the card repeated): (a) phase 4's physics
+   at 1024² × 16, float32, 15 exact steps, light snapshots, through
+   ``run_2d_crank_nicolson(mesh=...)`` under the Wang and the pencil y
+   solve: 8 K3 and 8 K7 (``adi_lines``: the x half, and the pencil y half
+   or the Wang local solve) launches a step, frames and mass within 1e-5
+   of the single-device engine, steady ms/step beside it; one bare
+   sharded step's device time split into kernels, copies and glue
+   (``torch.profiler``) and the host's time inside the exchange; CPU
+   shards on the card's mesh refused; (b) float64 at 256² × 16 within
+   1e-10 of the single-device engine (prefactored and lazy Wang, pencil),
+   and K7's local solves against the plain recurrences and K10; (c) a gap
+   gradient at 1024² × 16 through K4 with each shard's gap plane passed
+   at call time, at 512² × 100 through K6 so, and a uniform gap at 512² ×
+   100 through K5, each against its single-device run; (d) merged Strang
+   with a constant generation fused into K3 (L + 1 launches a segment of
+   L steps per shard); (e) the distributed exchange on NCCL at world size
+   1 (``initialize_distributed`` on a localhost port) bit-equal to the
+   local exchange; (f) ``run --space-shards 1 --device cuda`` in process,
+   and ``--space-shards 2`` refused with exit code 2 on one card; then
+   K7's rows at the sharded shapes and K4/K6's with call-time planes,
+   each against its plain version;
+13. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
    times at the same shapes from phases 4, 4c and 6 of this run, with
    phase 9's launches, and the small-cell K3 rows; phase 10's K10, K3,
    K3-gid, K4 and column-walk rows at the slice's shapes; phase 11's K5
-   and K6 rows beyond 256 bins, each with its form and shapes), the card
-   line, and a last JSON line ``{"ok": true, "device": {...}}``.
+   and K6 rows beyond 256 bins, each with its form and shapes; phase 12's
+   sharded rows), the card line, and a last JSON line
+   ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
 compared arrays.  Kernel timings use CUDA events after a warm-up; K1's and
@@ -3438,6 +3461,411 @@ def phase_beyond_and_cli(card: str, validation_bins: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- phase 12: sharding
+
+
+#: the sharded runs' shard count on one card (4 cells on cuda:0)
+SHARDS = 4
+
+
+def card_mesh(k: int = SHARDS):
+    """A local mesh of ``k`` shards, every one on card 0."""
+    from qpsim_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_space=k, devices=[torch.device("cuda", 0)] * k)
+
+
+def zero_counts() -> dict:
+    return {k: 0 for k in read_counts()}
+
+
+def sharded_expect(collision: str, steps: int, *, k: int = SHARDS, gen: bool = True,
+                   segments=None) -> dict:
+    """Exact launch counts of a mesh run on ``k`` shards: per shard two
+    collision substeps a step (exact Strang) or L + 1 a segment of L > 1
+    steps (merged), the dt·g plane fused into one a step; two K7 launches
+    a step (the x half, and the pencil y half or the Wang local solve)."""
+    per = 2 * steps if segments is None else sum(s.length + 1 if s.length > 1 else 2 for s in segments)
+    return zero_counts() | {collision: k * per, f"{collision}_with_gen": k * steps if gen else 0,
+                            "adi_lines": 2 * k * steps}
+
+
+def runs_close(label: str, a, b, tol: float) -> None:
+    """Stored times equal; frames and mass within ``tol`` (scaled max errors)."""
+    if a[0] != b[0]:
+        raise AssertionError(f"{label}: stored times differ: {a[0]} != {b[0]}")
+    check(f"{label}, frames", max(scaled_err_np(fa, fb) for fa, fb in zip(a[1], b[1])), tol)
+    check(f"{label}, mass", float(np.max(np.abs(np.subtract(a[2], b[2])) / np.abs(b[2]))), tol)
+
+
+def counted_run(label: str, kw: dict, expect: dict | None = None):
+    """One engine call: its result, launch counts, stored-frame stamps and start time."""
+    import qpsim_tpu_torch
+
+    stamps: list[float] = []
+    reset_counts()
+    t0 = time.perf_counter()
+    out = qpsim_tpu_torch.run_2d_crank_nicolson(**kw, progress_callback=stamp_into(stamps))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if expect is not None:
+        check_counts(label, counts, expect)
+    return out, counts, stamps, t0
+
+
+def sharded_flagship(mesh, n: int, ne: int, dtype, *, y_solve: str, gen: bool = True):
+    """Phase 4's physics as a bare ``ShardedStep`` on ``mesh`` (n² × ne, E_max
+    4Δ, D(E) lazily scaled above the budget), with its shards of a random state."""
+    from qpsim_tpu_torch.ops.diffusion import build_directional_stencils, fold_diffusion
+    from qpsim_tpu_torch.ops.dos import (diffusion_coefficient_of_energy, dynes_density_of_states,
+                                         thermal_phonon_occupation)
+    from qpsim_tpu_torch.ops.kernels import recombination_kernel_base, scattering_kernel_base
+    from qpsim_tpu_torch.parallel.sharded import build_sharded_step
+
+    mask, edges, bcs = rectangle(n)
+    E, dE, pm = phonon_map(ne, 4.0)
+    xs, ys = build_directional_stencils(mask, edges, bcs, 1.0)
+    op = fold_diffusion(xs, ys, mask, 1.0, diffusion_coefficient_of_energy(6.0, E, 180.0))
+    col = dict(dE=dE, rho=dynes_density_of_states(E, 180.0, 0.0), K_r0=recombination_kernel_base(E, 180.0, 440.0, 1.2),
+               K_s0=scattering_kernel_base(E, 180.0, 440.0, 1.2), pmap=pm, enable_recombination=True,
+               enable_scattering=True, update_phonons=True)
+    sh = build_sharded_step(mesh, op, 0.05, collisions=col, dtype=dtype, y_solve=y_solve, gen_input=gen)
+    rng = np.random.default_rng(12)
+    rho = dynes_density_of_states(E, 180.0, 0.0)
+    q = sh.shard(rng.uniform(0, 2e-3, (ne, *mask.shape)) * rho[:, None, None], dtype)
+    ph = sh.shard(np.broadcast_to(thermal_phonon_occupation(pm.omega_bins, 0.1)[:, None, None],
+                                  (pm.num_omega, *mask.shape)), dtype)
+    grow = sh.shard(rng.uniform(0, 1e-6, mask.shape), dtype) if gen else None
+    return sh, q, ph, grow
+
+
+def step_split(sh, q, ph, grow, label: str, card: str) -> None:
+    """Where a sharded step's time goes: CUDA-event ms/step, the profiler's
+    device time by kind (the port's kernels, copies and concatenations —
+    the exchange's halo rows, pencils and interface rows and the layout
+    swaps —, other torch glue), the device's idle share, and the host's
+    time inside the exchange's calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = (grow,) if grow is not None else ()
+    ex = sh.mesh.exchange
+    host = {"s": 0.0}
+    originals = {}
+    for name in ("halo", "all_gather", "all_to_all", "psum"):
+        fn = getattr(ex, name)
+        originals[name] = fn
+
+        def timed(*a, _fn=fn, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                host["s"] += time.perf_counter() - t0
+
+        setattr(ex, name, timed)
+    try:
+        state = [q, ph]
+
+        def one():
+            state[0], state[1], _ = sh.step(state[0], state[1], *args)
+
+        step_ms = time_ms(one, 5)
+        exchange_ms = 1e3 * host["s"] / 6  # the warm-up call and the 5 timed ones
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            one()  # the profiler's own start-up, outside the window read
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                one()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(ex, name, fn)
+    kinds = {"kernels": 0.0, "copies": 0.0, "glue": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key
+        if any(k in name for k in ("collision_step_kernel", "column_walk_kernel", "adi_lines_kernel")):
+            kind = "kernels"
+        elif any(k in name.lower() for k in ("copy", "memcpy", "cat")):
+            kind = "copies"
+        else:
+            kind = "glue"
+        kinds[kind] += e.self_device_time_total / 1e3 / 5
+    busy = sum(kinds.values())
+    print(f"  {label}: {step_ms:.3f} ms/step (CUDA events, 5 steps, not profiled); device time a step "
+          f"(profiler, 5 steps): kernels {kinds['kernels']:.3f} ms, copies {kinds['copies']:.3f} ms, glue "
+          f"{kinds['glue']:.3f} ms, busy {busy:.3f} of {step_ms:.3f} ms ({busy / step_ms:.3f}); host inside "
+          f"the exchange's calls {exchange_ms:.3f} ms/step — {card}", flush=True)
+
+
+def sharded_line_row(name: str, rhs, lo, di, hi, scale, launches: int, card: str) -> dict:
+    """A K7 row at a sharded path's shapes: one shard's solve, held to its plain version."""
+    from qpsim_tpu_torch.ops.adi_cuda import solve_lines, solve_lines_plain
+
+    alpha = 0.025
+    got = solve_lines(rhs, lo, di, hi, scale, alpha=alpha)
+    ref, plain_ms = timed_once(lambda: solve_lines_plain(rhs, lo, di, hi, scale, alpha=alpha))
+    torch.cuda.synchronize()
+    tag = f"{name} {tuple(rhs.shape)} (NB, N, lines) float32"
+    check(tag, scaled_err(got, ref), TOL[("adi_lines", F32)])
+    row = dict(
+        name=name, route="cuda", source="qpsim_tpu_torch/csrc/adi_lines.cu",
+        replaces="qpsim_tpu/ops/pallas_adi.py:131", launches=launches, max_abs_err=abs_err(got, ref),
+        ms=time_ms(lambda: solve_lines(rhs, lo, di, hi, scale, alpha=alpha), 20), plain_ms=plain_ms,
+        **bound(nbytes(rhs, rhs, lo, di, hi, scale), 8 * rhs.numel(), F32), library_ms=None,
+    )
+    print(f"  {tag}: kernel {row['ms']:.4f} ms, plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), {launches} launches on the sharded path — {card}", flush=True)
+    return row
+
+
+def call_time_row(name: str, ne: int, shape, launches: int, card: str, emax: float) -> dict:
+    """K4 (NE ≤ 64) or K6 with a shard's gap plane passed at call time, held
+    to the plain version on the same inputs, at one shard's shape."""
+    from qpsim_tpu_torch.ops.collisions_cuda import build_collision_step_analytic
+    from qpsim_tpu_torch.ops.dos import dynes_density_of_states, thermal_phonon_occupation
+
+    E, dE, pm = phonon_map(ne, emax)
+    rng = np.random.default_rng(5)
+    low = 150.0 if ne > 64 else 170.0
+    plane = torch.as_tensor(rng.uniform(low, low + 22.0, shape), dtype=F32, device="cuda")
+    step = build_collision_step_analytic(E_bins=E, dE=dE, gap_plane=None, pmap=pm, dt=0.025, tau_s=440.0,
+                                         tau_r=440.0, T_c=1.2, device="cuda", dtype=F32)
+    rho = torch.as_tensor(dynes_density_of_states(E, low + 22.0, 0.0), dtype=F32, device="cuda")
+    q = torch.rand((ne, *shape), device="cuda", dtype=F32) * 2e-3 * rho[:, None, None]
+    ph = torch.as_tensor(thermal_phonon_occupation(pm.omega_bins, 0.25), dtype=F32,
+                         device="cuda")[:, None, None].expand(pm.num_omega, *shape).contiguous()
+    gen = torch.rand(shape, device="cuda", dtype=F32) * 1e-6
+    got = step(q, ph, plane, gen)
+    ref, plain_ms = timed_once(lambda: step.plain(q, ph, plane, gen))
+    torch.cuda.synchronize()
+    tol = blocked_tol(F32, ne) if ne > 64 else TOL[("collision_step_analytic", F32)]
+    tag = f"{name} NE={ne} {shape[0]}×{shape[1]} (one shard) float32, call-time gap plane"
+    check(f"{tag}, q", scaled_err(got[0], ref[0]), tol)
+    check(f"{tag}, ph", scaled_err(got[1], ref[1]), tol)
+    g2 = plane.reshape(-1) ** 2
+    tensors = kernel_tensors(step.tables, g2, step.analytic.E, step.analytic.inv_E, step.analytic.e2,
+                             step.analytic.zi)
+    if ne > 64:
+        tensors = [*tensors, g2]
+    row = dict(
+        name=name, route="cuda",
+        source=f"qpsim_tpu_torch/csrc/{'offset_walk.cu' if ne > 64 else 'collisions.cu'}",
+        replaces=("qpsim_tpu/ops/pallas_collisions_blocked.py:972" if ne > 64
+                  else "qpsim_tpu/ops/pallas_collisions.py:429"),
+        launches=launches, max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])),
+        ms=time_ms(lambda: step(q, ph, plane, gen), 5 if ne > 64 else 20), plain_ms=plain_ms,
+        **bound(*collision_work(step.plan, q, ph, gen, tensors, analytic=True), F32), library_ms=None,
+    )
+    print(f"  {tag}: kernel {row['ms']:.4f} ms (Δ² formed per call), plain {plain_ms:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {launches} launches on the sharded path — {card}",
+          flush=True)
+    return row
+
+
+def phase_sharding(card: str) -> list[dict]:
+    print(f"== 12 sharding on the card: {SHARDS} shards of one H100 (make_mesh with the card repeated)",
+          flush=True)
+    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
+
+    dt = 0.05
+    mesh = card_mesh()
+    rows: list[dict] = []
+
+    # (a) the flagship, 1024² × 16, float32, 15 exact steps (integrated
+    # snapshots every 5: the steady state is read from the 2nd to the 4th)
+    steps, every = 15, 5
+    kw = dict(main_path_kwargs(1024), dt=dt, total_time=dt * steps, store_every=every, strang_mode="exact",
+              snapshot_detail="integrated")
+    single, _, st, t0 = counted_run("(a) single device", kw)
+    steady = {"single device (K3, K2)": (1e3 * (st[-1] - st[1]) / (steps - every), st[0] - t0)}
+    counts_a = {}
+    for y in ("wang", "pencil"):
+        out, counts_a[y], st, t0 = counted_run(
+            f"(a) 1024² × 16 on {SHARDS} shards, y solve {y}", dict(kw, mesh=mesh, mesh_y_solve=y),
+            sharded_expect("collision_step", steps))
+        check_frames(out[1], kw["mask"])
+        runs_close(f"(a) {y} on {SHARDS} shards vs single device, float32", out, single, 1e-5)
+        steady[f"{SHARDS} shards, {y}"] = (1e3 * (st[-1] - st[1]) / (steps - every), st[0] - t0)
+    for label, (ms, setup) in steady.items():
+        print(f"  (a) {label}: steady {ms:.3f} ms/step (host clock, 10 steps and 2 integrated snapshots); "
+              f"set-up {setup:.3f} s — 1024² × 16 float32, {card}", flush=True)
+    # where a sharded step's time goes (a bare ShardedStep, generation fused)
+    for y in ("wang", "pencil"):
+        sh, q, ph, grow = sharded_flagship(mesh, 1024, 16, F32, y_solve=y)
+        step_split(sh, q, ph, grow, f"(a) split of one sharded step, {y}, 1024² × 16 on {SHARDS} shards", card)
+        try:  # no fallback: a shard off its cell's device is refused
+            sh.step([t.cpu() for t in q], ph, grow)
+        except ValueError as err:
+            print(f"  (a) CPU shards on the card's mesh refused: {err}", flush=True)
+        else:
+            raise AssertionError("(a) a CPU shard on a CUDA mesh must raise")
+        if y == "pencil":
+            raw = sh.aux[0]
+            u = torch.rand((16, 256, 1024), device="cuda", dtype=F32)
+            scale = raw["scale"][0]
+            rows.append(sharded_line_row("adi_lines_sharded_x", u.transpose(-1, -2).contiguous(),
+                                         raw["axlT"][0], raw["axdT"][0], raw["axhT"][0], scale,
+                                         counts_a["pencil"]["adi_lines"] // 2, card))
+            rows.append(sharded_line_row("adi_lines_sharded_y_pencil", torch.rand((16, 1024, 256), device="cuda",
+                                                                                 dtype=F32),
+                                         raw["aylC"][0], raw["aydC"][0], raw["ayhC"][0], scale,
+                                         counts_a["pencil"]["adi_lines"] // 2, card))
+            rows.append(sharded_line_row("adi_lines_sharded_wang_local", torch.rand((48, 256, 1024), device="cuda",
+                                                                                   dtype=F32),
+                                         raw["ayl"][0], raw["ayd"][0], raw["ayh"][0], scale.repeat(3),
+                                         counts_a["wang"]["adi_lines"] // 2, card))
+        del sh, q, ph, grow
+    torch.cuda.empty_cache()
+
+    # (b) float64 at 256² × 16 on 4 shards against the single-device float64
+    # engine; the lazy Wang branch; K7's local solves against the recurrences
+    kw64 = dict(main_path_kwargs(256), dt=dt, total_time=0.5, store_every=5, strang_mode="exact", dtype=F64)
+    single64 = counted_run("(b) single device float64", kw64)[0]
+    for y in ("wang", "pencil"):
+        out = counted_run(f"(b) 256² × 16 float64, {y}", dict(kw64, mesh=mesh, mesh_y_solve=y),
+                          sharded_expect("collision_step", 10))[0]
+        runs_close(f"(b) {y} on {SHARDS} shards vs single device, float64", out, single64, 1e-10)
+    from qpsim_tpu_torch.solver.diffusion_backends import ADIDiffusion
+
+    budget = ADIDiffusion.MATERIALIZE_MAX_ELEMENTS
+    try:
+        ADIDiffusion.MATERIALIZE_MAX_ELEMENTS = 0  # the lazy scale: Wang unfactored, D, A, C on K7
+        out = counted_run("(b) lazy scale, wang", dict(kw64, mesh=mesh, mesh_y_solve="wang"),
+                          sharded_expect("collision_step", 10))[0]
+        runs_close(f"(b) lazy wang on {SHARDS} shards vs single device, float64", out, single64, 1e-10)
+        for lazy in (False, True):
+            ADIDiffusion.MATERIALIZE_MAX_ELEMENTS = 0 if lazy else budget
+            for y in ("wang", "pencil"):
+                got = {}
+                for backend in ("pallas", "xla"):
+                    sh, q, ph = sharded_flagship_backend(mesh, y, backend)
+                    for _ in range(3):
+                        q, ph, _m = sh.step(q, ph)
+                    got[backend] = sh.gather(q)
+                check(f"(b) {y}{' (lazy)' if lazy else ''} float64 256² × 16, 3 steps: K7 local solves vs the "
+                      "recurrences and K10", scaled_err(got["pallas"], got["xla"]), 1e-10)
+    finally:
+        ADIDiffusion.MATERIALIZE_MAX_ELEMENTS = budget
+
+    # (c) gap maps: a continuous map at 1024² × 16 through K4 with call-time
+    # planes; 512² × 100, the map through K6 with call-time planes, and a
+    # uniform gap through K5; each against its single-device run
+    counts_c = {}
+    for label, n, ne, gmap, collision in (
+            ("gradient 1024² × 16", 1024, 16, GAP_MAPS["gradient"], "collision_step_analytic"),
+            ("gradient 512² × 100", 512, 100, GAP_MAPS_100["gradient"], "collision_step_blocked_analytic"),
+            ("uniform 512² × 100", 512, 100, "", "collision_step_blocked")):
+        n_steps = 4 if ne <= 64 else 2
+        kw_c = dict(main_path_kwargs(n), num_energy_bins=ne, dt=dt, total_time=dt * n_steps, store_every=n_steps,
+                    strang_mode="exact", snapshot_detail="integrated", gap_expression=gmap)
+        ref = counted_run(f"(c) {label} single device", kw_c)[0]
+        out, counts_c[label], _, _ = counted_run(f"(c) {label} on {SHARDS} shards", dict(kw_c, mesh=mesh),
+                                                 sharded_expect(collision, n_steps))
+        runs_close(f"(c) {label} on {SHARDS} shards vs single device, float32", out, ref, 1e-5)
+    rows.append(call_time_row("collision_step_analytic_call_time", 16, (256, 1024),
+                              counts_c["gradient 1024² × 16"]["collision_step_analytic"], card, 4.0))
+    rows.append(call_time_row("collision_step_blocked_analytic_call_time", 100, (128, 512),
+                              counts_c["gradient 512² × 100"]["collision_step_blocked_analytic"], card, 4.0))
+    torch.cuda.empty_cache()
+
+    # (d) merged Strang with a constant generation fused into K3's gen input
+    from qpsim_tpu_torch.models.params import ExternalGenerationSpec
+
+    kw_d = dict(main_path_kwargs(256), dt=dt, total_time=0.5, store_every=5,
+                external_generation=ExternalGenerationSpec(mode="constant", rate=1e-5))
+    full, rem, _ = _split_time(kw_d["total_time"], dt)
+    ref = counted_run("(d) single device, merged", kw_d)[0]
+    out = counted_run(f"(d) merged, constant generation, 256² × 16 on {SHARDS} shards", dict(kw_d, mesh=mesh),
+                      sharded_expect("collision_step", full, segments=_plan_segments(full, rem, dt, 5)))[0]
+    runs_close(f"(d) merged on {SHARDS} shards vs single device, float32", out, ref, 1e-5)
+
+    # (e) the distributed exchange on NCCL at world size 1 against the local exchange
+    phase_sharding_nccl(card)
+
+    # (f) the command line: --space-shards 1 runs on the card; 2 is refused on one card
+    import tempfile
+    from pathlib import Path
+
+    from qpsim_tpu_torch import cli
+    from qpsim_tpu_torch.io.storage import save_setup
+
+    tmp = Path(tempfile.mkdtemp(prefix="qpsim_smoke12_"))
+    try:
+        path = tmp / "s.json"
+        save_setup(flagship_setup(256, steps=10, store_every=5, name="shards"), path)
+        for n, want in ((1, 0), (2, 2)):
+            out_buf, err_buf = io.StringIO(), io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out_buf), contextlib.redirect_stderr(err_buf):
+                rc = cli.main(["run", str(path), "--space-shards", str(n), "--device", "cuda", "--no-save"])
+            torch.cuda.synchronize()
+            text = out_buf.getvalue() + err_buf.getvalue()
+            print(f"  (f) run --space-shards {n}: exit {rc}; launches {read_counts()['collision_step']} "
+                  f"collision_step, {read_counts()['adi_lines']} adi_lines; "
+                  f"{' | '.join(text.strip().splitlines()[-3:])}", flush=True)
+            if rc != want or (n == 1 and "space-sharded over 1 device(s)" not in text) or (
+                    n == 2 and "exceeds the 1 available device(s)" not in text):
+                raise AssertionError(f"(f) run --space-shards {n}: exit {rc}, expected {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print_rows(rows, "see above", card)
+    return rows
+
+
+def sharded_flagship_backend(mesh, y_solve: str, backend: str):
+    """Phase 4's physics at 256² × 16 in float64 as a ShardedStep with ``tridiag_backend``."""
+    from qpsim_tpu_torch.ops.diffusion import build_directional_stencils, fold_diffusion
+    from qpsim_tpu_torch.ops.dos import diffusion_coefficient_of_energy
+    from qpsim_tpu_torch.parallel.sharded import build_sharded_step
+
+    mask, edges, bcs = rectangle(256)
+    E, dE, pm = phonon_map(16, 4.0)
+    xs, ys = build_directional_stencils(mask, edges, bcs, 1.0)
+    op = fold_diffusion(xs, ys, mask, 1.0, diffusion_coefficient_of_energy(6.0, E, 180.0))
+    sh = build_sharded_step(mesh, op, 0.05, dtype=F64, y_solve=y_solve, tridiag_backend=backend)
+    q = sh.shard(np.random.default_rng(3).uniform(0, 1, (16, 256, 256)), F64)
+    return sh, q, sh.shard(np.zeros((1, 256, 256)), F64)
+
+
+def phase_sharding_nccl(card: str) -> None:
+    """(e) ``initialize_distributed`` on a localhost port (NCCL, world size 1)
+    and ``make_multihost_mesh``: the distributed exchange's step against the
+    local exchange's with one shard, float64, both y solves."""
+    import socket
+
+    import torch.distributed as dist
+
+    from qpsim_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_multihost_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, timeout=120)
+    try:
+        print(f"  (e) process group: backend {dist.get_backend()}, world size {dist.get_world_size()}",
+              flush=True)
+        dist_mesh = make_multihost_mesh(n_space=1, n_ensemble=1)
+        local = make_mesh(n_space=1, devices=[torch.device("cuda", 0)])
+        for y in ("wang", "pencil"):
+            got = []
+            for mesh in (dist_mesh, local):
+                sh, q, ph, grow = sharded_flagship(mesh, 256, 16, F64, y_solve=y)
+                for _ in range(5):
+                    q, ph, mass = sh.step(q, ph, grow)
+                got.append((sh.gather(q), sh.gather(ph), mass))
+            err = max(scaled_err(a, b) for a, b in zip(got[0], got[1]))
+            same = all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+            print(f"  (e) {y}: the NCCL exchange's 5 steps {'bit-equal to' if same else 'differ from'} the "
+                  f"local exchange's (max rel err {err:.3e}), 256² × 16 float64 — {card}", flush=True)
+            check(f"(e) {y} NCCL vs local exchange", err, 1e-12)
+    finally:
+        dist.destroy_process_group()
+
+
 def timed_phase(fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3464,6 +3892,7 @@ def main() -> int:
     rows += timed_phase(phase_setup_runner, card, rows)
     rows += timed_phase(phase_slice, card, main_frames)
     rows += timed_phase(phase_beyond_and_cli, card, validation_bins)
+    rows += timed_phase(phase_sharding, card)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

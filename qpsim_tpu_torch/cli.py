@@ -87,10 +87,7 @@ def _cmd_validate(args: argparse.Namespace) -> int:
 def _cmd_run(args: argparse.Namespace) -> int:
     from .io.storage import load_setup
     from .runner import run_setup
-    from .solver.engine import _deferred
 
-    if args.space_shards is not None:  # before any directory is touched
-        raise _deferred("--space-shards (spatial sharding)", "queue 1, 'Sharding'")
     _ensure_device(args.device)
     setup_path = Path(args.setup)
     setup = load_setup(setup_path)
@@ -122,6 +119,27 @@ def _cmd_run(args: argparse.Namespace) -> int:
     def progress(t, frame):
         print(f"  t = {t:.6g} ns", file=sys.stderr)
 
+    mesh = None
+    if args.space_shards is not None:
+        from .parallel.mesh import local_devices, make_mesh
+
+        if args.space_shards < 1:
+            print(
+                f"error: --space-shards must be >= 1, got {args.space_shards}",
+                file=sys.stderr,
+            )
+            return 2
+        devices = local_devices(args.device)
+        if args.space_shards > len(devices):
+            print(
+                f"error: --space-shards {args.space_shards} exceeds the "
+                f"{len(devices)} available device(s)",
+                file=sys.stderr,
+            )
+            return 2
+        mesh = make_mesh(n_space=args.space_shards, devices=devices[: args.space_shards])
+        print(f"space-sharded over {args.space_shards} device(s)")
+
     result, saved = run_setup(
         setup,
         setup_path=setup_path,
@@ -135,6 +153,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         stream_dir=args.stream_dir,
         snapshot_detail=args.snapshot_detail,
         freeze_phonon_dynamics=args.freeze_phonons,
+        mesh=mesh,
         device=args.device,
     )
     meta = result.metadata
@@ -653,8 +672,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--space-shards",
         dest="space_shards",
         type=int,
-        help="shard the grid by rows over N local devices; not ported yet "
-        "(ROADMAP.md, queue 1, 'Sharding'): raises",
+        help="shard the grid by rows over N local devices (the mesh= hot "
+        "loop: halo rows, then pencil transposes or the Wang interface rows); "
+        "requires energy-resolved mode and a grid divisible by N in both "
+        "dimensions.  N is at most torch.cuda.device_count() on cuda, and on "
+        "the CPU XLA_FLAGS' --xla_force_host_platform_device_count (else 1)",
     )
     r.set_defaults(fn=_cmd_run)
 

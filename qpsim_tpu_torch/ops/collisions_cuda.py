@@ -34,7 +34,7 @@ under the same names.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -591,27 +591,55 @@ def build_collision_step(*, E_bins: np.ndarray, dE: float, rho: np.ndarray, K_s0
     return step
 
 
-def build_collision_step_analytic(*, E_bins: np.ndarray, dE: float, gap_plane: np.ndarray, pmap,
+def build_collision_step_analytic(*, E_bins: np.ndarray, dE: float, gap_plane: np.ndarray | None, pmap,
                                   dt: float, tau_s: float | None, tau_r: float | None, T_c: float,
                                   dynes_gamma: float = 0.0, update_phonons: bool = True,
                                   device="cuda", dtype: torch.dtype | None = None):
     """K4 in the form of ``build_pallas_collision_step_analytic``: the
     per-pixel constants from the dense (Ny, Nx) ``gap_plane`` (µeV);
     ``tau_s``/``tau_r`` None turn a channel off.  Same step as
-    :func:`build_collision_step`; beyond 64 bins K6."""
+    :func:`build_collision_step`; beyond 64 bins K6.
+
+    With ``gap_plane=None`` the step takes the plane at call time,
+    ``step(n_qp, n_ph, gap_plane, gen=None)``, as a spatially sharded
+    caller needs (each shard passes its own rows): Δ² is formed from it in
+    the state's dtype at every call, and everything else is built here once.
+    """
     device, dtype = _device_dtype(device, dtype)
+    call_time = gap_plane is None
     plan, atab = build_analytic_plan(
-        E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap, tau_s=tau_s, tau_r=tau_r, T_c=T_c,
-        dynes_gamma=dynes_gamma, update_phonons=update_phonons, device=device, dtype=dtype)
+        E_bins=E_bins, dE=dE, gap_plane=np.zeros((1, 1)) if call_time else gap_plane, pmap=pmap,
+        tau_s=tau_s, tau_r=tau_r, T_c=T_c, dynes_gamma=dynes_gamma, update_phonons=update_phonons,
+        device=device, dtype=dtype)
     if not plan.active:
-        return lambda n_qp, n_ph, gen=None: (n_qp if gen is None else n_qp + gen[None], n_ph)
+        identity = lambda n_qp, n_ph, gen=None: (n_qp if gen is None else n_qp + gen[None], n_ph)
+        if call_time:  # the call-time form takes (and ignores) the plane
+            return lambda n_qp, n_ph, gap_plane, gen=None: identity(n_qp, n_ph, gen)
+        return identity
     from .collisions_blocked_cuda import kernel_forms  # the dispatch; that module imports this one
 
     wrapper, tables_of = kernel_forms(plan.num_energy_bins, 0, analytic=True)
     tables = tables_of(plan, atab)
     dt = float(dt)
-    step = lambda n_qp, n_ph, gen=None: wrapper(plan, atab, tables, n_qp, n_ph, dt, gen)
-    step.plan, step.tables, step.analytic = plan, tables, atab
-    step.plain = lambda n_qp, n_ph, gen=None: collision_step_analytic_plain(plan, atab, n_qp, n_ph, dt, gen)
-    return step
+    if not call_time:
+        step = lambda n_qp, n_ph, gen=None: wrapper(plan, atab, tables, n_qp, n_ph, dt, gen)
+        step.plan, step.tables, step.analytic = plan, tables, atab
+        step.plain = lambda n_qp, n_ph, gen=None: collision_step_analytic_plain(plan, atab, n_qp, n_ph,
+                                                                                dt, gen)
+        return step
 
+    def at_call(n_qp: torch.Tensor, gap_plane) -> tuple:
+        """The Δ² tables of this call's plane (in n_qp's dtype), and the tables that hold them."""
+        g2 = torch.as_tensor(gap_plane).to(n_qp.dtype).reshape(-1) ** 2
+        a = replace(atab, g2=g2.contiguous())
+        return a, (replace(tables, analytic=a) if isinstance(tables, ColumnTables) else tables)
+
+    def step(n_qp, n_ph, gap_plane, gen=None):
+        a, t = at_call(n_qp, gap_plane)
+        return wrapper(plan, a, t, n_qp, n_ph, dt, gen)
+
+    def plain(n_qp, n_ph, gap_plane, gen=None):
+        return collision_step_analytic_plain(plan, at_call(n_qp, gap_plane)[0], n_qp, n_ph, dt, gen)
+
+    step.plan, step.tables, step.analytic, step.plain = plan, tables, atab, plain
+    return step

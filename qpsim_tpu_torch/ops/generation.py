@@ -115,15 +115,15 @@ class GenerationProgram:
             self._planes[key] = self._mask_plane * key
         return self._planes[key], not np.isfinite(amp), bool(amp < 0)
 
+    def flags(self, g: torch.Tensor):
+        """The (non-finite, negative) device flags of a traced g on the mask."""
+        g_masked = torch.where(self._mask_plane > 0, g, 0.0)
+        return ~torch.isfinite(g_masked).all(), (g_masked < 0).any()
+
     def add(self, q: torch.Tensor, seg_dt: float, t: torch.Tensor):
         """q + dt·g(t) for the traced custom mode, and its (non-finite, negative) flags on the device."""
         g = self.traced_fn(t)
-        g_masked = torch.where(self._mask_plane > 0, g, 0.0)
-        return (
-            q + seg_dt * g,
-            ~torch.isfinite(g_masked).all(),
-            (g_masked < 0).any(),
-        )
+        return (q + seg_dt * g, *self.flags(g))
 
 
 def build_generation_program(

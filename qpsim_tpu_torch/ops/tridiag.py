@@ -34,6 +34,8 @@ __all__ = [
     "wang_externals",
     "wang_factor",
     "wang_apply",
+    "wang_apply_rhs",
+    "wang_apply_interface",
     "set_default_solver",
     "get_default_solver",
     "solver_route",
@@ -279,26 +281,33 @@ def wang_factor(
     }
 
 
-def wang_apply(fac: dict[str, torch.Tensor], rhs: torch.Tensor) -> torch.Tensor:
-    """Solve with a :func:`wang_factor` factorization (rhs recurrences only)."""
-    cp, m, inv = fac["cp"], fac["m"], fac["inv"]
-    chunk, k = cp.shape[0], cp.shape[1]
-    n = rhs.shape[-1]
-    pad = k * chunk - n
-    d = _wang_layout(_pad_last(rhs, pad, 0.0) if pad else rhs, k, chunk)
-    # stages 1–2, rhs only: dp_i = d_i·inv_i − m_i·dp_{i−1}, D_i = dp_i − cp_i·D_{i+1}
-    dp = torch.empty_like(d)
+def wang_apply_rhs(d, m, inv, cp):
+    """Prefactored stages 1–2, rhs only: d → D (the boundary-coupled form).
+
+    ``m = a·inv``, ``inv`` and ``cp`` come from :func:`wang_factor`;
+    layouts are (M, *lanes).  D is the solve of each partition's block
+    with its couplings to the neighbours cut.  Shared by :func:`wang_apply`
+    and the sharded step's prefactored distributed y-solve.
+    """
+    # dp_i = d_i·inv_i − m_i·dp_{i−1}, D_i = dp_i − cp_i·D_{i+1}
+    D = torch.empty_like(d)
     prev = torch.zeros_like(d[0])
-    for i in range(chunk):
-        dp[i] = prev = d[i] * inv[i] - m[i] * prev
-    D = dp  # the backward sweep overwrites dp in place
+    for i in range(d.shape[0]):
+        D[i] = prev = d[i] * inv[i] - m[i] * prev
     nxt = torch.zeros_like(d[0])
-    for i in range(chunk - 1, -1, -1):
-        D[i] = nxt = dp[i] - cp[i] * nxt
-    # stage 3 with the prefactored interface coefficients
-    dL, dR = D[0], D[-1]
-    aL, aR = fac["if_aL"], fac["if_aR"]
-    if_inv, if_q, w_pre, w_post = fac["if_inv"], fac["if_q"], fac["if_w_pre"], fac["if_w_post"]
+    for i in range(d.shape[0] - 1, -1, -1):  # the backward sweep overwrites dp in place
+        D[i] = nxt = D[i] - cp[i] * nxt
+    return D
+
+
+def wang_apply_interface(dL, dR, aL, aR, if_inv, if_q, w_pre, w_post, k: int):
+    """Prefactored stage 3: the boundary unknowns ``(Ls, Rs)`` (K-lists)
+    from the interface rows ``dL``/``dR`` (K, *lanes) of D.
+
+    The coefficient parts (``aL, aR, if_inv, if_q, w_pre, w_post``, (K,
+    *lanes) stacks from :func:`wang_factor`) are time-invariant.  Shared by
+    :func:`wang_apply` and the sharded step's prefactored y-solve.
+    """
     g = torch.zeros_like(dL[0])
     ps, gs = [], []
     for j in range(k):
@@ -312,6 +321,21 @@ def wang_apply(fac: dict[str, torch.Tensor], rhs: torch.Tensor) -> torch.Tensor:
         Ls[j] = ps[j] - if_q[j] * L_next
         Rs[j] = gs[j] - w_post[j] * L_next
         L_next = Ls[j]
+    return Ls, Rs
+
+
+def wang_apply(fac: dict[str, torch.Tensor], rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with a :func:`wang_factor` factorization (rhs recurrences only)."""
+    cp, m, inv = fac["cp"], fac["m"], fac["inv"]
+    chunk, k = cp.shape[0], cp.shape[1]
+    n = rhs.shape[-1]
+    pad = k * chunk - n
+    d = _wang_layout(_pad_last(rhs, pad, 0.0) if pad else rhs, k, chunk)
+    D = wang_apply_rhs(d, m, inv, cp)
+    Ls, Rs = wang_apply_interface(
+        D[0], D[-1], fac["if_aL"], fac["if_aR"], fac["if_inv"], fac["if_q"],
+        fac["if_w_pre"], fac["if_w_post"], k,
+    )
     XL, XR = wang_externals(Ls, Rs)
     x = _wang_unlayout(D - fac["A"] * XL[None] - fac["C"] * XR[None])
     return x[..., :n] if pad else x

@@ -36,7 +36,7 @@ from .io.storage import (
 )
 from .models.params import SetupData, SimulationResultData, utc_now_iso
 from .ops.energy_grid import build_energy_grid, integration_widths_from_centers
-from .solver.engine import _deferred, _resolve_device, run_2d_crank_nicolson
+from .solver.engine import _mesh_device, _resolve_device, run_2d_crank_nicolson
 
 __all__ = ["run_setup", "resolve_precomputed"]
 
@@ -170,14 +170,15 @@ def run_setup(
     freeze_phonon_dynamics: bool = False,
     mesh=None,
     mesh_y_solve: str | None = None,
-    device="cuda",
+    device=None,
 ) -> tuple[SimulationResultData, str | None]:
     """Run one setup end-to-end and (optionally) persist the result.
 
     Returns (result, saved-path-or-None).  Raises on physics/validation
     errors; a failed save is reported in ``result.metadata['save_error']``.
 
-    ``device`` is "cuda" (the default; raises without a card) or "cpu";
+    ``device`` is "cuda" (the default; raises without a card) or "cpu"
+    (with ``mesh``, the mesh's devices decide);
     ``dtype`` a torch dtype (float32 on the card, float64 on the CPU by
     default).
 
@@ -187,8 +188,9 @@ def run_setup(
     dynamic phonons, recombination phonons re-break pairs and the QP
     number barely decays.
 
-    ``mesh`` (multi-card spatial sharding) is not ported yet and raises,
-    as the engine's does.
+    ``mesh`` (a :class:`qpsim_tpu_torch.parallel.mesh.Mesh`) routes the hot
+    loop through the rows-sharded step, the engine's ``mesh=``;
+    ``mesh_y_solve`` picks its y solve.
 
     ``checkpoint_dir`` makes every stored snapshot of an energy-resolved
     run a resume point (:class:`qpsim_tpu_torch.io.checkpoint.SimulationCheckpointer`):
@@ -211,9 +213,8 @@ def run_setup(
     result's energy bookkeeping is reconstructed from the streamed bin-sum
     vectors.
     """
-    if mesh is not None:
-        raise _deferred("mesh= (spatial sharding)", "queue 1, 'Sharding'")
-    device = _resolve_device(device)  # before any directory is touched
+    # before any directory is touched
+    device = _resolve_device(device if mesh is None else _mesh_device(device, mesh))
     p = setup.parameters
     if snapshot_detail == "integrated" and stream_dir is None and p.energy_gap > 0:
         raise ValueError(
@@ -312,6 +313,7 @@ def run_setup(
         checkpointer=checkpointer,
         frame_sink=stream_sink,
         snapshot_detail=snapshot_detail,
+        mesh=mesh,
         mesh_y_solve=mesh_y_solve,
         device=device,
     )

@@ -115,6 +115,12 @@ class ADIDiffusion:
     ``set_default_solver`` chooses the algorithm.
     """
 
+    #: the JAX package's budget: a factored operator of at most this many
+    #: (NB, Ny, Nx) coefficient elements is folded into per-bin planes on
+    #: the host; a larger one keeps its scale lazy.  This class always keeps
+    #: it lazy; the sharded step (``parallel.sharded``) applies the rule.
+    MATERIALIZE_MAX_ELEMENTS = 4_000_000
+
     def __init__(self, op: SplitOperator, device, dtype: torch.dtype):
         self.device = torch.device(device)
         self.dtype = dtype

@@ -24,12 +24,14 @@ It runs both branches:
   diffuses through the separable ADI kernel, any other film through the
   fused ADI kernel.
 
-Features the port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports them; nothing falls back quietly.
+``mesh=`` (:mod:`qpsim_tpu_torch.parallel.mesh`) runs the energy-resolved
+hot loop on the rows-sharded step of :mod:`qpsim_tpu_torch.parallel.sharded`
+over the mesh's devices.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import numpy as np
@@ -50,13 +52,18 @@ from .stepping import _plan_segments, _split_time, default_dtype
 __all__ = ["run_2d_crank_nicolson", "reconstruct_field", "default_dtype"]
 
 
-def _deferred(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not ported yet (ROADMAP.md, {item}).")
+def _mesh_device(device, mesh) -> torch.device:
+    """The device a run on ``mesh`` takes: its first local shard's; a
+    ``device`` of another type than the mesh's is refused (None agrees)."""
+    dev = mesh.local_devices[0]
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device={device!r} differs from the mesh's devices ({dev.type})")
+    return dev
 
 
 def _resolve_device(device) -> torch.device:
-    """``torch.device`` for a run: CUDA must exist when asked for; never a quiet CPU."""
-    dev = torch.device(device)
+    """``torch.device`` for a run (None: "cuda"): CUDA must exist when asked for; never a quiet CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -116,7 +123,7 @@ def run_2d_crank_nicolson(
     mesh_y_solve: str | None = None,
     frame_sink=None,
     snapshot_detail: str = "full",
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
 ) -> tuple:
     """Run a masked 2D diffusion(–collision) simulation, scalar or energy-resolved.
 
@@ -124,8 +131,9 @@ def run_2d_crank_nicolson(
     JAX package's docstring for the physics and the options they share.
     Port-specific keywords:
 
-    * ``device`` — "cuda" (default; raises when no CUDA device exists) or
-      "cpu", where every kernel's plain PyTorch version runs.
+    * ``device`` — "cuda" (the default; raises when no CUDA device exists)
+      or "cpu", where every kernel's plain PyTorch version runs; with
+      ``mesh=`` the mesh's devices decide (None, or the same type).
     * ``dtype`` — ``torch.float32`` (default on CUDA) or ``torch.float64``
       (default on the CPU).
     * ``collision_backend`` — 'auto' (the CUDA kernel for CUDA tensors, the
@@ -146,8 +154,14 @@ def run_2d_crank_nicolson(
       signature (:mod:`qpsim_tpu_torch.io.stream`): stored snapshots are
       streamed to it and not kept; the returned frames are then empty, the
       energy frames None and the color limits the running ones.
+    * ``mesh`` — a :class:`qpsim_tpu_torch.parallel.mesh.Mesh`: the hot loop
+      runs on the rows-sharded step over its 'space' axis (energy-resolved
+      mode, diffusion on), with the same snapshots, Pauli policy and
+      ``store_every`` and the 'auto' collision kernels (it takes no
+      ``collision_backend``, as in the JAX package); ``mesh_y_solve`` is
+      its y solve, 'pencil' or 'wang' (default: ``QPSIM_MESH_Y_SOLVE``,
+      else 'wang').
 
-    ``mesh_y_solve`` is accepted for signature compatibility and unused.
     The scalar branch ignores the collision, generation and Strang options,
     as the JAX package does.
     """
@@ -165,11 +179,28 @@ def run_2d_crank_nicolson(
         )
     if photon_drive is not None and photon_drive_specs(photon_drive) and energy_gap <= 0.0:
         raise ValueError("photon_drive needs the energy-resolved mode (energy_gap > 0).")
-    # features outside this slice of the port fail loudly
     if mesh is not None:
-        raise _deferred("mesh= (spatial sharding)", "queue 1, 'Sharding'")
+        if energy_gap <= 0.0:
+            raise ValueError(
+                "mesh= requires energy-resolved mode (energy_gap > 0); the "
+                "scalar path is single-chip (use the ensemble API for "
+                "data-parallel scalar sweeps)."
+            )
+        if not enable_diffusion:
+            raise ValueError(
+                "mesh= requires enable_diffusion=True: pure collision "
+                "physics is pixel-local and needs no spatial sharding "
+                "(use qpsim_tpu_torch.parallel.ensemble for data parallelism)."
+            )
+        if mesh_y_solve is None:
+            mesh_y_solve = os.environ.get("QPSIM_MESH_Y_SOLVE", "wang")
+        if mesh_y_solve not in ("pencil", "wang"):
+            raise ValueError(
+                f"Unknown mesh_y_solve: {mesh_y_solve!r} (use 'pencil' or "
+                "'wang'; also settable via QPSIM_MESH_Y_SOLVE)."
+            )
 
-    dev = _resolve_device(device)
+    dev = _resolve_device(device if mesh is None else _mesh_device(device, mesh))
     if dtype is None:
         dtype = default_dtype(dev)
     if dtype not in (torch.float32, torch.float64):
@@ -261,4 +292,6 @@ def run_2d_crank_nicolson(
             snapshot_detail=snapshot_detail,
             checkpointer=checkpointer,
             frame_sink=frame_sink,
+            mesh=mesh,
+            mesh_y_solve=mesh_y_solve,
         )

@@ -1,6 +1,6 @@
 """Engine program: diffusion backend, collision dispatch and segment runners.
 
-Carried over from ``qpsim_tpu.solver.program_build`` (single-device part).
+Carried over from ``qpsim_tpu.solver.program_build``.
 The JAX package compiles each segment into one program; here a segment is
 a Python loop over steps that launches the kernels eagerly (PyTorch has
 no retrace cost, so nothing is cached across runs).  Each step's Pauli
@@ -42,6 +42,10 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   under a gap map.  The substep is the JAX package's XLA glue in plain
   torch (``ops.photon_drive``); a step outside a tone's window is the
   identity on a non-negative state, computed as its ``max(q, 0)``.
+* mesh — the mesh branch (``program_build.py:492-690`` of the JAX
+  package, :func:`_mesh_program`): one rows-sharded step of
+  ``parallel.sharded`` per segment dt, which builds its own collision
+  tables and local solves; the runner's state is a list of shards.
 """
 
 from __future__ import annotations
@@ -97,6 +101,10 @@ class EngineProgram:
     single_step: Callable
     #: the generation is evaluated on the host every step
     host_gen: bool
+    #: a whole state → the runner's state (this process's shards on a mesh)
+    shard: Callable = lambda x: x
+    #: the runner's state → the whole state (every shard, gathered)
+    gather: Callable = lambda x: x
 
 
 def build_engine_program(
@@ -129,6 +137,8 @@ def build_engine_program(
     pauli_density_floor,
     strang_mode,
     photon_drive=None,
+    mesh=None,
+    mesh_y_solve="wang",
 ) -> EngineProgram:
     ny, nx = mask.shape
     n_spatial = int(mask.sum())
@@ -157,7 +167,8 @@ def build_engine_program(
     # continuous gap maps (more gaps than the gap-id tables take): exact
     # per-pixel constants from Δ² (K4, K6), no per-gap stacks
     analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
-    kernel = collision_kernel_for(num_energy_bins, int(unique_gaps.size)) if use_kernel else None
+    kernel = (collision_kernel_for(num_energy_bins, int(unique_gaps.size))
+              if use_kernel and mesh is None else None)
 
     # --- diffusion backend -------------------------------------------------
     backend = None
@@ -175,14 +186,22 @@ def build_engine_program(
             op = fold_diffusion(
                 x_st, y_st, mask, dx, diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
             )
-        # a step composed with collisions keeps multi-bin operators on K2
-        backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
+        # a step composed with collisions keeps multi-bin operators on K2;
+        # a mesh builds its own local solves inside the sharded step
+        if mesh is None:
+            backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
 
     # --- collision data ------------------------------------------------------
     pmap = build_phonon_frequency_map(E_bins)
     plan = atab = rho_by_gap = None
-    if not collisions_on:  # only the Pauli ρ plane, vectorised over pixels
+    if not collisions_on or (mesh is not None and unique_gaps.size > MAX_GAP_IDS):
+        # only the Pauli ρ plane, vectorised over pixels (a mesh's sharded
+        # step builds its own collision tables)
         rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
+    elif mesh is not None:
+        rho_by_gap = np.stack(
+            [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
+        )
     elif analytic:
         gap_plane = np.full((ny, nx), gap, dtype=np.float64)
         gap_plane[mask] = gap_values
@@ -312,14 +331,15 @@ def build_engine_program(
         make = make_photon_substep if uniform_drive else make_photon_substep_per_pixel
         subs = [(make(plan_, seg_dt, dtype, device), w0, w1) for plan_, w0, w1 in photon_plans]
 
-        def apply(q: torch.Tensor, t) -> torch.Tensor:
+        def apply(q: torch.Tensor, t, weight=mask_plane, aux=photon_aux) -> torch.Tensor:
+            """``weight``/``aux``: the mask and per-pixel planes of q's rows (a shard's)."""
             f = type(t)
             for sub, w0, w1 in subs:
                 if w0 is not None and not (t >= f(w0) and t < f(w1)):
                     # outside the window the gated substep is max(q, 0)
                     q = torch.clamp(q, min=0.0)
                 else:
-                    q = sub(q, 1.0, mask_plane, *photon_aux)
+                    q = sub(q, 1.0, weight, *aux)
             return q
 
         return apply
@@ -353,6 +373,19 @@ def build_engine_program(
         return q, ph
 
     seg_cache: dict[tuple[float, int], Callable] = {}
+
+    if mesh is not None:
+        return _mesh_program(
+            mesh=mesh, mesh_y_solve=mesh_y_solve, op=op if enable_diffusion else None, dx=dx,
+            dtype=dtype, device=device, pmap=pmap, E_bins=E_bins, dE=dE, gap=gap, mask=mask,
+            unique_gaps=unique_gaps, gap_values=gap_values, rho_by_gap=rho_by_gap,
+            rho_state=rho_state, pauli_stats=pauli_stats, pauli_density_floor=pauli_density_floor,
+            enable_recombination=enable_recombination, enable_scattering=enable_scattering,
+            dynes_gamma=dynes_gamma, tau_s_eff=tau_s_eff, tau_r_eff=tau_r_eff, T_c=T_c,
+            freeze_phonon_dynamics=freeze_phonon_dynamics, pixel_chunk=pixel_chunk, gen=gen, strang_mode=strang_mode, np_t=np_t,
+            photon_on=photon_on, make_photon_apply=make_photon_apply, mask_plane=mask_plane,
+            photon_aux=photon_aux,
+        )
 
     def segment_runner(seg_dt: float, length: int):
         key = (seg_dt, length)
@@ -456,4 +489,194 @@ def build_engine_program(
         pauli_stats=pauli_stats,
         single_step=single_step,
         host_gen=gen.host_mode,
+    )
+
+
+def _combine_pauli(rows: torch.Tensor) -> torch.Tensor:
+    """One (4,) Pauli statistics row from (K, 4) per-shard rows with global
+    flat indices: the largest occupation at its first index, as the
+    single-device ``argmax`` finds it, and the first forbidden cell."""
+    inf = torch.full_like(rows[:, 1], float("inf"))
+    mx = rows[:, 0].max()
+    first = torch.where(rows[:, 0] == mx, rows[:, 1], inf).min()
+    fany = rows[:, 2].max()
+    fidx = torch.where(rows[:, 2] > 0, rows[:, 3], inf).min()
+    return torch.stack([mx, first, fany, torch.where(fany > 0, fidx, torch.zeros_like(fidx))])
+
+
+def _mesh_program(*, mesh, mesh_y_solve, op, dx, dtype, device, pmap, E_bins, dE, gap, mask,
+                  unique_gaps, gap_values, rho_by_gap, rho_state, pauli_stats, pauli_density_floor,
+                  enable_recombination, enable_scattering, dynes_gamma, tau_s_eff, tau_r_eff, T_c,
+                  freeze_phonon_dynamics, pixel_chunk, gen, strang_mode, np_t,
+                  photon_on, make_photon_apply, mask_plane, photon_aux) -> EngineProgram:
+    """The engine program over a mesh: the hot loop on :mod:`..parallel.sharded` steps.
+
+    The same C(dt/2) D(dt) C(dt/2) composition (and, merged, the sharded
+    step's pieces), with one ``ShardedStep`` per segment ``dt``, whose
+    collision kernels are the ``'auto'`` backend's (the JAX package's mesh
+    branch takes no ``collision_backend`` either).  The
+    generation plane and the photon substep act on each shard's rows; the
+    Pauli statistics are taken per shard and reduced over the shards
+    (largest occupation, first index), and the mass over the grid, as
+    ``psum`` does.  The runner's state is this process's list of shards.
+    """
+    from ..parallel.mesh import SPACE_AXIS, StateSharding
+    from ..parallel.sharded import build_sharded_step
+
+    ny, nx = mask.shape
+    collisions_on = bool(enable_recombination or enable_scattering)
+    mesh_collisions = None
+    if collisions_on and int(unique_gaps.size) == 1:
+        g0 = float(unique_gaps[0])
+        mesh_collisions = dict(
+            E_bins=E_bins, dE=dE, rho=rho_by_gap[0], pmap=pmap,
+            K_r0=recombination_kernel_base(E_bins, g0, tau_r_eff, T_c) if enable_recombination else None,
+            K_s0=scattering_kernel_base(E_bins, g0, tau_s_eff, T_c) if enable_scattering else None,
+            enable_recombination=enable_recombination, enable_scattering=enable_scattering,
+            update_phonons=not freeze_phonon_dynamics, pixel_chunk=pixel_chunk,
+        )
+    elif collisions_on:
+        gap_plane = np.full((ny, nx), gap, dtype=np.float64)
+        gap_plane[mask] = gap_values
+        mesh_collisions = dict(
+            E_bins=E_bins, dE=dE, pmap=pmap, gap_plane=gap_plane, tau_s=tau_s_eff, tau_r=tau_r_eff,
+            T_c=T_c, dynes_gamma=dynes_gamma, enable_recombination=enable_recombination,
+            enable_scattering=enable_scattering, update_phonons=not freeze_phonon_dynamics,
+            pixel_chunk=pixel_chunk,
+        )
+
+    # the uniform modes' dt·g plane rides the sharded step (fused into the
+    # collision kernel, or pre-added there), unless a photon drive is on
+    fuse_gen = gen.scalar_amp and not photon_on
+    merged_mesh = strang_mode == "merged" and collisions_on
+    sharded_cache: dict = {}
+
+    def get_sharded(seg_dt: float):
+        if seg_dt not in sharded_cache:
+            sharded_cache[seg_dt] = build_sharded_step(
+                mesh, op, seg_dt, dx=dx, collisions=mesh_collisions, dtype=dtype,
+                gen_input=fuse_gen, pieces=merged_mesh, y_solve=mesh_y_solve,
+            )
+        return sharded_cache[seg_dt]
+
+    rows = StateSharding(mesh)
+    ex = mesh.exchange
+    m = ny // mesh.shape[SPACE_AXIS]
+    # per-shard Pauli statistics with their flat indices made global
+    pauli_shards = [make_pauli_stats_fn(r, pauli_density_floor) for r in rows.shard(rho_state)]
+
+    def pauli_mesh(q: list) -> torch.Tensor:
+        local = []
+        for fn, qi, (_, s) in zip(pauli_shards, q, mesh.cells):
+            st = fn(qi)
+            glob = lambda idx: (torch.div(idx, m * nx, rounding_mode="floor") * (ny * nx)
+                                + s * m * nx + torch.remainder(idx, m * nx))
+            local.append(torch.stack([st[0], glob(st[1]), st[2], glob(st[3])]))
+        return _combine_pauli(ex.all_gather(local)[0]).to(device)
+
+    plane_shards: dict[int, list] = {}
+
+    def shard_plane(plane: torch.Tensor) -> list:
+        # the generation program keeps one plane per dt·amp, so each is split once
+        if id(plane) not in plane_shards:
+            plane_shards[id(plane)] = rows.shard(plane)
+        return plane_shards[id(plane)]
+
+    mask_sh = rows.shard(mask_plane)
+    aux_sh = list(zip(*(rows.shard(a) for a in photon_aux))) if photon_aux else [()] * len(mask_sh)
+    seg_cache: dict = {}
+
+    def segment_runner(seg_dt: float, length: int):
+        key = (seg_dt, length)
+        if key in seg_cache:
+            return seg_cache[key]
+        sh = get_sharded(seg_dt)
+        raw, src = sh.aux
+        merged = merged_mesh and length > 1 and sh.apply_diffuse is not None
+        photon_apply = make_photon_apply(seg_dt) if photon_on else None
+        traced = gen.traced_fn is not None
+
+        def run(q, ph, t_start: float):
+            t0 = np_t(t_start)
+            times = [t0 + np_t(k) * np_t(seg_dt) for k in range(length)]
+            t_dev = (
+                torch.arange(length, dtype=dtype, device=device) * seg_dt
+                + torch.full((), float(t0), dtype=dtype, device=device)
+                if traced else None
+            )
+            flags = np.zeros((length, 2), dtype=bool)
+            dev_flags: list = [None] * length
+
+            def inject(q, k, slot):
+                """Step k's generation and photon substeps on every shard; the
+                shards' dt·g planes the sharded step fuses (or None)."""
+                grow = None
+                if gen.scalar_amp:
+                    plane, nf, ng = gen.plane(seg_dt, times[k])
+                    flags[slot] |= (nf, ng)
+                    if fuse_gen:
+                        grow = shard_plane(plane)
+                    else:
+                        q = [qi + p[None] for qi, p in zip(q, shard_plane(plane))]
+                elif traced:
+                    g = gen.traced_fn(t_dev[k])
+                    row = torch.stack(gen.flags(g))
+                    dev_flags[slot] = row if dev_flags[slot] is None else dev_flags[slot] | row
+                    q = [qi + seg_dt * gi for qi, gi in zip(q, rows.shard(g))]
+                if photon_apply is not None:
+                    q = [photon_apply(qi, times[k], w, a) for qi, w, a in zip(q, mask_sh, aux_sh)]
+                return q, grow
+
+            stats: list[torch.Tensor] = []
+            if merged:
+                # C(dt/2) [D C(dt)]^(L-1) D C(dt/2), injections at the seams
+                # as in the single-device runner
+                q, grow = inject(q, 0, 0)
+                q, ph = (sh.apply_col_half(q, ph, raw) if grow is None
+                         else sh.apply_col_half_gen(q, ph, grow, raw))
+                for k in range(length - 1):
+                    q = sh.apply_diffuse(q, raw, src)
+                    q, grow = inject(q, k + 1, k)
+                    q, ph = (sh.apply_col_full(q, ph, raw) if grow is None
+                             else sh.apply_col_full_gen(q, ph, grow, raw))
+                    stats.append(pauli_mesh(q))
+                q = sh.apply_diffuse(q, raw, src)
+                q, ph = sh.apply_col_half(q, ph, raw)
+                stats.append(pauli_mesh(q))
+            else:
+                for k in range(length):
+                    q, grow = inject(q, k, k)
+                    q, ph, _ = (sh.apply(q, ph, grow, raw, src) if fuse_gen
+                                else sh.apply(q, ph, raw, src))
+                    stats.append(pauli_mesh(q))
+            stats_t = torch.stack(stats)
+            if traced:
+                zero = torch.zeros(2, dtype=torch.bool, device=device)
+                flag_rows = torch.stack([zero if f is None else f for f in dev_flags])
+                stats_t = torch.cat([stats_t, flag_rows.to(stats_t.dtype)], dim=1)
+            return q, ph, stats_t, flags
+
+        seg_cache[key] = run
+        return run
+
+    single_cache: dict = {}
+
+    def single_step(seg_dt: float):
+        """One step after the runner's host-mode generation add."""
+        if seg_dt not in single_cache:
+            sh = get_sharded(seg_dt)
+            photon_apply = make_photon_apply(seg_dt) if photon_on else None
+
+            def one(q, ph, t: float):
+                if photon_apply is not None:
+                    q = [photon_apply(qi, np_t(t), w, a) for qi, w, a in zip(q, mask_sh, aux_sh)]
+                q, ph, _ = sh.apply(q, ph, *sh.aux)
+                return q, ph, pauli_mesh(q)
+
+            single_cache[seg_dt] = one
+        return single_cache[seg_dt]
+
+    return EngineProgram(
+        pmap=pmap, segment_runner=segment_runner, pauli_stats=pauli_stats, single_step=single_step,
+        host_gen=gen.host_mode, shard=rows.shard, gather=rows.gather,
     )

@@ -21,6 +21,10 @@ With a ``checkpointer`` every stored snapshot's full state is saved (in
 light mode too: it is the resume data), and a rerun replays the aligned
 prefix of the checkpoints and skips the segments they cover; with a
 ``frame_sink`` each stored snapshot is streamed instead of kept.
+
+With a ``mesh`` the state is split into this process's shards once, after
+the first frame (or the resumed state), and put back together for each
+stored frame and checkpoint (``EngineProgram.shard`` / ``gather``).
 """
 
 from __future__ import annotations
@@ -120,6 +124,8 @@ def _run_energy_resolved(
     snapshot_detail="full",
     checkpointer=None,
     frame_sink=None,
+    mesh=None,
+    mesh_y_solve="wang",
 ):
     gap = float(energy_gap)
     ny, nx = mask.shape
@@ -186,6 +192,8 @@ def _run_energy_resolved(
         pauli_density_floor=pauli_density_floor,
         strang_mode=strang_mode,
         photon_drive=photon_drive,
+        mesh=mesh,
+        mesh_y_solve=mesh_y_solve,
     )
     omega_bins = prog.pmap.omega_bins
 
@@ -349,6 +357,7 @@ def _run_energy_resolved(
     def start_copy(q_dev, ph_dev) -> _HostCopy:
         # the full state IS the resume data: light mode saves the snapshot
         # traffic, not the checkpoint traffic
+        q_dev, ph_dev = prog.gather(q_dev), prog.gather(ph_dev)  # a mesh's shards, put together
         if light:
             full = [q_dev, ph_dev] if checkpointer is not None else []
             return _HostCopy(*light_reduce(q_dev, ph_dev), *full)
@@ -416,6 +425,7 @@ def _run_energy_resolved(
             checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
 
     # --- main loop --------------------------------------------------------------
+    q, ph = prog.shard(q), prog.shard(ph)  # a mesh's runner steps this process's shards
     gen_mode = external_generation.normalized_mode() if external_generation else "none"
 
     def drain(p) -> None:
@@ -457,7 +467,7 @@ def _run_energy_resolved(
                 if g_host is not None:
                     g_dense = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
                     g_dense[:, mask_d] = torch.as_tensor(g_host, dtype=dtype, device=device)
-                    q = q + seg.dt * g_dense
+                    q = prog.shard(prog.gather(q) + seg.dt * g_dense)
                 q, ph, stats = one(q, ph, current_time)
                 step_counter += 1
                 current_time += seg.dt

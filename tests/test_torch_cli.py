@@ -5,8 +5,9 @@ Each of the 13 ported subcommands through ``qpsim_tpu_torch.cli.main([...,
 ``qpsim_tpu.cli.main`` on the same small setup, in float64:
 
 * ``run`` and ``sweep``: the saved simulations equal at 1e-10, the exit
-  codes and summaries equal; ``run --space-shards`` raises, naming the
-  Sharding item, before anything is written;
+  codes and summaries equal; ``run --space-shards n`` saves the same
+  simulation sharded, and refuses n = 0 and more shards than devices
+  with exit code 2 and the JAX message before anything is written;
 * ``precompute``, ``export-gds`` and ``gen-tests``: the files equal byte
   for byte (``gen-tests`` on a small suite in place of the generator's,
   with the arguments it was given);
@@ -148,14 +149,29 @@ def test_run_saves_the_same_simulation(runs):
     _same_simulation(load_simulation(runs["jax"]), load_simulation(runs["port"]))
 
 
-def test_run_space_shards_raises_before_writing(tmp_path):
+@pytest.mark.parametrize("shards", ["2", "0", "devices+99"])
+def test_run_space_shards_raises_before_writing(shards, tmp_path, capsys):
+    """``run --space-shards n`` beside the JAX CLI: n = 2 (of the 8 CPU
+    devices both packages count here) runs sharded and saves the same
+    simulation; 0 and the device count + 99 exit 2 with the JAX message
+    before anything is written."""
+    import jax
+
+    n = len(jax.devices()) + 99 if shards == "devices+99" else int(shards)
     setup_path = j_save_setup(_setup(), tmp_path / "s.json")
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        tcli.main(["run", str(setup_path), "--space-shards", "2", "--device", "cpu",
-                   "--output", str(out / "sim.json"), "--stream-dir", str(out / "stream"),
-                   "--checkpoint-dir", str(out / "ck")])
-    assert not out.exists()
+    argv = lambda pkg: ["run", str(setup_path), "--space-shards", str(n), "--output",
+                        str(tmp_path / pkg / "sim.json"), "--checkpoint-dir", str(tmp_path / pkg / "ck")]
+    (rc_j, out_j, err_j), (rc_t, out_t, err_t) = _both(argv("jax"), argv("port") + ["--device", "cpu"], capsys)
+    assert rc_t == rc_j
+    if n < 1 or n > len(jax.devices()):
+        assert rc_t == 2 and err_t == err_j and "--space-shards" in err_t
+        assert out_t == out_j
+        assert not (tmp_path / "port").exists()
+        return
+    assert rc_t == 0
+    assert f"space-sharded over {n} device(s)" in out_t.splitlines()
+    assert f"space-sharded over {n} device(s)" in out_j.splitlines()
+    _same_simulation(load_simulation(tmp_path / "port" / "sim.json"), load_simulation(tmp_path / "jax" / "sim.json"))
 
 
 def test_run_streamed_integrated(tmp_path, capsys):

@@ -3,8 +3,9 @@
 Both packages get the same geometry, initial field and physics; the port
 runs with ``device="cpu"`` (every kernel's plain version).  Parity tests
 pin ``strang_mode`` on both sides.  Also covered: the Pauli policy and its
-messages, the features this port defers (they must raise), and the
-interop helpers.  Gap maps are in ``test_torch_gap_maps.py``.
+messages, the once-deferred keywords (``mesh=``, ``checkpointer=``,
+``frame_sink=``: they run), and the interop helpers.  Gap maps are in
+``test_torch_gap_maps.py``.
 """
 
 import warnings
@@ -204,19 +205,34 @@ _DEFERRED = ["mesh", "checkpointer", "frame_sink"]
 
 @pytest.mark.parametrize("feature", _DEFERRED)
 def test_deferred_features_raise(feature, tmp_path):
-    """``mesh=`` is still deferred and raises, also beside the I/O keywords;
-    ``checkpointer=`` and ``frame_sink=`` are ported: they run, and change
-    nothing of the run's result but where its frames go."""
+    """The once-deferred keywords run and change nothing of the run's
+    result but where its frames go: ``checkpointer=``, ``frame_sink=``, and
+    ``mesh=`` (two CPU shards of a 2 × 4 film), alone and beside both I/O
+    keywords, against the single-device run's times, mass and frames."""
     from qpsim_tpu_torch.io.checkpoint import SimulationCheckpointer
     from qpsim_tpu_torch.io.stream import FrameStreamWriter, load_frame_stream
+    from qpsim_tpu_torch.parallel.mesh import make_mesh
 
     kw = _pauli_kwargs(initial_field=np.full((1, 4), 1e-5))
     io_kw = {"checkpointer": SimulationCheckpointer(tmp_path / "ck"),
              "frame_sink": FrameStreamWriter(tmp_path / "s")}
     if feature == "mesh":
-        for extra in ({}, io_kw):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                T.run_2d_crank_nicolson(**kw, mesh=object(), **extra, device="cpu")
+        mask = np.ones((2, 4), dtype=bool)
+        edges = extract_edge_segments(mask)
+        kw = _pauli_kwargs(mask=mask, edges=edges, initial_field=np.full(mask.shape, 1e-5),
+                           edge_conditions={e.edge_id: BoundaryCondition(kind="reflective") for e in edges})
+        plain = T.run_2d_crank_nicolson(**kw, device="cpu")
+        mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+        _assert_runs_match(plain, T.run_2d_crank_nicolson(**kw, mesh=mesh))
+        out = T.run_2d_crank_nicolson(**kw, mesh=mesh, **io_kw)
+        assert out[0] == plain[0] and out[1] == [] and out[4] is None
+        np.testing.assert_allclose(out[2], plain[2], rtol=1e-12, atol=0)
+        assert io_kw["checkpointer"].all_steps() == list(range(len(plain[0])))
+        io_kw["frame_sink"].finalize()
+        stream = load_frame_stream(tmp_path / "s")
+        for i, frame in enumerate(plain[1]):
+            np.testing.assert_allclose(np.nan_to_num(stream.frame(i)), np.nan_to_num(frame),
+                                       rtol=1e-10, atol=1e-18)
         return
     plain = T.run_2d_crank_nicolson(**kw, device="cpu")
     out = T.run_2d_crank_nicolson(**kw, **{feature: io_kw[feature]}, device="cpu")

@@ -211,8 +211,17 @@ def test_run_setup_errors_match_the_jax_package(tmp_path):
     with pytest.raises(ValueError) as port_err:
         T.run_setup(_port(bad), save=False, device="cpu")
     assert str(port_err.value) == str(jax_err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.run_setup(_port(setup), save=False, device="cpu", mesh=object())
+    # mesh= runs: the port's rows-sharded run against the JAX package's on a
+    # mesh of the same size (two shards of the 10 × 14 film)
+    import jax
+    from qpsim_tpu.parallel.mesh import make_mesh as j_make_mesh
+
+    from qpsim_tpu_torch.parallel.mesh import make_mesh as t_make_mesh
+
+    j_mesh = j_make_mesh(n_space=2, devices=jax.devices()[:2])
+    t_mesh = t_make_mesh(devices=[torch.device("cpu")] * 2)
+    _assert_results_match(T.run_setup(_port(setup), save=False, mesh=t_mesh)[0],
+                          j_run_setup(setup, save=False, mesh=j_mesh)[0])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.run_setup(_port(setup), save=False, stream_dir=tmp_path / "never")
