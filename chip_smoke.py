@@ -54,13 +54,13 @@ a non-zero exit:
    with exact launch counts, timed as in phase 4 over two calls; then
    K3-gid (random G = 3 ids, and the trap disc's coherent ids), K4 and K2
    on NB planes timed against their plain versions at 1024² × 16;
-4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 40
-   steps stored at the start and the end — uniform on the 1024²
-   rectangle through K5, the trap (K5 with gap ids) and a gradient (K6)
-   on 512², one timed call each — with exact launch counts and no K3/K4
-   launch; then K5, K5-gid (random ids, and the trap disc's coherent ids)
-   and K6 timed against their plain versions at 1024² × 100 (beyond 256
-   bins: phase 11);
+4c. beyond 64 bins: the coupled path at 100 energy bins (NW = 299), 20
+   steps (cut from 40 to make room for phase 13) stored at the start and
+   the end — uniform on the 1024² rectangle through K5, the trap (K5
+   with gap ids) and a gradient (K6) on 512², one timed call each — with
+   exact launch counts and no K3/K4 launch; then K5, K5-gid (random
+   ids, and the trap disc's coherent ids) and K6 timed against their
+   plain versions at 1024² × 100 (beyond 256 bins: phase 11);
 4d. the explicit entry points at full width, float32: each called once
    with exact launch counts — K8 at 1024² × 100 on phase 4c's inputs
    (uniform and gap ids) and at 1024² × 256, K9 at 1024² × 72 and × 16,
@@ -91,7 +91,7 @@ a non-zero exit:
    weights, Bose–Einstein phonons), traced custom generation and the
    photon drive (pair breaking at 2.6Δ in [1.0, 3.5) ns), 100 steps,
    float32, strang "auto": exactly 104 K3 launches with no generation
-   plane and 100 + 100 K2 halves, steady ms/step over three calls beside
+   plane and 100 + 100 K2 halves, steady ms/step over two calls beside
    the same film with neither photons nor custom generation, the set-up
    split (GDS raster, IC build, program build), a two-tone drive, the trap
    map (K3 gap ids) and the gradient (K4) under the per-pixel photon
@@ -113,7 +113,7 @@ a non-zero exit:
    full detail, streamed, bit-equal to the direct call; (9b) the same
    setup interrupted at 3.1 ns (62 steps: a forced final store) and run
    to 5 ns into the same directories: bit-equal to 9a, the forced index
-   discarded; (9c) 1024² × 100, 40 steps, integrated and streamed — 41 K5
+   discarded; (9c) 1024² × 100, 20 steps, integrated and streamed — 21 K5
    launches, within 1e-5 of a full-detail call's reductions; (9d) the
    scalar 1024² film, 2000 steps, streamed — 2 K1 launches a step, mass
    drift ≤ steps × float32 ε; (9e) a 2 × 1 ``run_sweep`` on 256² × 16,
@@ -143,9 +143,9 @@ a non-zero exit:
    on phase 4's stored frames; (10e) ``"auto"`` launching K10 on CUDA
    tensors and a kernel wrapper refusing an input that requires grad;
 11. more than 256 bins, the command line and the GUI's run worker:
-   (11a) phase 4's physics at 1024² × 512 bins (NW 1535), float32, 10
+   (11a) phase 4's physics at 1024² × 512 bins (NW 1535), float32, 2
    steps, the pulse on from t = 0, light snapshots: K5 in the staged form
-   (12 launches, none in the device-memory form), ms/step; the same at 96²
+   (4 launches, none in the device-memory form), ms/step; the same at 96²
    against the plain path; (11b) 512 bins in float64 at 128² (the
    device-memory form: 8 launches, all counted as ``column_walk_device``)
    against the plain path at 1e-10; (11c) 256² × 1024 bins (NW 3071),
@@ -189,13 +189,24 @@ a non-zero exit:
    and ``--space-shards 2`` refused with exit code 2 on one card; then
    K7's rows at the sharded shapes and K4/K6's with call-time planes,
    each against its plain version;
-13. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
+13. the benchmark and the entry points: (a) each of the 15 stage
+   functions of ``qpsim_tpu_torch.bench`` at its full width with its
+   lengths cut to a few steps — exact launch counts per stage (a warm-up
+   of ``WARMUP_STEPS`` and two timed runs), every payload key, finite
+   positive numbers; (b) the shapes the bench runs first, each kernel
+   against its plain version: K10 on the 1 × 4096 × 64 wire's x lines,
+   K3's column walk at 64 bins on that one-row film, K7 on the one-device
+   mesh's 256-cell lines (x and pencil y), K1 on the standalone 1024² × 16
+   step; (c) ``graft_entry.entry()``'s step: 2 K3 and 1 + 1 K2 launches,
+   within 1e-5 of the step on the plain versions; (d)
+   ``graft_entry.dryrun_multichip(4)`` on four cells of the card;
+14. a JSON line with the kernels' numbers (phase 9's rows: the kernel's
    times at the same shapes from phases 4, 4c and 6 of this run, with
    phase 9's launches, and the small-cell K3 rows; phase 10's K10, K3,
    K3-gid, K4 and column-walk rows at the slice's shapes; phase 11's K5
    and K6 rows beyond 256 bins, each with its form and shapes; phase 12's
-   sharded rows), the card line, and a last JSON line
-   ``{"ok": true, "device": {...}}``.
+   sharded rows; phase 13's rows at the bench's new shapes), the card
+   line, and a last JSON line ``{"ok": true, "device": {...}}``.
 
 Errors are "scaled max errors": max|kernel − plain| / max|plain| over the
 compared arrays.  Kernel timings use CUDA events after a warm-up; K1's and
@@ -224,6 +235,20 @@ import time
 import numpy as np
 import torch
 
+# the H100's peaks and the kernels' work counts, shared with qpsim_tpu_torch.bench
+from qpsim_tpu_torch.ops import launch_tables
+from qpsim_tpu_torch.utils.roofline import (  # noqa: F401 (re-exported for tools/*.py)
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    adi_sep_work,
+    adi_work,
+    bound,
+    collision_work,
+    kernel_tensors,
+    nbytes,
+    thomas_work,
+)
+
 F32, F64 = torch.float32, torch.float64
 TOL = {("collision_step", F64): 1e-10, ("collision_step", F32): 5e-7,
        ("collision_step_gid", F64): 1e-10, ("collision_step_gid", F32): 5e-7,
@@ -242,10 +267,6 @@ def blocked_tol(dtype, ne: int) -> float:
     return 1e-10 if dtype == F64 else (5e-6 if ne <= 100 else 2e-5)
 
 
-#: H100 SXM data-sheet peaks: HBM bytes/s and float32 (non-tensor) and float64 FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {F32: 67e12, F64: 34e12}
-
 #: the two gap maps of phase 4b: a quasiparticle trap (G = 2) and a gradient (G ≈ 10⁶)
 GAP_MAPS = {
     "trap": "return 180.0 - 20.0 * (((x - 0.5)**2 + (y - 0.5)**2) < 0.04)",
@@ -256,67 +277,6 @@ GAP_MAPS = {
 #: initial state (the uniform gap's DOS in every bin) would fill forbidden
 #: states, which the Pauli gate refuses; the gradient moves down by 20 µeV
 GAP_MAPS_100 = dict(GAP_MAPS, gradient="return 150.0 + 20.0 * x + 2.0 * y")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(n_bytes: float, flops: float, dtype) -> dict:
-    """bound_ms / bound_by of a kernel row from its bytes and operations."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def collision_work(plan, q, ph, gen, tensors, analytic=False) -> tuple[int, int]:
-    """(bytes, operations) of one collision substep on these inputs.
-
-    Bytes: q and n_ph in and out (n_ph out only when phonons update), the
-    gen plane and every table once.  Operations per pixel: what the
-    function needs, however often a kernel re-forms a term.  K^s₀, K^r₀
-    and their ω rows are symmetric in (i, j), so each constant is formed
-    once per unordered pair {i, j}:
-      scattering, i ≠ j (NE(NE − 1)/2 pairs): K·n and K + K·n (2), the
-        four gathers loss_i, loss_j, gain_i, gain_j (8), the phonon row's
-        emission and absorption terms (4) and their sums into a, b (3);
-      recombination, i ≤ j (NE(NE + 1)/2 pairs): k·s and k + k·s (2),
-        the phonon row's k·q_i·q_j and k·p_i·p_j (4) and their sums (3);
-        the gathers loss_i += k(1 + s)·q_j, gain_i += k·s·p_j take 4 per
-        ordered pair (NE²);
-    then 16 per bin (partner, gain, relaxation), 1 per bin for gen and 10
-    per ω row.  The analytic forms add 10 per bin for ρ and, per
-    unordered pair, 3 for the scattering constant and 2 for the
-    recombination constant from Δ².
-    """
-    ne, nw = plan.num_energy_bins, plan.num_omega
-    n_pix = q.shape[1] * q.shape[2]
-    n_s = ne * (ne - 1) // 2 if plan.enable_scattering else 0
-    n_r = ne * (ne + 1) // 2 if plan.enable_recombination else 0
-    n_r_ordered = ne * ne if plan.enable_recombination else 0
-    per_px = 10 * n_s + 2 * n_r + 4 * n_r_ordered + 16 * ne + (ne if gen is not None else 0)
-    if plan.update_phonons:
-        per_px += 7 * n_s + 7 * n_r + 10 * nw
-    if analytic:
-        per_px += 10 * ne + 3 * n_s + 2 * n_r
-    state = nbytes(q, q, ph, gen) + (nbytes(ph) if plan.update_phonons else 0)
-    return state + nbytes(*tensors), per_px * n_pix
-
-
-def adi_work(u, planes) -> tuple[int, int]:
-    """(bytes, operations) of one K2 half: u in, out, the 7 planes and the scale; ≈ 20 flops per element."""
-    p = planes
-    return nbytes(u, u, p.ax_lo, p.ax_hi, p.ax_diag, p.ay_lo, p.ay_hi, p.ay_diag, p.src, p.scale), 20 * u.numel()
-
-
-def adi_sep_work(u, f, half: str) -> tuple[int, int]:
-    """(bytes, operations) of one K1 half: u in, out, its packs; ≈ 15 flops per element."""
-    packs = (f.xv, f.yv) + ((f.facx, f.ifx) if half == "x" else (f.facy, f.ify))
-    return nbytes(u, u, *packs), 15 * u.numel()
-
-
-def thomas_work(system) -> tuple[int, int]:
-    """(bytes, operations) of the Thomas solve: a, b, c, r in, x out; ≈ 8 flops per element."""
-    return nbytes(*system, system[3]), 8 * system[3].numel()
 
 
 def scaled_err(got, ref) -> float:
@@ -477,17 +437,6 @@ def trap_ids(shape):
     return (((cx[None, :] - 0.5) ** 2 + (cy[:, None] - 0.5) ** 2) >= 0.04).astype(np.int64)
 
 
-def kernel_tensors(tables, *planes):
-    """What a K3/K4 launch reads besides the state (for byte counts): the
-    pair walk's tables and ``planes`` (gap ids, Δ² and the Dynes
-    constants), or beyond the register buckets the column walk's tables."""
-    from qpsim_tpu_torch.ops.column_walk import ColumnTables
-
-    if isinstance(tables, ColumnTables):
-        return tables.kernel_tensors()
-    return [*planes, *tables.kernel_tensors()]
-
-
 def column_counts(ne):
     """(scattering, recombination) columns of K9's grouping at NE bins (K5/K6's)."""
     _, _, pm = phonon_map(ne)
@@ -621,13 +570,6 @@ def sep_factors(geometry, nb, dtype, dt=0.1, seed=2):
     f = SepFactors.build(op, dt, "cuda", dtype)
     u = np.random.default_rng(seed).uniform(0.0, 1e-5, (nb, *mask.shape))
     return f, torch.as_tensor(u, dtype=dtype, device="cuda")
-
-
-def launch_tables():
-    from qpsim_tpu_torch.ops import adi_cuda, adi_sep_cuda, collisions_cuda, column_walk, tridiag_cuda
-
-    return (collisions_cuda.LAUNCHES, adi_cuda.LAUNCHES, adi_sep_cuda.LAUNCHES, tridiag_cuda.LAUNCHES,
-            column_walk.LAUNCHES)
 
 
 def reset_counts():
@@ -1301,10 +1243,10 @@ def phase_gap_maps(card: str) -> list[dict]:
 
 
 def phase_blocked_path(card: str) -> list[dict]:
-    print("== 4c beyond 64 bins: 100 bins, 40 steps, float32, merged stepping — uniform gap on "
-          "1024², gap maps on 512² (cut from 1024²: their per-pixel D(E, x) fold grows with NE)",
+    print("== 4c beyond 64 bins: 100 bins, 20 steps (cut from 40 for phase 13), float32, merged stepping — "
+          "uniform gap on 1024², gap maps on 512² (cut from 1024²: their per-pixel D(E, x) fold grows with NE)",
           flush=True)
-    dt, steps = 0.05, 40
+    dt, steps = 0.05, 20
     # stored only at the start and the end: each stored frame rebuilds 100
     # bins on the host.  No warm-up call: the kernels were built and run in
     # phases 3–4, and a 100-bin call spends ≈ 15 s of host set-up (1024²)
@@ -1869,7 +1811,7 @@ def film_expect(collision: str, steps: int, segments: int, merged: bool = True, 
                     "adi_sep_x": 0, "adi_sep_y": 0}
 
 
-def timed_film_calls(label, kw, expect, card, calls=3):
+def timed_film_calls(label, kw, expect, card, calls=2):
     """``calls`` timed calls; (first result, runs, launch counts of the first call, checked exact)."""
     reset_counts()
     out, first = timed_run(kw, int(round(kw["total_time"] / kw["dt"])))
@@ -2384,11 +2326,12 @@ def phase_setup_flagship(card: str, tmp, rows_before) -> list[dict]:
 
 
 def phase_setup_ne100(card: str, tmp, rows_before) -> list[dict]:
-    print("== 9c 100 bins through run_setup: 1024² × 100, 40 steps, integrated detail, streamed", flush=True)
+    print("== 9c 100 bins through run_setup: 1024² × 100, 20 steps (cut from 40 for phase 13), integrated "
+          "detail, streamed", flush=True)
     import qpsim_tpu_torch
     from qpsim_tpu_torch.io.stream import load_frame_stream
 
-    setup = flagship_setup(1024, ne=100, steps=40, store_every=40, name="ne100")
+    setup = flagship_setup(1024, ne=100, steps=20, store_every=20, name="ne100")
     stamps: list[float] = []
     with engine_keywords() as kw:
         reset_counts()
@@ -2412,7 +2355,7 @@ def phase_setup_ne100(card: str, tmp, rows_before) -> list[dict]:
                    for i in range(r.count))
     check("9c integrated frames against the full-detail call (float32)", frame_err, 1e-5)
     check("9c bin sums against the full-detail call's energy frames (float32)", sums_err, 1e-5)
-    print(f"  9c: call to first stored frame / first to last stored frame (40 steps and the final "
+    print(f"  9c: call to first stored frame / first to last stored frame (20 steps and the final "
           f"stored frame): integrated + stream {stamps[0] - t_light:.3f} / {stamps[-1] - stamps[0]:.3f} s; "
           f"full detail in memory {full_stamps[0] - t_full:.3f} / {full_stamps[-1] - full_stamps[0]:.3f} s "
           f"— {card}", flush=True)
@@ -3254,11 +3197,11 @@ def phase_beyond_256(card: str) -> list[dict]:
     from qpsim_tpu_torch.ops.column_walk import column_form, launch_column_walk
 
     run = qpsim_tpu_torch.run_2d_crank_nicolson
-    print("== 11a the flagship physics at 1024² × 512 bins (NW 1535), float32, staged form: 10 steps",
-          flush=True)
+    print("== 11a the flagship physics at 1024² × 512 bins (NW 1535), float32, staged form: 2 steps "
+          "(cut from 10 to make room for phase 13)", flush=True)
     assert column_form(F32, 512) == "staged" and column_form(F64, 512) == "device"
     assert column_form(F32, 1024) == "device"
-    _, k5_512 = beyond_run("1024² × 512", beyond_kwargs(1024, 512, 10, snapshot_detail="integrated"),
+    _, k5_512 = beyond_run("1024² × 512", beyond_kwargs(1024, 512, 2, snapshot_detail="integrated"),
                            "collision_step_blocked", False, card)
     # held against the plain path at 96² (K2 on both sides; at ≤ 4096 cells
     # the dense backend's set-up factorises one 4096² operator per bin)
@@ -3866,6 +3809,216 @@ def phase_sharding_nccl(card: str) -> None:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+#: each bench stage's payload keys, as the JAX bench names them (its two v5e
+#: peak fractions become the H100 bound shares and what bounds them)
+BENCH_KEYS = {
+    "scalar_cn_1024": ("value", "vs_baseline"),
+    "mkid_pulse": ("mkid_pulse_10k_steps_wallclock_s",),
+    "coupled_full_scale": ("coupled_1024_ms_per_step", "coupled_1024_ms_per_step_exact_strang"),
+    "rooflines": ("collision_substep_1024_ms", "collision_model_ops_per_s", "collision_bound_share",
+                  "collision_bound_by", "adi_1024_ms_per_step", "adi_model_bytes_per_s", "adi_bound_share",
+                  "adi_bound_by"),
+    "sharded_overhead": ("sharded_1dev_ms_per_step", "sharded_wang_1dev_ms_per_step", "sharded_overhead_1dev",
+                         "sharded_merged_1dev_ms_per_step"),
+    "snapshot_overlap": ("engine_mkid_10k_store_sparse_s", "engine_mkid_10k_store_dense_s",
+                         "engine_mkid_10k_store_dense_light_s", "snapshot_overlap_dense_over_sparse",
+                         "snapshot_light_dense_over_sparse"),
+    "collisions_100bin": ("collisions_100bin_ms_per_substep",),
+    "collisions_50bin": ("collisions_50bin_ms_per_substep", "collisions_50bin_pixels_per_s"),
+    "coupled_2d": ("coupled_2d_ms_per_step", "collision_pixels_per_s", "collision_vs_reference"),
+    "masked_512": ("masked_512_cell_steps_per_s",),
+    "analytic_gap": ("analytic_gap_ms_per_substep",),
+    "analytic_gap_100bin": ("analytic_gap_100bin_ms_per_substep",),
+    "coupled_1d_64bin": ("coupled_1d_64bin_ms_per_step", "coupled_1d_64bin_cell_steps_per_s"),
+    "ensemble_sweep": ("ensemble_members", "ensemble_ms_per_step", "ensemble_member_steps_per_s"),
+    "diff_grad": ("diffgrad_ms_per_step", "diffgrad_over_forward"),
+}
+
+#: phase 13a's cut lengths: each stage at its full width, a few steps
+BENCH_CUTS = {
+    "scalar_cn_1024": dict(length=10), "mkid_pulse": dict(total_steps=10),
+    "coupled_full_scale": dict(length=3), "rooflines": dict(length=3, adi_length=3),
+    "sharded_overhead": dict(length=3), "snapshot_overlap": dict(total_steps=20),
+    "collisions_100bin": dict(length=2), "collisions_50bin": dict(length=3), "coupled_2d": dict(length=3),
+    "masked_512": dict(length=10), "analytic_gap": dict(length=3), "analytic_gap_100bin": dict(length=2),
+    "coupled_1d_64bin": dict(length=3), "ensemble_sweep": dict(length=3), "diff_grad": dict(n_steps=32, remat_chunk=16),
+}
+
+
+def bench_expect(name: str, kw: dict) -> dict:
+    """Exact launch counts of one bench stage called with ``kw`` at full width.
+
+    A timed stage runs a warm-up of W steps and two runs of L, s = W + 2L
+    steps: C(dt/2) D C(dt/2) launches K3 twice a step; a merged chunk of k
+    steps k + 1 times, its dt·g plane k times; K1/K2 one x and one y half
+    a step; the ADI step of a wire one K10 launch (its y lines are single
+    cells); an ensemble's two (x rows, y cols); the sharded step on one
+    device two K7 (x, and the pencil y or the Wang local solve).
+    """
+    from qpsim_tpu_torch.bench import SNAPSHOT_RUNS, WARMUP_STEPS as w
+    from qpsim_tpu_torch.solver.stepping import _plan_segments, _split_time
+
+    length = kw.get("length", kw.get("total_steps", kw.get("n_steps")))
+    s = w + 2 * length
+    per = {
+        "scalar_cn_1024": {"adi_sep_x": s, "adi_sep_y": s},
+        "mkid_pulse": {"collision_step": 2 * s, "thomas": s},
+        # exact: 2 a step, 1 with the plane; merged: chunks of W, L, L
+        "coupled_full_scale": {"collision_step": 3 * s + 3, "collision_step_with_gen": 2 * s,
+                               "adi_x_half": 2 * s, "adi_y_half": 2 * s},
+        "rooflines": {"collision_step": s, "adi_sep_x": w + 2 * kw.get("adi_length", 0),
+                      "adi_sep_y": w + 2 * kw.get("adi_length", 0)},
+        # pencil, Wang, the plain coupled_2d denominator, merged pieces
+        "sharded_overhead": {"collision_step": 7 * s + 3, "adi_lines": 6 * s, "adi_x_half": s, "adi_y_half": s},
+        "collisions_100bin": {"collision_step_blocked": s},
+        "collisions_50bin": {"collision_step": s},
+        "coupled_2d": {"collision_step": 2 * s, "adi_x_half": s, "adi_y_half": s},
+        "masked_512": {"adi_x_half": s, "adi_y_half": s},
+        "analytic_gap": {"collision_step_analytic": s},
+        "analytic_gap_100bin": {"collision_step_blocked_analytic": s},
+        "coupled_1d_64bin": {"collision_step": 2 * s, "thomas": s},
+        "ensemble_sweep": {"collision_step": 2 * s, "thomas": 2 * s, "thomas_cols": s},
+    }.get(name)
+    if name == "snapshot_overlap":  # a W-step warm-up call, two calls a label; merged stepping, the pulse on
+        dt, n = 0.01, kw["total_steps"]
+        calls = lambda steps, every: sum(g.length + 1 if g.length > 1 else 2 for g in _plan_segments(
+            *_split_time(steps * dt, dt)[:2], dt, every))
+        per = {"collision_step": calls(w, w) + sum(2 * calls(n, e or n) for _, e, _ in SNAPSHOT_RUNS),
+               "collision_step_with_gen": w + 2 * n * len(SNAPSHOT_RUNS)}
+    if name == "diff_grad":  # three forward calls; three value-and-gradient calls, each a forward and a backward
+        fwd, back = remat_expect(kw["n_steps"], kw["remat_chunk"])  # two chunks: the two-level schedule
+        per = {k: 6 * fwd.get(k, 0) + 3 * back.get(k, 0) for k in back}
+    return zero_counts() | per
+
+
+def bench_stages_at_width(card: str) -> dict:
+    """13a: each stage at its full width, its lengths cut; returns the launches by stage."""
+    from qpsim_tpu_torch import bench
+
+    assert [n for n, _ in bench.STAGES] == list(BENCH_KEYS) == list(BENCH_CUTS)
+    by_stage = {}
+    for name, fn in bench.STAGES:
+        kw = BENCH_CUTS[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(**kw, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_stage[name] = read_counts()
+        check_counts(f"13a {name} {kw} ({wall:.1f} s)", by_stage[name], bench_expect(name, kw))
+        if set(out) != set(BENCH_KEYS[name]):
+            raise AssertionError(f"13a {name}: keys {sorted(out)} != {sorted(BENCH_KEYS[name])}")
+        for k, v in out.items():
+            ok = v in ("bytes", "operations") if k.endswith("_bound_by") else bool(np.isfinite(v) and v > 0)
+            if not ok:
+                raise AssertionError(f"13a {name}: {k} = {v!r}")
+        print(f"  13a {name}: {json.dumps(out)} — {card}", flush=True)
+    return by_stage
+
+
+def bench_shape_rows(card: str, counts: dict) -> list[dict]:
+    """13b: the kernels at the shapes the bench runs first, each against its plain version."""
+    from qpsim_tpu_torch import bench
+    from qpsim_tpu_torch.ops import adi_sep_cuda as k1
+    from qpsim_tpu_torch.ops.dos import diffusion_coefficient_of_energy
+    from qpsim_tpu_torch.parallel.mesh import make_mesh
+    from qpsim_tpu_torch.parallel.sharded import build_sharded_step
+    from qpsim_tpu_torch.solver.diffusion_backends import ADIDiffusion, CudaADI
+
+    rows = []
+    d_of = lambda ne: diffusion_coefficient_of_energy(6.0, bench._physics(ne)[0], 180.0)
+    # K10 on the 1 × 4096 × 64 wire's x lines: the ADIDiffusion x half's system, (64, 1, 4096) rows
+    p = ADIDiffusion(bench._film_operator(np.ones((1, 4096), dtype=bool), d_of(64)), "cuda", F32).planes
+    a_s = (0.025 * p.scale).reshape(-1, 1, 1)
+    rhs = torch.rand((64, 1, 4096), device="cuda", dtype=F32)
+    rows.append(thomas_row("thomas_wire_1x4096x64", (-a_s * p.ax_lo, 1.0 - a_s * p.ax_diag, -a_s * p.ax_hi, rhs),
+                           counts["coupled_1d_64bin"]["thomas"], F32))
+    # K3's column walk at 64 bins on that one-row film
+    _, col, q, ph = bench._coupled_pieces(1, 4096, 64, 0.05, F32, "cuda")
+    got, ref = col(q, ph), col.plain(q, ph)
+    torch.cuda.synchronize()
+    tol = TOL[("collision_step", F32)]
+    check("collision_step NE=64 1 × 4096 float32 (column walk), q", scaled_err(got[0], ref[0]), tol)
+    check("collision_step NE=64 1 × 4096 float32 (column walk), ph", scaled_err(got[1], ref[1]), tol)
+    rows.append(dict(
+        name="collision_step_wire_1x4096x64", route="cuda", source="qpsim_tpu_torch/csrc/offset_walk.cu",
+        replaces="qpsim_tpu/ops/pallas_collisions.py:169", launches=counts["coupled_1d_64bin"]["collision_step"],
+        max_abs_err=max(abs_err(got[0], ref[0]), abs_err(got[1], ref[1])), ms=time_ms(lambda: col(q, ph), 20),
+        plain_ms=time_ms(lambda: col.plain(q, ph), 3),
+        **bound(*collision_work(col.plan, q, ph, None, kernel_tensors(col.tables)), F32), library_ms=None,
+    ))
+    # K7 on the one-device mesh's 256-cell lines: the x half (swapped rows) and the pencil y half
+    op = bench._film_operator(np.ones((256, 256), dtype=bool), d_of(16))
+    raw = build_sharded_step(make_mesh(n_space=1, devices=[torch.device("cuda", 0)]), op, 0.05, dtype=F32).aux[0]
+    n_k7 = counts["sharded_overhead"]["adi_lines"]  # x every step; pencil y in two of the three variants
+    rows.append(sharded_line_row("adi_lines_1dev_x", torch.rand((16, 256, 256), device="cuda", dtype=F32),
+                                 raw["axlT"][0], raw["axdT"][0], raw["axhT"][0], raw["scale"][0], n_k7 // 2, card))
+    rows.append(sharded_line_row("adi_lines_1dev_y_pencil", torch.rand((16, 256, 256), device="cuda", dtype=F32),
+                                 raw["aylC"][0], raw["aydC"][0], raw["ayhC"][0], raw["scale"][0], n_k7 // 3, card))
+    # the rooflines stage's standalone ADI step at 1024² × 16: K1 (separable, standalone)
+    adi = CudaADI(bench._film_operator(np.ones((1024, 1024), dtype=bool), d_of(16)), "cuda", F32)
+    if not adi.separable:
+        raise AssertionError("13b the standalone 1024² × 16 step should take K1")
+    f = adi.make_step(0.05).factors
+    u = torch.rand((16, 1024, 1024), device="cuda", dtype=F32) * 1e-5
+    ux_ref, ux = k1.adi_sep_x_half_plain(u, f), k1.adi_sep_x(u, f)
+    uy_ref, uy = k1.adi_sep_y_half_plain(ux_ref, f), k1.adi_sep_y(ux_ref, f)
+    torch.cuda.synchronize()
+    check("adi_sep_x 1024²×16 standalone float32", scaled_err(ux, ux_ref), TOL[("adi_sep", F32)])
+    check("adi_sep_y 1024²×16 standalone float32", scaled_err(uy, uy_ref), TOL[("adi_sep", F32)])
+    for name, line, err, kern, plain in (
+        ("adi_sep_x", 237, abs_err(ux, ux_ref), k1.adi_sep_x, k1.adi_sep_x_half_plain),
+        ("adi_sep_y", 280, abs_err(uy, uy_ref), k1.adi_sep_y, k1.adi_sep_y_half_plain),
+    ):
+        rows.append(dict(
+            name=f"{name}_1024x16_standalone", route="cuda", source="qpsim_tpu_torch/csrc/adi_sep.cu",
+            replaces=f"qpsim_tpu/ops/pallas_adi_sep.py:{line}", launches=counts["rooflines"][name],
+            max_abs_err=err, ms=graph_ms(lambda: kern(u, f), 20), timing="graph",
+            plain_ms=time_ms(lambda: plain(u, f), 3), **bound(*adi_sep_work(u, f, name[-1]), F32), library_ms=None,
+        ))
+    print_rows(rows, "the bench's new shapes, each row's own", card)
+    return rows
+
+
+def phase_bench_and_entry_points(card: str) -> list[dict]:
+    print("== 13 the bench and the entry points: the 15 stages at full width, their new shapes against the "
+          "plain versions, entry(), dryrun_multichip(4)", flush=True)
+    from qpsim_tpu_torch import graft_entry
+
+    counts = timed_phase(bench_stages_at_width, card)
+    torch.cuda.empty_cache()
+    rows = timed_phase(bench_shape_rows, card, counts)
+    torch.cuda.empty_cache()
+
+    # (c) entry(): one step of the 256² × 16 flagship, K3 twice and K2 once
+    fn, (q0, ph0) = graft_entry.entry()
+    reset_counts()
+    q, ph = fn(q0, ph0)
+    torch.cuda.synchronize()
+    check_counts("13c entry() one step", read_counts(),
+                 zero_counts() | {"collision_step": 2, "adi_x_half": 1, "adi_y_half": 1})
+    q_ref, ph_ref = fn.plain(q0, ph0)
+    check("13c entry() vs its step on the plain versions, q", scaled_err(q, q_ref), 1e-5)
+    check("13c entry() vs its step on the plain versions, ph", scaled_err(ph, ph_ref), 1e-5)
+    print(f"  13c entry() step: {time_ms(lambda: fn(q0, ph0), 20):.4f} ms (events), 256² × 16 float32 — {card}",
+          flush=True)
+
+    # (d) the dry run on four cells of the card (2 ensemble groups × 2 shards)
+    reset_counts()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_counts().items() if v}
+    if not (got.get("collision_step") and got.get("adi_lines")):
+        raise AssertionError(f"13d the dry run launched {got}; it should run K3 and K7")
+    print(f"  13d dryrun_multichip(4) on 4 cells of cuda:0: ok in {time.perf_counter() - t0:.1f} s, launches {got}",
+          flush=True)
+    return rows
+
+
 def timed_phase(fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3893,6 +4046,7 @@ def main() -> int:
     rows += timed_phase(phase_slice, card, main_frames)
     rows += timed_phase(phase_beyond_and_cli, card, validation_bins)
     rows += timed_phase(phase_sharding, card)
+    rows += timed_phase(phase_bench_and_entry_points, card)
     for row in rows:  # how ms was timed: "graph" (a CUDA graph of the calls) or host-launched "events"
         row.setdefault("timing", "events")
     print(json.dumps({"kernels": rows}))

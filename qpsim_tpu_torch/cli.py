@@ -1,13 +1,14 @@
 """Command-line interface: ``python -m qpsim_tpu_torch <command>``.
 
-Port of ``qpsim_tpu.cli``: the same subcommands (all but ``bench``), with
-the same options, outputs and exit codes — run a setup, sweep it,
-precompute caches, validate physics, generate and view the analytic
-benchmark suite, inspect and export GDS layouts, compare and render
-saved simulations, profile a run, sweep the qubit junction model — plus
-``--device {cuda,cpu}`` (default ``cuda``) on every command that
-computes.  A command asked to run on ``cuda`` without a card exits with
-code 2 and names ``--device cpu``; nothing falls back quietly.  ``view``,
+Port of ``qpsim_tpu.cli``: the same subcommands, with the same options,
+outputs and exit codes — run a setup, sweep it, precompute caches,
+validate physics, generate and view the analytic benchmark suite, inspect
+and export GDS layouts, compare and render saved simulations, profile a
+run, sweep the qubit junction model, benchmark (``bench``: the port's
+``qpsim_tpu_torch.bench``, one JSON line) — plus ``--device {cuda,cpu}``
+(default ``cuda``) on every command that computes.  A command asked to
+run on ``cuda`` without a card exits with code 2 and names ``--device
+cpu``; nothing falls back quietly.  ``view``,
 ``view-tests`` and ``compare`` import matplotlib (``view --gif`` also
 Pillow) when they run.
 """
@@ -594,8 +595,14 @@ def _cmd_qubit_sweep(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_bench(args: argparse.Namespace) -> int:
+    from .bench import main as bench_main
+
+    return bench_main(["--device", args.device])
+
+
 #: the subcommands that compute, each with ``--device``
-COMPUTES = ("validate", "run", "sweep", "gen-tests", "profile", "qubit-sweep")
+COMPUTES = ("validate", "run", "sweep", "gen-tests", "profile", "qubit-sweep", "bench")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -881,6 +888,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="thermal-relaxation limit (no photon drive)")
     qs.add_argument("--json", action="store_true")
     qs.set_defaults(fn=_cmd_qubit_sweep)
+
+    b = sub.add_parser("bench", help="run the benchmark's 15 stages (prints one JSON line; exit 1 if a stage "
+                       "fails, 2 without a card)")
+    b.set_defaults(fn=_cmd_bench)
 
     for name in COMPUTES:
         sub.choices[name].add_argument(

@@ -131,29 +131,56 @@ def _pair_map_fields(pmap: PhononFrequencyMap, device, dtype: torch.dtype) -> di
     )
 
 
+def _device_dtype(device, dtype):
+    """The builders' device and dtype: float32 on CUDA, float64 on the CPU unless asked."""
+    device = torch.device(device)
+    return device, dtype or (torch.float32 if device.type == "cuda" else torch.float64)
+
+
+#: the JAX package's keyword names of the per-gap tables, and the port's
+_JAX_NAMES = {"rho_by_gap": "rho", "K_r0_by_gap": "K_r0", "K_s0_by_gap": "K_s0"}
+
+
 def build_collision_plan_arrays(
     *,
     dE: float,
-    rho: np.ndarray,
-    K_r0: np.ndarray | None,
-    K_s0: np.ndarray | None,
+    rho: np.ndarray | None = None,
+    K_r0: np.ndarray | None = None,
+    K_s0: np.ndarray | None = None,
     pmap: PhononFrequencyMap,
     enable_recombination: bool,
     enable_scattering: bool,
     update_phonons: bool,
-    device: torch.device | str,
-    dtype: torch.dtype,
+    device: torch.device | str = "cuda",
+    dtype: torch.dtype | None = None,
     pixel_chunk: int = DEFAULT_PIXEL_CHUNK,
     gap_id: np.ndarray | None = None,
+    **jax_names,
 ) -> CollisionPlan:
     """Upload host-precomputed collision data (float64 numpy) as a plan.
 
     ``rho`` is (NE,) for one gap or (G, NE) per unique gap, ``K_r0``/``K_s0``
-    (NE, NE) or (G, NE, NE) to match.  ``gap_id`` is the dense (Ny, Nx)
-    plane of gap indices (0 on masked-out cells, whose state is zero); it
-    may be None when G == 1.  It is kept as uint8 while G ≤ 256, the
-    form K3 reads, so the card holds one copy of it.
+    (NE, NE) or (G, NE, NE) to match.  The JAX package's names
+    ``rho_by_gap``, ``K_r0_by_gap`` and ``K_s0_by_gap`` are aliases; giving
+    both spellings of one table raises ``TypeError``.  ``gap_id`` is the
+    dense (Ny, Nx) plane of gap indices (0 on masked-out cells, whose state
+    is zero); it may be None when G == 1.  It is kept as uint8 while
+    G ≤ 256, the form K3 reads, so the card holds one copy of it.
+    ``device`` is "cuda" by default, ``dtype`` float32 on CUDA and float64
+    on the CPU unless given.
     """
+    tables = {"rho": rho, "K_r0": K_r0, "K_s0": K_s0}
+    for name, value in jax_names.items():
+        if name not in _JAX_NAMES:
+            raise TypeError(f"build_collision_plan_arrays() got an unexpected keyword argument {name!r}")
+        port = _JAX_NAMES[name]
+        if tables[port] is not None:
+            raise TypeError(f"build_collision_plan_arrays() got both {port!r} and its JAX name {name!r}")
+        tables[port] = value
+    rho, K_r0, K_s0 = tables["rho"], tables["K_r0"], tables["K_s0"]
+    if rho is None:
+        raise TypeError("build_collision_plan_arrays() needs 'rho' (or its JAX name 'rho_by_gap')")
+    device, dtype = _device_dtype(device, dtype)
     by_gap = lambda a, nd: None if a is None else np.asarray(a, dtype=np.float64).reshape(
         (-1,) + np.shape(a)[-nd:]
     )

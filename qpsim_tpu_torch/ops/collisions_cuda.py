@@ -43,6 +43,7 @@ from ..utils.cuda_build import load_kernels, refuse_grad
 from .collisions import (
     AnalyticTables,
     CollisionPlan,
+    _device_dtype,
     build_analytic_plan,
     build_collision_plan_arrays,
     collision_step_analytic_plain,
@@ -548,12 +549,6 @@ def collision_step_analytic(
 
 
 # ---------------------------------------------------------------- builders of the JAX form
-
-
-def _device_dtype(device, dtype):
-    """The builders' device and dtype: float32 on CUDA, float64 on the CPU unless asked."""
-    device = torch.device(device)
-    return device, dtype or (torch.float32 if device.type == "cuda" else torch.float64)
 
 
 def build_collision_step(*, E_bins: np.ndarray, dE: float, rho: np.ndarray, K_s0: np.ndarray | None,

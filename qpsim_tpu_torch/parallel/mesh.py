@@ -248,10 +248,18 @@ def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:
     return [torch.device("cpu")] * _forced_host_count()
 
 
+def _indexed(device: torch.device) -> torch.device:
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def make_mesh(n_space: int | None = None, n_ensemble: int = 1, devices=None) -> Mesh:
     """An (ensemble × space) mesh over ``devices`` (default: :func:`local_devices`),
-    all in this process.  A device may repeat: each entry is one cell."""
-    devs = [torch.device(d) for d in (devices if devices is not None else local_devices())]
+    all in this process.  A device may repeat: each entry is one cell.  A
+    CUDA device without an index is the current one (``"cuda"`` is
+    ``cuda:<current>``, where tensors made on ``"cuda"`` land)."""
+    devs = [_indexed(torch.device(d)) for d in (devices if devices is not None else local_devices())]
     if n_space is None:
         n_space = len(devs) // n_ensemble
     if n_ensemble * n_space != len(devs):

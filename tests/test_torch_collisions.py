@@ -271,3 +271,62 @@ def test_wrapper_runs_plain_on_cpu_and_launches_nothing():
     assert collisions_cuda.LAUNCHES == before
     # inputs are untouched (the step is out of place)
     np.testing.assert_array_equal(qt.numpy(), s["q"])
+
+
+def _plan_fields(plan) -> dict:
+    from dataclasses import fields
+
+    return {f.name: getattr(plan, f.name) for f in fields(plan)}
+
+
+@pytest.mark.parametrize("gaps", [1, 3], ids=["uniform", "gap_ids"])
+def test_plan_takes_the_jax_keyword_names(gaps):
+    """``build_collision_plan_arrays`` called as the JAX package's is
+    (``rho_by_gap``, ``K_r0_by_gap``, ``K_s0_by_gap``, ``gap_id``; no
+    ``device``/``dtype``, which default to "cuda" — here the CPU — and the
+    device's float type) builds the plan the port's names build."""
+    from qpsim_tpu_torch.ops.collisions import build_collision_plan_arrays
+
+    s = _setup(8, seed=6)
+    g = np.linspace(170.0, 180.0, gaps)
+    rho = np.stack([dynes_density_of_states(s["E"], x, 0.0) for x in g])
+    kr = np.stack([recombination_kernel_base(s["E"], x, 520.0, 1.2) for x in g])
+    ks = np.stack([scattering_kernel_base(s["E"], x, 440.0, 1.2) for x in g])
+    gid = np.random.default_rng(2).integers(0, gaps, (4, 32)).astype(np.int32)
+    common = dict(dE=s["dE"], gap_id=gid, pmap=s["pm"], enable_recombination=True, enable_scattering=True,
+                  update_phonons=True, pixel_chunk=64)
+    jax_form = build_collision_plan_arrays(rho_by_gap=rho, K_r0_by_gap=kr, K_s0_by_gap=ks, device="cpu", **common)
+    port_form = build_collision_plan_arrays(rho=rho, K_r0=kr, K_s0=ks, device="cpu", dtype=torch.float64,
+                                            **common)
+    a, b = _plan_fields(jax_form), _plan_fields(port_form)
+    assert a.keys() == b.keys()
+    for name in a:
+        if isinstance(a[name], torch.Tensor):
+            assert a[name].dtype == b[name].dtype and a[name].device == b[name].device, name
+            assert torch.equal(a[name], b[name]), name
+        elif isinstance(a[name], np.ndarray):
+            np.testing.assert_array_equal(a[name], b[name])
+        else:
+            assert a[name] == b[name], name
+    assert a["rho"].dtype == torch.float64 and (a["gap_id"] is None) == (gaps == 1)
+    # the JAX call of __graft_entry__.entry() on the CPU, float32 asked
+    f32 = build_collision_plan_arrays(rho_by_gap=rho, K_r0_by_gap=kr, K_s0_by_gap=ks, device="cpu",
+                                      dtype=torch.float32, **common)
+    assert f32.rho.dtype == f32.K_s0.dtype == torch.float32
+
+
+def test_plan_refuses_both_spellings_of_one_table():
+    from qpsim_tpu_torch.ops.collisions import build_collision_plan_arrays
+
+    s = _setup(6, seed=7)
+    common = dict(dE=s["dE"], K_r0=s["Kr"], K_s0=s["Ks"], pmap=s["pm"], enable_recombination=True,
+                  enable_scattering=True, update_phonons=True, device="cpu")
+    with pytest.raises(TypeError, match="'rho'.*'rho_by_gap'"):
+        build_collision_plan_arrays(rho=s["rho"], rho_by_gap=s["rho"][None], **common)
+    kw = dict(common, K_s0=None)
+    with pytest.raises(TypeError, match="'K_r0'.*'K_r0_by_gap'"):
+        build_collision_plan_arrays(rho=s["rho"], K_r0_by_gap=s["Kr"][None], **kw)
+    with pytest.raises(TypeError, match="unexpected keyword argument 'rho_by_pixel'"):
+        build_collision_plan_arrays(rho=s["rho"], rho_by_pixel=s["rho"], **common)
+    with pytest.raises(TypeError, match="needs 'rho'"):
+        build_collision_plan_arrays(**common)

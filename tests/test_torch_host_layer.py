@@ -189,7 +189,8 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 20
     assert _PORT / "io" / "checkpoint.py" in files and _PORT / "runner.py" in files
     for name in ("observables.py", "qubit.py", "diff.py", "parallel/__init__.py", "parallel/ensemble.py",
-                 "cli.py", "__main__.py", "utils/profiling.py", "utils/cuda_build.py",
+                 "cli.py", "__main__.py", "utils/profiling.py", "utils/cuda_build.py", "utils/roofline.py",
+                 "bench.py", "graft_entry.py",
                  *(f"ui/{m}.py" for m in ("theme", "playback", "run_worker", "dialogs", "viewers",
                                           "launch_dialog", "setup_editor", "main_app"))):
         assert _PORT / name in files, name
