@@ -44,6 +44,7 @@ from ..models.params import (
     photon_drive_specs,
 )
 from ..ops.collisions import DEFAULT_PIXEL_CHUNK
+from ..utils.profiling import span
 from .phonon_history import reconstruct_field
 from .scalar_runner import _run_scalar
 from .spectral_runner import _run_energy_resolved
@@ -227,7 +228,7 @@ def run_2d_crank_nicolson(
     segments = _plan_segments(full_steps, remainder_dt, dt, store_every)
 
     if energy_gap <= 0.0:
-        with torch.inference_mode():
+        with span("qpsim.run"), torch.inference_mode():
             return _run_scalar(
                 mask=mask,
                 edges=edges,
@@ -246,7 +247,7 @@ def run_2d_crank_nicolson(
                 checkpointer=checkpointer,
                 frame_sink=frame_sink,
             )
-    with torch.inference_mode():
+    with span("qpsim.run"), torch.inference_mode():
         return _run_energy_resolved(
             mask=mask,
             edges=edges,

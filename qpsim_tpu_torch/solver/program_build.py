@@ -80,6 +80,7 @@ from ..ops.photon_drive import (
     make_photon_substep,
     make_photon_substep_per_pixel,
 )
+from ..utils.profiling import span
 from .diffusion_backends import choose_backend
 from .pauli import make_pauli_stats_fn
 
@@ -171,83 +172,85 @@ def build_engine_program(
               if use_kernel and mesh is None else None)
 
     # --- diffusion backend -------------------------------------------------
-    backend = None
-    if enable_diffusion:
-        if precomputed is not None:
-            D_array = np.asarray(precomputed["D_array"], dtype=np.float64)  # (NE, P)
-        x_st, y_st = build_directional_stencils(mask, edges, edge_conditions, dx)
-        if nonuniform_gap:
-            D_dense = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
-            D_dense[:, mask] = D_array
-            op = fold_diffusion(x_st, y_st, mask, dx, D_dense)
-        elif precomputed is not None:
-            op = fold_diffusion(x_st, y_st, mask, dx, D_array[:, 0])
-        else:
-            op = fold_diffusion(
-                x_st, y_st, mask, dx, diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
-            )
-        # a step composed with collisions keeps multi-bin operators on K2;
-        # a mesh builds its own local solves inside the sharded step
-        if mesh is None:
-            backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
+    with span("qpsim.build.diffusion"):
+        backend = None
+        if enable_diffusion:
+            if precomputed is not None:
+                D_array = np.asarray(precomputed["D_array"], dtype=np.float64)  # (NE, P)
+            x_st, y_st = build_directional_stencils(mask, edges, edge_conditions, dx)
+            if nonuniform_gap:
+                D_dense = np.zeros((num_energy_bins, ny, nx), dtype=np.float64)
+                D_dense[:, mask] = D_array
+                op = fold_diffusion(x_st, y_st, mask, dx, D_dense)
+            elif precomputed is not None:
+                op = fold_diffusion(x_st, y_st, mask, dx, D_array[:, 0])
+            else:
+                op = fold_diffusion(
+                    x_st, y_st, mask, dx, diffusion_coefficient_of_energy(diffusion_coefficient, E_bins, gap)
+                )
+            # a step composed with collisions keeps multi-bin operators on K2;
+            # a mesh builds its own local solves inside the sharded step
+            if mesh is None:
+                backend = choose_backend(op, device, dtype, diffusion_backend, coupled=collisions_on)
 
     # --- collision data ------------------------------------------------------
-    pmap = build_phonon_frequency_map(E_bins)
-    plan = atab = rho_by_gap = None
-    if not collisions_on or (mesh is not None and unique_gaps.size > MAX_GAP_IDS):
-        # only the Pauli ρ plane, vectorised over pixels (a mesh's sharded
-        # step builds its own collision tables)
-        rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
-    elif mesh is not None:
-        rho_by_gap = np.stack(
-            [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
-        )
-    elif analytic:
-        gap_plane = np.full((ny, nx), gap, dtype=np.float64)
-        gap_plane[mask] = gap_values
-        plan, atab = build_analytic_plan(
-            E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap,
-            tau_s=tau_s_eff if enable_scattering else None,
-            tau_r=tau_r_eff if enable_recombination else None,
-            T_c=T_c, dynes_gamma=dynes_gamma, update_phonons=not freeze_phonon_dynamics,
-            device=device, dtype=dtype, pixel_chunk=pixel_chunk,
-        )
-        rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
-    else:
-        # one (NE, NE) table per unique gap and channel: for continuous gap
-        # maps G ≈ Npix, so refuse with guidance instead of thrashing
-        n_channels = 1 + int(enable_recombination) + int(enable_scattering)
-        stack_bytes = int(unique_gaps.size) * num_energy_bins * num_energy_bins * 8 * n_channels
-        if stack_bytes > 4 << 30:
-            raise ValueError(
-                f"{unique_gaps.size} unique gap values x {num_energy_bins} "
-                f"bins needs ~{stack_bytes / 2**30:.0f} GB of per-gap kernel "
-                "tables on the plain collision path. Continuous gap maps "
-                "should use the analytic collision kernel instead: pass "
-                "collision_backend='auto' or 'kernel'."
+    with span("qpsim.build.collisions"):
+        pmap = build_phonon_frequency_map(E_bins)
+        plan = atab = rho_by_gap = None
+        if not collisions_on or (mesh is not None and unique_gaps.size > MAX_GAP_IDS):
+            # only the Pauli ρ plane, vectorised over pixels (a mesh's sharded
+            # step builds its own collision tables)
+            rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
+        elif mesh is not None:
+            rho_by_gap = np.stack(
+                [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
             )
-        rho_by_gap = np.stack(
-            [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
-        )
-        per_gap = lambda fn, tau: np.stack([fn(E_bins, float(g), tau, T_c) for g in unique_gaps])
-        plan = build_collision_plan_arrays(
-            dE=dE,
-            rho=rho_by_gap,
-            K_r0=per_gap(recombination_kernel_base, tau_r_eff) if enable_recombination else None,
-            K_s0=per_gap(scattering_kernel_base, tau_s_eff) if enable_scattering else None,
-            pmap=pmap,
-            enable_recombination=enable_recombination,
-            enable_scattering=enable_scattering,
-            update_phonons=not freeze_phonon_dynamics,
-            device=device,
-            dtype=dtype,
-            pixel_chunk=pixel_chunk,
-            gap_id=gap_id,
-        )
-    step = tables = None
-    if kernel is not None:
-        step, build_tables = KERNEL_STEPS[kernel]
-        tables = build_tables(plan, atab)
+        elif analytic:
+            gap_plane = np.full((ny, nx), gap, dtype=np.float64)
+            gap_plane[mask] = gap_values
+            plan, atab = build_analytic_plan(
+                E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap,
+                tau_s=tau_s_eff if enable_scattering else None,
+                tau_r=tau_r_eff if enable_recombination else None,
+                T_c=T_c, dynes_gamma=dynes_gamma, update_phonons=not freeze_phonon_dynamics,
+                device=device, dtype=dtype, pixel_chunk=pixel_chunk,
+            )
+            rho_per_pixel = dynes_density_of_states_per_pixel(E_bins, gap_values, dynes_gamma)
+        else:
+            # one (NE, NE) table per unique gap and channel: for continuous gap
+            # maps G ≈ Npix, so refuse with guidance instead of thrashing
+            n_channels = 1 + int(enable_recombination) + int(enable_scattering)
+            stack_bytes = int(unique_gaps.size) * num_energy_bins * num_energy_bins * 8 * n_channels
+            if stack_bytes > 4 << 30:
+                raise ValueError(
+                    f"{unique_gaps.size} unique gap values x {num_energy_bins} "
+                    f"bins needs ~{stack_bytes / 2**30:.0f} GB of per-gap kernel "
+                    "tables on the plain collision path. Continuous gap maps "
+                    "should use the analytic collision kernel instead: pass "
+                    "collision_backend='auto' or 'kernel'."
+                )
+            rho_by_gap = np.stack(
+                [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
+            )
+            per_gap = lambda fn, tau: np.stack([fn(E_bins, float(g), tau, T_c) for g in unique_gaps])
+            plan = build_collision_plan_arrays(
+                dE=dE,
+                rho=rho_by_gap,
+                K_r0=per_gap(recombination_kernel_base, tau_r_eff) if enable_recombination else None,
+                K_s0=per_gap(scattering_kernel_base, tau_s_eff) if enable_scattering else None,
+                pmap=pmap,
+                enable_recombination=enable_recombination,
+                enable_scattering=enable_scattering,
+                update_phonons=not freeze_phonon_dynamics,
+                device=device,
+                dtype=dtype,
+                pixel_chunk=pixel_chunk,
+                gap_id=gap_id,
+            )
+        step = tables = None
+        if kernel is not None:
+            step, build_tables = KERNEL_STEPS[kernel]
+            tables = build_tables(plan, atab)
 
     # the Pauli ρ state, formed on the device: ρ columns broadcast over the
     # mask plane (one gap), gathered by gap id (gap-id tables), or the

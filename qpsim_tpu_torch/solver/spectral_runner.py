@@ -25,6 +25,11 @@ prefix of the checkpoints and skips the segments they cover; with a
 With a ``mesh`` the state is split into this process's shards once, after
 the first frame (or the resumed state), and put back together for each
 stored frame and checkpoint (``EngineProgram.shard`` / ``gather``).
+
+Under an active profiler the run's phases are spans (``qpsim.build``,
+``qpsim.initial_state``, ``qpsim.first_frame``, ``qpsim.segment``,
+``qpsim.drain``, ``qpsim.store`` …, :func:`~qpsim_tpu_torch.utils.profiling.span`);
+:data:`COPIES` counts, always, the bytes it copies to the host.
 """
 
 from __future__ import annotations
@@ -38,12 +43,26 @@ from ..models.params import SimulationParameters, normalize_collision_solver_nam
 from ..ops.dos import dynes_density_of_states, thermal_phonon_occupation
 from ..ops.energy_grid import build_energy_grid, integration_widths_from_centers
 from ..ops.generation import evaluate_generation_host
+from ..utils.profiling import span
 from .pauli import PauliEnforcer
 from .phonon_history import reconstruct_field
 from .program_build import build_engine_program
 from .stepping import _color_limits, _limits_from_running, _notify, _usable_resume_prefix
 
-__all__ = ["_run_energy_resolved"]
+__all__ = ["_run_energy_resolved", "COPIES"]
+
+#: bytes the runner has copied from the state's device to the host since
+#: import: every snapshot, checkpoint and statistics copy (on the CPU too,
+#: where a copy is a clone); ``initial_copy_bytes`` is the part of them a
+#: call copies before its first segment (the t = 0 state and its Pauli
+#: statistics, or a resumed call's replayed frames)
+COPIES = {"host_copy_bytes": 0, "initial_copy_bytes": 0}
+
+
+def _counted(t: torch.Tensor) -> torch.Tensor:
+    """``t``, counted in :data:`COPIES` as copied to the host."""
+    COPIES["host_copy_bytes"] += t.numel() * t.element_size()
+    return t
 
 
 class _HostCopy:
@@ -61,7 +80,9 @@ class _HostCopy:
         for t in tensors:
             if t is None:
                 self._host.append(None)
-            elif cuda:
+                continue
+            _counted(t)
+            if cuda:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 self._host.append(h)
@@ -73,9 +94,10 @@ class _HostCopy:
             self._event.record()
 
     def get(self) -> list[np.ndarray | None]:
-        if self._event is not None:
-            self._event.synchronize()
-        return [None if h is None else h.numpy() for h in self._host]
+        with span("qpsim.copy_wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return [None if h is None else h.numpy() for h in self._host]
 
 
 def _run_energy_resolved(
@@ -137,126 +159,129 @@ def _run_energy_resolved(
     if initial_condition_spec is not None:
         custom_qp_state = build_initial_qp_energy_state(mask, E_bins, initial_condition_spec)
 
-    # Auto-precompute diffusion arrays when a gap map is requested.
-    if precomputed is None and str(gap_expression or "").strip():
-        auto_params = SimulationParameters(
-            diffusion_coefficient=diffusion_coefficient,
-            dt=dt,
-            total_time=max(dt, dt * max(1, total_steps)),
-            mesh_size=dx,
-            energy_gap=energy_gap,
-            energy_min_factor=energy_min_factor,
-            energy_max_factor=energy_max_factor,
-            num_energy_bins=num_energy_bins,
-            dynes_gamma=dynes_gamma,
-            gap_expression=gap_expression,
-            tau_0=0.5 * (tau_s_eff + tau_r_eff),
-            tau_s=tau_s_eff,
-            tau_r=tau_r_eff,
-            T_c=T_c,
-            bath_temperature=bath_temperature,
+    copied_before = COPIES["host_copy_bytes"]
+    with span("qpsim.build"):
+        # Auto-precompute diffusion arrays when a gap map is requested.
+        if precomputed is None and str(gap_expression or "").strip():
+            auto_params = SimulationParameters(
+                diffusion_coefficient=diffusion_coefficient,
+                dt=dt,
+                total_time=max(dt, dt * max(1, total_steps)),
+                mesh_size=dx,
+                energy_gap=energy_gap,
+                energy_min_factor=energy_min_factor,
+                energy_max_factor=energy_max_factor,
+                num_energy_bins=num_energy_bins,
+                dynes_gamma=dynes_gamma,
+                gap_expression=gap_expression,
+                tau_0=0.5 * (tau_s_eff + tau_r_eff),
+                tau_s=tau_s_eff,
+                tau_r=tau_r_eff,
+                T_c=T_c,
+                bath_temperature=bath_temperature,
+            )
+            precomputed = precompute_arrays(
+                mask, edges, edge_conditions, auto_params, include_collision_kernels=False
+            )
+        nonuniform_gap = precomputed is not None and not bool(
+            np.asarray(precomputed.get("is_uniform", True)).reshape(-1)[0]
         )
-        precomputed = precompute_arrays(
-            mask, edges, edge_conditions, auto_params, include_collision_kernels=False
-        )
-    nonuniform_gap = precomputed is not None and not bool(
-        np.asarray(precomputed.get("is_uniform", True)).reshape(-1)[0]
-    )
 
-    prog = build_engine_program(
-        mask=mask,
-        edges=edges,
-        edge_conditions=edge_conditions,
-        dx=dx,
-        device=device,
-        dtype=dtype,
-        gap=gap,
-        E_bins=E_bins,
-        dE=dE,
-        num_energy_bins=num_energy_bins,
-        diffusion_coefficient=diffusion_coefficient,
-        enable_diffusion=enable_diffusion,
-        diffusion_backend=diffusion_backend,
-        precomputed=precomputed,
-        nonuniform_gap=nonuniform_gap,
-        enable_recombination=enable_recombination,
-        enable_scattering=enable_scattering,
-        dynes_gamma=dynes_gamma,
-        tau_s_eff=tau_s_eff,
-        tau_r_eff=tau_r_eff,
-        T_c=T_c,
-        freeze_phonon_dynamics=freeze_phonon_dynamics,
-        collision_backend=collision_backend,
-        pixel_chunk=pixel_chunk,
-        external_generation=external_generation,
-        pauli_density_floor=pauli_density_floor,
-        strang_mode=strang_mode,
-        photon_drive=photon_drive,
-        mesh=mesh,
-        mesh_y_solve=mesh_y_solve,
-    )
+        prog = build_engine_program(
+            mask=mask,
+            edges=edges,
+            edge_conditions=edge_conditions,
+            dx=dx,
+            device=device,
+            dtype=dtype,
+            gap=gap,
+            E_bins=E_bins,
+            dE=dE,
+            num_energy_bins=num_energy_bins,
+            diffusion_coefficient=diffusion_coefficient,
+            enable_diffusion=enable_diffusion,
+            diffusion_backend=diffusion_backend,
+            precomputed=precomputed,
+            nonuniform_gap=nonuniform_gap,
+            enable_recombination=enable_recombination,
+            enable_scattering=enable_scattering,
+            dynes_gamma=dynes_gamma,
+            tau_s_eff=tau_s_eff,
+            tau_r_eff=tau_r_eff,
+            T_c=T_c,
+            freeze_phonon_dynamics=freeze_phonon_dynamics,
+            collision_backend=collision_backend,
+            pixel_chunk=pixel_chunk,
+            external_generation=external_generation,
+            pauli_density_floor=pauli_density_floor,
+            strang_mode=strang_mode,
+            photon_drive=photon_drive,
+            mesh=mesh,
+            mesh_y_solve=mesh_y_solve,
+        )
     omega_bins = prog.pmap.omega_bins
 
     # --- initial states (weights at the uniform energy_gap's DOS, gap map or not)
-    nw = omega_bins.size
-    mask_d = torch.as_tensor(mask, device=device)
-    if custom_qp_state is not None:
-        state_flat = np.asarray(custom_qp_state, dtype=np.float64)
-        if state_flat.shape != (num_energy_bins, n_spatial):
-            raise ValueError(
-                "Full custom quasiparticle profile must have shape "
-                f"({num_energy_bins}, {n_spatial}); got {state_flat.shape}."
-            )
-        if not np.all(np.isfinite(state_flat)):
-            raise ValueError("Full custom quasiparticle profile produced non-finite values.")
-        if np.any(state_flat < 0):
-            raise ValueError("Full custom quasiparticle profile must be non-negative.")
-        q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
-        q[:, mask_d] = torch.as_tensor(state_flat, dtype=dtype, device=device)
-    else:
-        if energy_weights is not None:
-            raw_w = np.asarray(energy_weights, dtype=np.float64)
-            if raw_w.ndim != 1:
-                raise ValueError("energy_weights must be a 1D array.")
-            if raw_w.shape[0] != num_energy_bins:
+    with span("qpsim.initial_state"):
+        nw = omega_bins.size
+        mask_d = torch.as_tensor(mask, device=device)
+        if custom_qp_state is not None:
+            state_flat = np.asarray(custom_qp_state, dtype=np.float64)
+            if state_flat.shape != (num_energy_bins, n_spatial):
                 raise ValueError(
-                    f"energy_weights must have length {num_energy_bins}, got {raw_w.shape[0]}."
+                    "Full custom quasiparticle profile must have shape "
+                    f"({num_energy_bins}, {n_spatial}); got {state_flat.shape}."
                 )
-            if not np.all(np.isfinite(raw_w)):
-                raise ValueError("energy_weights must contain only finite values.")
-            if np.any(raw_w < 0):
-                raise ValueError("energy_weights must be non-negative.")
+            if not np.all(np.isfinite(state_flat)):
+                raise ValueError("Full custom quasiparticle profile produced non-finite values.")
+            if np.any(state_flat < 0):
+                raise ValueError("Full custom quasiparticle profile must be non-negative.")
+            q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+            q[:, mask_d] = torch.as_tensor(state_flat, dtype=dtype, device=device)
         else:
-            raw_w = dynes_density_of_states(E_bins, gap, dynes_gamma)
-        integral = float(np.sum(raw_w) * dE)
-        weights = (
-            raw_w / integral if integral > 0 else np.full(num_energy_bins, 1.0 / (num_energy_bins * dE))
-        )
-        # weights ⊗ interior values, scattered into the mask, on the device
-        spatial = torch.as_tensor(np.asarray(initial_field, dtype=np.float64), dtype=dtype, device=device)
-        w_col = torch.as_tensor(weights, dtype=dtype, device=device)[:, None]
-        q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
-        q[:, mask_d] = w_col * spatial[mask_d][None, :]
+            if energy_weights is not None:
+                raw_w = np.asarray(energy_weights, dtype=np.float64)
+                if raw_w.ndim != 1:
+                    raise ValueError("energy_weights must be a 1D array.")
+                if raw_w.shape[0] != num_energy_bins:
+                    raise ValueError(
+                        f"energy_weights must have length {num_energy_bins}, got {raw_w.shape[0]}."
+                    )
+                if not np.all(np.isfinite(raw_w)):
+                    raise ValueError("energy_weights must contain only finite values.")
+                if np.any(raw_w < 0):
+                    raise ValueError("energy_weights must be non-negative.")
+            else:
+                raw_w = dynes_density_of_states(E_bins, gap, dynes_gamma)
+            integral = float(np.sum(raw_w) * dE)
+            weights = (
+                raw_w / integral if integral > 0 else np.full(num_energy_bins, 1.0 / (num_energy_bins * dE))
+            )
+            # weights ⊗ interior values, scattered into the mask, on the device
+            spatial = torch.as_tensor(np.asarray(initial_field, dtype=np.float64), dtype=dtype, device=device)
+            w_col = torch.as_tensor(weights, dtype=dtype, device=device)[:, None]
+            q = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+            q[:, mask_d] = w_col * spatial[mask_d][None, :]
 
-    if initial_condition_spec is not None:
-        phonon_flat = build_initial_phonon_energy_state(
-            mask, omega_bins, initial_condition_spec, bath_temperature
-        )
-        ph = torch.zeros((nw, ny, nx), dtype=dtype, device=device)
-        ph[:, mask_d] = torch.as_tensor(phonon_flat, dtype=dtype, device=device)
-    else:
-        occ = thermal_phonon_occupation(omega_bins, bath_temperature)
-        ph = torch.as_tensor(occ, dtype=dtype, device=device)[:, None, None] * mask_d.to(dtype)
+        if initial_condition_spec is not None:
+            phonon_flat = build_initial_phonon_energy_state(
+                mask, omega_bins, initial_condition_spec, bath_temperature
+            )
+            ph = torch.zeros((nw, ny, nx), dtype=dtype, device=device)
+            ph[:, mask_d] = torch.as_tensor(phonon_flat, dtype=dtype, device=device)
+        else:
+            occ = thermal_phonon_occupation(omega_bins, bath_temperature)
+            ph = torch.as_tensor(occ, dtype=dtype, device=device)[:, None, None] * mask_d.to(dtype)
 
-    # --- Pauli monitoring ------------------------------------------------------
-    enforcer = PauliEnforcer(
-        E_bins=E_bins,
-        grid_shape=(ny, nx),
-        enforce=enforce_pauli,
-        warn_threshold=pauli_warn_threshold,
-        error_threshold=pauli_error_threshold,
-    )
-    enforcer.check_row(0, 0.0, prog.pauli_stats(q).cpu().numpy())
+        # --- Pauli monitoring ------------------------------------------------------
+        enforcer = PauliEnforcer(
+            E_bins=E_bins,
+            grid_shape=(ny, nx),
+            enforce=enforce_pauli,
+            warn_threshold=pauli_warn_threshold,
+            error_threshold=pauli_error_threshold,
+        )
+        enforcer.check_row(0, 0.0, _counted(prog.pauli_stats(q)).cpu().numpy())
 
     # --- snapshot bookkeeping ----------------------------------------------------
     record_phonons = phonon_history_out is not None
@@ -372,16 +397,18 @@ def _run_energy_resolved(
     def store(t: float, step: int, copy: _HostCopy) -> None:
         nonlocal stored_idx
         stored_idx += 1
-        host = copy.get()
-        if light:
-            frame = emit_light(t, *host[:4])
-            state = host[4:]
-        else:
-            frame = emit(t, as_f64(host[0]), as_f64(host[1]) if record_phonons else None)
-            state = host
-        _notify(progress_callback, t, frame)
-        if checkpointer is not None:
-            checkpointer.save_step(stored_idx, step=step, time_ns=float(t), q=state[0], ph=state[1])
+        with span("qpsim.store"):
+            host = copy.get()
+            with span("qpsim.reduce"):
+                if light:
+                    frame = emit_light(t, *host[:4])
+                    state = host[4:]
+                else:
+                    frame = emit(t, as_f64(host[0]), as_f64(host[1]) if record_phonons else None)
+                    state = host
+            _notify(progress_callback, t, frame)
+            if checkpointer is not None:
+                checkpointer.save_step(stored_idx, step=step, time_ns=float(t), q=state[0], ph=state[1])
 
     current_time = 0.0
     step_counter = 0
@@ -415,39 +442,44 @@ def _run_energy_resolved(
         # the first frame is read from the device state; in either detail it
         # is reduced on the host in float64, as the JAX package reduces its
         # host state
-        q0, ph0 = _HostCopy(q, ph if (record_phonons or checkpointer is not None) else None).get()
-        if light:
-            frame0 = emit_light(0.0, *light_on_host(as_f64(q0), as_f64(ph0)))
-        else:
-            frame0 = emit(0.0, as_f64(q0), as_f64(ph0) if record_phonons else None)
-        _notify(progress_callback, 0.0, frame0)
-        if checkpointer is not None:
-            checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
+        with span("qpsim.first_frame"), span("qpsim.store"):
+            q0, ph0 = _HostCopy(q, ph if (record_phonons or checkpointer is not None) else None).get()
+            with span("qpsim.reduce"):
+                if light:
+                    frame0 = emit_light(0.0, *light_on_host(as_f64(q0), as_f64(ph0)))
+                else:
+                    frame0 = emit(0.0, as_f64(q0), as_f64(ph0) if record_phonons else None)
+            _notify(progress_callback, 0.0, frame0)
+            if checkpointer is not None:
+                checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
+
+    COPIES["initial_copy_bytes"] += COPIES["host_copy_bytes"] - copied_before
 
     # --- main loop --------------------------------------------------------------
     q, ph = prog.shard(q), prog.shard(ph)  # a mesh's runner steps this process's shards
     gen_mode = external_generation.normalized_mode() if external_generation else "none"
 
     def drain(p) -> None:
-        stats_np = p["stats"].get()[0]
-        flags = p["flags"]
-        if stats_np.shape[1] > 4:  # the traced generation's device flags
-            flags = flags | (stats_np[:, 4:6] != 0)
-        t = p["t_start"]
-        for i in range(p["seg"].length):
-            t += p["seg"].dt
-            if flags[i, 0]:
-                raise ValueError(
-                    f"External generation mode '{gen_mode}' produced non-finite values."
-                )
-            if flags[i, 1]:
-                raise ValueError(
-                    f"External generation mode '{gen_mode}' produced negative values. "
-                    "Generation rates must be non-negative."
-                )
-            enforcer.check_row(p["step_start"] + i + 1, t, stats_np[i])
-        if p["snapshot"] is not None:
-            store(t, p["step_start"] + p["seg"].length, p["snapshot"])
+        with span("qpsim.drain"):
+            stats_np = p["stats"].get()[0]
+            flags = p["flags"]
+            if stats_np.shape[1] > 4:  # the traced generation's device flags
+                flags = flags | (stats_np[:, 4:6] != 0)
+            t = p["t_start"]
+            for i in range(p["seg"].length):
+                t += p["seg"].dt
+                if flags[i, 0]:
+                    raise ValueError(
+                        f"External generation mode '{gen_mode}' produced non-finite values."
+                    )
+                if flags[i, 1]:
+                    raise ValueError(
+                        f"External generation mode '{gen_mode}' produced negative values. "
+                        "Generation rates must be non-negative."
+                    )
+                enforcer.check_row(p["step_start"] + i + 1, t, stats_np[i])
+            if p["snapshot"] is not None:
+                store(t, p["step_start"] + p["seg"].length, p["snapshot"])
 
     pending = None
     cumulative = 0
@@ -459,31 +491,33 @@ def _run_energy_resolved(
         if prog.host_gen:
             # host-evaluated generation needs the host between every step —
             # inherently sequential, no pipelining
-            one = prog.single_step(seg.dt)
-            for _ in range(seg.length):
-                g_host = evaluate_generation_host(
-                    external_generation, E_bins, n_spatial, current_time, mask
-                )
-                if g_host is not None:
-                    g_dense = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
-                    g_dense[:, mask_d] = torch.as_tensor(g_host, dtype=dtype, device=device)
-                    q = prog.shard(prog.gather(q) + seg.dt * g_dense)
-                q, ph, stats = one(q, ph, current_time)
-                step_counter += 1
-                current_time += seg.dt
-                enforcer.check_row(step_counter, current_time, stats.cpu().numpy())
+            with span("qpsim.segment"):
+                one = prog.single_step(seg.dt)
+                for _ in range(seg.length):
+                    g_host = evaluate_generation_host(
+                        external_generation, E_bins, n_spatial, current_time, mask
+                    )
+                    if g_host is not None:
+                        g_dense = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
+                        g_dense[:, mask_d] = torch.as_tensor(g_host, dtype=dtype, device=device)
+                        q = prog.shard(prog.gather(q) + seg.dt * g_dense)
+                    q, ph, stats = one(q, ph, current_time)
+                    step_counter += 1
+                    current_time += seg.dt
+                    enforcer.check_row(step_counter, current_time, _counted(stats).cpu().numpy())
             if seg.stored:
                 store(current_time, step_counter, start_copy(q, ph))
             continue
-        q, ph, stats, flags = prog.segment_runner(seg.dt, seg.length)(q, ph, current_time)
-        new_pending = {
-            "seg": seg,
-            "stats": _HostCopy(stats),
-            "flags": flags,
-            "snapshot": start_copy(q, ph) if seg.stored else None,
-            "step_start": step_counter,
-            "t_start": current_time,
-        }
+        with span("qpsim.segment"):
+            q, ph, stats, flags = prog.segment_runner(seg.dt, seg.length)(q, ph, current_time)
+            new_pending = {
+                "seg": seg,
+                "stats": _HostCopy(stats),
+                "flags": flags,
+                "snapshot": start_copy(q, ph) if seg.stored else None,
+                "step_start": step_counter,
+                "t_start": current_time,
+            }
         step_counter += seg.length
         for _ in range(seg.length):  # sequential adds: bit-identical times
             current_time += seg.dt
@@ -492,25 +526,26 @@ def _run_energy_resolved(
         pending = new_pending
     if pending is not None:
         drain(pending)
-    if checkpointer is not None:
-        checkpointer.finalize()
+    with span("qpsim.finish"):
+        if checkpointer is not None:
+            checkpointer.finalize()
 
-    if phonon_history_out is not None:
-        phonon_history_out.clear()
-        phonon_history_out.update(
-            {
-                "phonon_frames": phonon_frames_hist,
-                "phonon_energy_frames": phonon_energy_frames_hist,
-                "phonon_energy_bins": np.asarray(omega_bins, dtype=np.float64).copy(),
-                "phonon_metadata": {
-                    "mode": "dynamic_local_coupled",
-                    "field_units": "integrated_occupation",
-                    "energy_frame_units": "occupation",
-                    **({"streamed": True} if frame_sink is not None else {}),
-                    **({"detail": "integrated"} if light else {}),
-                },
-            }
-        )
-    if frame_sink is not None:
-        return times, [], mass, _limits_from_running(running_limits), None, E_bins
-    return times, frames, mass, _color_limits(frames), (None if light else energy_frames), E_bins
+        if phonon_history_out is not None:
+            phonon_history_out.clear()
+            phonon_history_out.update(
+                {
+                    "phonon_frames": phonon_frames_hist,
+                    "phonon_energy_frames": phonon_energy_frames_hist,
+                    "phonon_energy_bins": np.asarray(omega_bins, dtype=np.float64).copy(),
+                    "phonon_metadata": {
+                        "mode": "dynamic_local_coupled",
+                        "field_units": "integrated_occupation",
+                        "energy_frame_units": "occupation",
+                        **({"streamed": True} if frame_sink is not None else {}),
+                        **({"detail": "integrated"} if light else {}),
+                    },
+                }
+            )
+        if frame_sink is not None:
+            return times, [], mass, _limits_from_running(running_limits), None, E_bins
+        return times, frames, mass, _color_limits(frames), (None if light else energy_frames), E_bins

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..io.stream import widen_color_limits
+from ..utils.profiling import span
 
 __all__ = [
     "default_dtype",
@@ -64,7 +65,9 @@ def _notify(progress_callback, t: float, frame: np.ndarray) -> None:
     if progress_callback is None:
         return
     try:
-        progress_callback(float(t), np.array(frame, copy=True))
+        frame = np.array(frame, copy=True)
+        with span("qpsim.callback"):
+            progress_callback(float(t), frame)
     except Exception:
         pass
 
