@@ -41,7 +41,11 @@ a non-zero exit:
    ids at 16, K9 at 16, 72 and the split 66 (there also against K3's plain
    version), and the line solve K7 (Thomas and Wang K = 32, one plane and
    NB planes, B = 1000; Thomas asked for on lines of 16385, where the
-   kernel pads its chunks);
+   kernel pads its chunks); and the t = 0 snapshot kernel against the
+   runner's float64 host reduction of the same state on the donut
+   (1024² × 16 and × 100, 512² × 300, float64 at 128² × 100, and with no
+   phonons: frames bit for bit, sums within 1e-13, two launches the same
+   bits), timed against its bytes bound and beside the host reduction;
 4. the coupled path: ``run_2d_crank_nicolson`` on the 1024² intrinsic
    rectangle × 16 energy bins, 100 steps, float32, default (merged)
    stepping, with launch counters proving it ran through K3 and K2,
@@ -293,6 +297,54 @@ def check(label: str, err: float, tol: float) -> None:
     print(f"  {label}: max rel err {err:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{label}: {err:.3e} > {tol:.0e}")
+
+
+def check_snapshot_reduce() -> None:
+    """The t = 0 snapshot kernel against the runner's float64 host reduction of the same state
+    (``light_on_host``): frames bit for bit, the bin sums, ω sums and mass within 1e-13, the same
+    bits from two launches; its time against its bytes bound, beside the host reduction's."""
+    from qpsim_tpu_torch.ops.snapshot_reduce_cuda import snapshot_reduce
+    from qpsim_tpu_torch.solver.spectral_runner import light_on_host
+
+    print("  snapshot_reduce: random states on the donut (a film with a hole)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for n, ne, nw, dtype, phonons in ((1024, 16, 47, F32, True), (1024, 100, 299, F32, True),
+                                      (512, 300, 899, F32, True), (128, 100, 299, F64, True),
+                                      (1024, 16, 47, F32, False)):
+        mask = donut(n)[0]
+        mask_d = torch.as_tensor(mask, device="cuda")
+        q = torch.rand((ne, n, n), generator=gen, device="cuda", dtype=dtype) * 2e-5 * mask_d
+        ph = torch.rand((nw, n, n), generator=gen, device="cuda", dtype=dtype) * 3e-2 * mask_d
+        widths = np.random.default_rng(ne).uniform(1.0, 20.0, nw)
+        dE = 540.0 / ne
+        args = (q, ph if phonons else None, mask_d,
+                torch.as_tensor(widths, device="cuda") if phonons else None, dE)
+        got = [None if g is None else g.cpu().numpy() for g in snapshot_reduce(*args)]
+        again = [None if g is None else g.cpu().numpy() for g in snapshot_reduce(*args)]
+        torch.cuda.synchronize()
+        q_h, ph_h = q.cpu().numpy(), ph.cpu().numpy() if phonons else None
+        t0 = time.perf_counter()
+        host = light_on_host(q_h, ph_h, mask, dE, widths)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        tag = f"{n}² × {ne}{f', NW {nw}' if phonons else ', no phonons'} {str(dtype)[6:]}"
+        repeat = all((a is None and b is None) or a.tobytes() == b.tobytes() for a, b in zip(got, again))
+        frames = [np.array_equal(got[0][mask], host[0][mask]) and not np.any(got[0][~mask])]
+        sums = [scaled_err(torch.as_tensor(got[1]), torch.as_tensor(host[1])),
+                abs(np.sum(got[1]) - np.sum(host[1])) / abs(np.sum(host[1]))]
+        if phonons:
+            frames.append(np.array_equal(got[2][mask], host[2][mask]) and not np.any(got[2][~mask]))
+            sums.append(scaled_err(torch.as_tensor(got[3]), torch.as_tensor(host[3])))
+        ms = time_ms(lambda: snapshot_reduce(*args), 20)
+        n_bytes = (ne + (nw if phonons else 0)) * n * n * q.element_size() + n * n * (1 + 8 * (1 + phonons))
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  snapshot_reduce {tag}: frames bit-equal {frames}, two launches bit-equal {repeat}; "
+              f"kernel {ms:.4f} ms, bound {bound:.4f} ms (bytes), {100 * bound / ms:.1f} % of it; "
+              f"host reduction {host_ms:.1f} ms", flush=True)
+        if not (all(frames) and repeat):
+            raise AssertionError(f"snapshot_reduce {tag}: frames {frames}, repeat {repeat}")
+        check(f"snapshot_reduce {tag} bin sums, mass{', ω sums' if phonons else ''}", max(sums), 1e-13)
+        del q, ph, got, again, host, q_h, ph_h
+        torch.cuda.empty_cache()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -766,6 +818,7 @@ def phase_kernels_vs_plain() -> None:
     timed_phase(check_thomas)
     timed_phase(check_offset_walks)
     timed_phase(check_adi_lines)
+    timed_phase(check_snapshot_reduce)
 
 
 def check_pair_walk() -> None:

@@ -15,7 +15,10 @@ phonons — is formed on the device in the state dtype (on the CPU in float64
 it is the JAX package's host state bit for bit); an ``initial_condition_spec``
 is evaluated on the host in float64 (``fields``), as in the JAX package, and
 copied over once.  The first stored frame is read back from the device
-state.
+state and reduced in float64 as the JAX package reduces its host state: on
+the host (:func:`light_on_host`), or, for an integrated-detail state on a
+card, by the snapshot kernel (``ops.snapshot_reduce_cuda``), which gives
+the same frames bit for bit and copies only its results to the host.
 
 With a ``checkpointer`` every stored snapshot's full state is saved (in
 light mode too: it is the resume data), and a rerun replays the aligned
@@ -29,7 +32,8 @@ stored frame and checkpoint (``EngineProgram.shard`` / ``gather``).
 Under an active profiler the run's phases are spans (``qpsim.build``,
 ``qpsim.initial_state``, ``qpsim.first_frame``, ``qpsim.segment``,
 ``qpsim.drain``, ``qpsim.store`` …, :func:`~qpsim_tpu_torch.utils.profiling.span`);
-:data:`COPIES` counts, always, the bytes it copies to the host.
+:data:`COPIES` counts, always, the bytes it copies to the host, and
+:data:`FIRST_FRAMES` where each first frame was reduced.
 """
 
 from __future__ import annotations
@@ -43,13 +47,14 @@ from ..models.params import SimulationParameters, normalize_collision_solver_nam
 from ..ops.dos import dynes_density_of_states, thermal_phonon_occupation
 from ..ops.energy_grid import build_energy_grid, integration_widths_from_centers
 from ..ops.generation import evaluate_generation_host
+from ..ops.snapshot_reduce_cuda import snapshot_reduce
 from ..utils.profiling import span
 from .pauli import PauliEnforcer
 from .phonon_history import reconstruct_field
 from .program_build import build_engine_program
 from .stepping import _color_limits, _limits_from_running, _notify, _usable_resume_prefix
 
-__all__ = ["_run_energy_resolved", "COPIES"]
+__all__ = ["_run_energy_resolved", "COPIES", "FIRST_FRAMES", "light_on_host"]
 
 #: bytes the runner has copied from the state's device to the host since
 #: import: every snapshot, checkpoint and statistics copy (on the CPU too,
@@ -58,11 +63,28 @@ __all__ = ["_run_energy_resolved", "COPIES"]
 #: statistics, or a resumed call's replayed frames)
 COPIES = {"host_copy_bytes": 0, "initial_copy_bytes": 0}
 
+#: first stored frames (t = 0, or a resumed call's replayed one) reduced
+#: since import: on the card by the snapshot kernel, or on the host
+FIRST_FRAMES = {"first_frames_on_card": 0, "first_frames_on_host": 0}
+
 
 def _counted(t: torch.Tensor) -> torch.Tensor:
     """``t``, counted in :data:`COPIES` as copied to the host."""
     COPIES["host_copy_bytes"] += t.numel() * t.element_size()
     return t
+
+
+def light_on_host(q_host, ph_host, mask, dE, phonon_widths) -> list:
+    """The light reductions of a host state in float64, as the JAX package reduces its
+    host state: the integrated frame (× dE, NaN outside the mask) and the per-bin
+    sums, and with ``ph_host`` the width-weighted phonon frame and the per-ω sums."""
+    interior = q_host.astype(np.float64)[:, mask]
+    out = [reconstruct_field(mask, np.sum(interior, axis=0) * dE), np.sum(interior, axis=1), None, None]
+    if ph_host is not None:
+        ph_interior = ph_host.astype(np.float64)[:, mask]
+        out[2] = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
+        out[3] = np.sum(ph_interior, axis=1)
+    return out
 
 
 class _HostCopy:
@@ -356,15 +378,15 @@ def _run_energy_resolved(
             out[3] = phm.sum(dim=(1, 2))
         return out
 
-    def light_on_host(q_host: np.ndarray, ph_host: np.ndarray | None) -> list:
-        """The light reductions of a float64 host state (the first frame's form)."""
-        interior = q_host[:, mask]
-        out = [reconstruct_field(mask, np.sum(interior, axis=0) * dE), np.sum(interior, axis=1), None, None]
-        if record_phonons and ph_host is not None:
-            ph_interior = ph_host[:, mask]
-            out[2] = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
-            out[3] = np.sum(ph_interior, axis=1)
-        return out
+    def card_light(q_dev: torch.Tensor, ph_dev: torch.Tensor | None) -> list[torch.Tensor | None]:
+        """A first frame's light reductions on the card, by the snapshot kernel: the frames
+        of :func:`light_on_host` bit for bit, the sums to about 1e-16."""
+        widths = torch.as_tensor(phonon_widths, device=q_dev.device) if record_phonons else None
+        ph_dev = ph_dev.contiguous() if record_phonons else None
+        return snapshot_reduce(q_dev.contiguous(), ph_dev, mask_d.contiguous(), widths, dE)
+
+    def host_light(q_host: np.ndarray, ph_host: np.ndarray | None) -> list:
+        return light_on_host(q_host, ph_host if record_phonons else None, mask, dE, phonon_widths)
 
     def emit_light(t: float, integrated, bin_sums, ph_int, ph_bin_sums) -> np.ndarray:
         frame = np.where(mask, np.asarray(integrated, dtype=np.float64), np.nan)
@@ -413,23 +435,30 @@ def _run_energy_resolved(
     current_time = 0.0
     step_counter = 0
     completed_steps = 0
+    # a light run's first frame is reduced in float64 where the state lies: on
+    # a card by the snapshot kernel, elsewhere on the host as the JAX package
+    # reduces its host state (the same frames); a full one always on the host
+    first_on_card = light and q.is_cuda
     replay = _usable_resume_prefix(checkpointer, segments) if checkpointer is not None else []
     if replay:
         # rebuild the stored history from the checkpoints and continue from
         # the last aligned one — results match an uninterrupted run exactly:
-        # each snapshot is reduced where the run reduced it (the first on the
-        # host in float64, a light one's later ones on the device)
+        # each snapshot is reduced where the run reduced it (the first as
+        # above, a light one's later ones on the device)
         for payload in replay:
             t = payload["time_ns"]
             q_r, ph_r = payload["q"], payload.get("ph")
-            if light and payload["stored_idx"] > 0:
-                on_device = (None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
-                             for a in (q_r, ph_r))
-                emit_light(t, *_HostCopy(*light_reduce(*on_device)).get())
-            elif light:
-                emit_light(t, *light_on_host(as_f64(q_r), as_f64(ph_r)))
-            else:
+            first = payload["stored_idx"] == 0
+            if first:
+                FIRST_FRAMES["first_frames_on_card" if first_on_card else "first_frames_on_host"] += 1
+            if not light:
                 emit(t, as_f64(q_r), as_f64(ph_r) if record_phonons else None)
+            elif first and not first_on_card:
+                emit_light(t, *host_light(q_r, ph_r))
+            else:
+                on_device = [None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
+                             for a in (q_r, ph_r)]
+                emit_light(t, *_HostCopy(*(card_light if first else light_reduce)(*on_device)).get())
         resume = replay[-1]
         q = torch.as_tensor(resume["q"], dtype=dtype, device=device).clone()
         if "ph" in resume:
@@ -439,18 +468,25 @@ def _run_energy_resolved(
         # stored_idx advances through the skipped segments below, reaching
         # resume["stored_idx"] exactly when the replay is complete
     else:
-        # the first frame is read from the device state; in either detail it
-        # is reduced on the host in float64, as the JAX package reduces its
-        # host state
+        # the first frame is read from the device state; on the card only the
+        # kernel's results cross, and the state too where a checkpoint saves it
+        keep = checkpointer is not None
+        FIRST_FRAMES["first_frames_on_card" if first_on_card else "first_frames_on_host"] += 1
         with span("qpsim.first_frame"), span("qpsim.store"):
-            q0, ph0 = _HostCopy(q, ph if (record_phonons or checkpointer is not None) else None).get()
+            if first_on_card:
+                host = _HostCopy(*card_light(q, ph), *((q, ph) if keep else ())).get()
+                q0, ph0 = host[4:] if keep else (None, None)
+            else:
+                q0, ph0 = _HostCopy(q, ph if (record_phonons or keep) else None).get()
             with span("qpsim.reduce"):
-                if light:
-                    frame0 = emit_light(0.0, *light_on_host(as_f64(q0), as_f64(ph0)))
+                if first_on_card:
+                    frame0 = emit_light(0.0, *host[:4])
+                elif light:
+                    frame0 = emit_light(0.0, *host_light(q0, ph0))
                 else:
                     frame0 = emit(0.0, as_f64(q0), as_f64(ph0) if record_phonons else None)
             _notify(progress_callback, 0.0, frame0)
-            if checkpointer is not None:
+            if keep:
                 checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
 
     COPIES["initial_copy_bytes"] += COPIES["host_copy_bytes"] - copied_before

@@ -187,6 +187,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # rhs, lo, di, hi, scale, out, nb, nbp, n, batch, k, alpha, stream
         fn.argtypes = [P] * 6 + [I] * 5 + [D, P]
         fn.restype = I
+        fn = getattr(lib, f"qp_snapshot_reduce_{suffix}")
+        # q, ph, mask, widths, dE, ne, nw, n_pix, integrated, ph_frame, sums, partial, stream
+        fn.argtypes = [P] * 4 + [D, I, I, LL] + [P] * 5
+        fn.restype = I
+    # blocks of the snapshot reduction's first launch (its scratch rows)
+    lib.qp_snapshot_reduce_blocks.argtypes = [LL]
+    lib.qp_snapshot_reduce_blocks.restype = I
     # launch plans of the staged ADI kernels (K1, K2)
     lib.qp_adi_plan.argtypes = [I] * 6 + [P]  # x_half, elem_bytes, nb, ny, nx, k, out[7]
     lib.qp_adi_plan.restype = I

@@ -14,7 +14,8 @@
 * :func:`counters` — one flat snapshot of the program's counters: the
   kernel wrappers' ``LAUNCHES`` tables and the coupled runner's ``COPIES``
   (bytes copied to the host, and the part of them copied before a call's
-  first segment).  The counters are always on; a difference of two
+  first segment) and ``FIRST_FRAMES`` (first frames reduced on the card
+  and on the host).  The counters are always on; a difference of two
   snapshots is what the code between them did.
 """
 
@@ -63,9 +64,9 @@ def span(name: str):
 def counters() -> dict[str, int]:
     """Every counter of the program, by name, as it stands now."""
     from ..ops import launch_tables
-    from ..solver.spectral_runner import COPIES
+    from ..solver.spectral_runner import COPIES, FIRST_FRAMES
 
     out: dict[str, int] = {}
-    for table in (*launch_tables(), COPIES):
+    for table in (*launch_tables(), COPIES, FIRST_FRAMES):
         out.update(table)
     return out

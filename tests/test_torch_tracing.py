@@ -5,7 +5,8 @@ under ``torch.profiler`` each call is one ``qpsim.run`` holding its build,
 initial state, first frame, segments, drains, stored snapshots and finish,
 each span inside its parent; with no profiler ``span`` is one shared no-op
 and never opens a ``record_function``; the runner's copy counters match
-the bytes counted by hand; every key of the launch tables is classified by
+the bytes counted by hand; each first frame is reduced on the host,
+a resumed run's replayed one too; every key of the launch tables is classified by
 the benchmark's ``program_launches_per_step``; and the results do not
 depend on the profiler.
 """
@@ -165,8 +166,28 @@ def test_host_copy_counter_matches_the_count_by_hand(traced):
     assert (delta["host_copy_bytes"], delta["initial_copy_bytes"]) == _hand_count(detail, nw)
     # no kernel launches on the CPU, and every launch table is in the snapshot
     assert set(delta) == {k for table in launch_tables() for k in table} | {
-        "host_copy_bytes", "initial_copy_bytes"}
+        "host_copy_bytes", "initial_copy_bytes", "first_frames_on_card", "first_frames_on_host"}
     assert all(delta[k] == 0 for table in launch_tables() for k in table)
+
+
+def test_the_first_frame_is_reduced_on_the_host_on_the_cpu(traced):
+    _, _, (_, _, _, delta) = traced
+    assert (delta["first_frames_on_host"], delta["first_frames_on_card"]) == (1, 0)
+
+
+def test_a_resumed_light_run_on_the_cpu_reduces_its_first_frame_on_the_host(tmp_path):
+    from qpsim_tpu_torch.io.checkpoint import SimulationCheckpointer
+
+    kw = dict(_film(), snapshot_detail="integrated")
+    whole = run_2d_crank_nicolson(**kw)
+    run_2d_crank_nicolson(**{**kw, "total_time": kw["total_time"] / SEGMENTS},
+                          checkpointer=SimulationCheckpointer(tmp_path))
+    before = profiling.counters()
+    resumed = run_2d_crank_nicolson(**kw, checkpointer=SimulationCheckpointer(tmp_path))
+    after = profiling.counters()
+    assert [after[k] - before[k] for k in ("first_frames_on_host", "first_frames_on_card")] == [1, 0]
+    np.testing.assert_array_equal(np.stack(resumed[1]), np.stack(whole[1]))
+    assert resumed[2] == whole[2]
 
 
 def test_every_launch_key_is_classified_for_the_benchmark():
