@@ -688,7 +688,7 @@ def phase_build() -> None:
             r"Compiling entry function '.*?(adi_sep_kernel|adi_kernel|adi_lines_kernel"
             r"|thomas_kernel)I([fd])(?:Lb([01])E)?E",
             line)
-        o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ENS_\d+"
+        o = re.search(r"Compiling entry function '.*?(column_walk_kernel)I([fd])Li(\d)ELi(\d)ENS_\d+"
                       r"(TableConsts|AnalyticConsts)I[fd]E(?:ELb([01])E)?", line)
         c = re.search(r"Compiling entry function '.*?(collision_step_kernel)I([fd])Lb([01])ENS_\d+"
                       r"(TableConsts|AnalyticConsts)I[fd](?:Lb([01])E)?E", line)
@@ -706,9 +706,9 @@ def phase_build() -> None:
                 form = f", {'rows' if flag == '1' else 'cols'}"
             name = f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}{form}>"
         elif o:
-            form = {"1": ", device-memory", "0": ", staged", None: ""}[o.group(5)]
+            form = {"1": ", device-memory", "0": ", staged", None: ""}[o.group(6)]
             name = (f"{o.group(1)}<{'float' if o.group(2) == 'f' else 'double'}, P={o.group(3)}, "
-                    f"{o.group(4)}{form}>")
+                    f"B={o.group(4)}, {o.group(5)}{form}>")
         elif "Compiling entry function" in line:
             name = None
         elif name and ("stack frame" in line or "Used" in line):
@@ -735,9 +735,10 @@ def phase_build() -> None:
             plans = [f"{form} {tridiag_cuda.kernel_plan(form, dtype, n, lines, lead)}"
                      for form in ("rows", "cols")]
             print(f"  thomas_kernel {str(dtype)[6:]} {lead}×{lines} lines of {n}: {'; '.join(plans)}")
-    # the column walk's pixels per lane at 1024² and its dynamic shared
-    # memory per block (q and partner of the tile), at K5/K6's columns
-    from qpsim_tpu_torch.ops.column_walk import blocks_per_sm, column_pixels
+    # the column walk's pixels per lane and bins per register block at
+    # 1024² and its dynamic shared memory per block (q and partner of the
+    # tile), at K5/K6's columns
+    from qpsim_tpu_torch.ops.column_walk import blocks_per_sm, column_bins, column_pixels
 
     for ne in (65, 72, 100, 256):
         n_scat, n_rec = column_counts(ne)
@@ -745,8 +746,8 @@ def phase_build() -> None:
         for dtype, size in ((F32, 4), (F64, 8)):
             pixels = column_pixels(dtype, ne, 1024 * 1024)
             smem = 2 * ne * 32 * pixels * size
-            forms.append(f"{str(dtype)[6:]} P={pixels} {smem} B ({blocks_per_sm(smem)} block(s) "
-                         "of 8 warps per SM by shared memory)")
+            forms.append(f"{str(dtype)[6:]} P={pixels} B={column_bins(dtype, ne, pixels, 'staged')} "
+                         f"{smem} B ({blocks_per_sm(smem)} block(s) of 8 warps per SM by shared memory)")
         print(f"  column_walk_kernel at NE={ne} ({n_scat} + {n_rec} columns): {'; '.join(forms)}")
     sys.stdout.flush()
 
@@ -900,7 +901,8 @@ def check_blocked() -> None:
                             torch.cuda.synchronize()
                             err = max(scaled_err(got[0], ref[0]), scaled_err(got[1], ref[1]))
                             extra = {"uniform": "", "gid": " G=3", "analytic": f" gamma={gamma}"}[kind]
-                            check(f"{name} NE={ne} {grid} P={column_pixels(dtype, ne, n_pix)} "
+                            pixels = column_pixels(dtype, ne, n_pix, uniform=kind == "uniform")
+                            check(f"{name} NE={ne} {grid} P={pixels} "
                                   f"{str(dtype)[6:]}{extra} gen={g is not None} phonons={phonons}",
                                   err, blocked_tol(dtype, ne))
 

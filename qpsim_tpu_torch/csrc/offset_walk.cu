@@ -31,22 +31,34 @@
 // Design: a block of kWarps warps per tile of 32·P pixels; each lane owns
 // P neighbouring pixels.  The block stages the tile's q (+ dt·g) and
 // partner ρ(1 − f) [NE][32·P] in dynamic shared memory; a lane's P pixels
-// are one 4-, 8- or 16-byte shared access, conflict-free across the warp,
-// and each warp-uniform column index and table load serves P pixels.  The
-// phonon value of a column's ω row is read through L1, one P-wide load
-// per lane (rows of a tile are L1-resident: every bin meets them).  Then
-//   QP side:    warp w takes bins i = w, w + kWarps, …; it walks the
-//               scattering columns with k ≤ i (pairs (i, i−k)), those with
-//               i + k < NE (pairs (i+k, i)), and the recombination columns
-//               of the anti-diagonals s ∈ [i, i + NE), and writes q_out;
-//               the tables are read [bin][column], so consecutive columns
-//               share a cache line;
-//   phonon side: warp w owns ω rows w, w + kWarps, …; a host list gives each
-//               row the columns that land on it, and the owner sums every
-//               column's rates over its bins in a fixed order — no atomics;
-//               it reads a [column][bin] copy of the tables, so consecutive
-//               bins share a cache line; rows no column touches are copied
-//               unchanged.
+// are one 4-, 8- or 16-byte shared access, conflict-free across the warp.
+// The phonon values are read through L1, one P-wide load per lane and ω
+// row.  Then the warps take tasks w, w + kWarps, …, each a register block
+// of B consecutive bins, offsets or anti-diagonals of the lane's pixels:
+//   QP side:      bins [i0, i0 + B).  The lane walks each partner bin j
+//                 once and loads q_j and partner_j once for the B pair
+//                 terms (i, j).  The offsets |i − j| of the B bins are B
+//                 consecutive columns, and so are the anti-diagonals i + j,
+//                 so their phonon values form two register windows (slot
+//                 δ mod B for the difference δ = i − j, s mod B for the sum)
+//                 that take one new P-wide load each per step of j.  The B
+//                 table entries at fixed j are vector loads from a
+//                 [partner][bin] copy of the tables (qs, qr);
+//   phonon side:  offsets [k0, k0 + B) walk m: q_m and partner_m load once
+//                 for the B columns, q_{m−k} and partner_{m−k} come from a
+//                 window, the entries from a [bin][offset] copy (ps);
+//                 anti-diagonals [s0, s0 + B) walk i so, with the window
+//                 over s − i and a [bin][anti-diagonal] copy (pr).  Each ω
+//                 row that one such first column alone lands on is written
+//                 by the column's task, its sums in the per-row walk's order.
+// The windows hold the first column of each offset and anti-diagonal, and
+// the rest of the column form stays exact: a column beyond the first of
+// its offset or anti-diagonal (a split ω diagonal: NE 17, 65/66) is walked
+// bin by bin as extra terms after the block, and an ω row with any other
+// column list (split, shared by a difference and a sum, or empty) is a
+// task of its own that sums its columns in order from the [column][bin]
+// tables (the per-row walk) — no atomics anywhere, every sum in a fixed
+// order.
 // The constants come through a type: TableConsts reads per-gap tables
 // (G, NE, C), each lane's pixels offset by their int32 gap ids; when all 32·P
 // ids of a warp agree (a trap map's interior) the warp takes one table
@@ -56,17 +68,26 @@
 // the closed-form Dynes ρ.  The TPU kernels' rolls, masked lane reductions
 // and dynamic-sublane updates are Mosaic artefacts with no counterpart here.
 //
-// What bounds it on this card: the issue rate of the walk — per ordered
-// pair and P pixels ≈ 2 shared loads, one load of the column's phonon
-// values and one broadcast table load for 2P fused multiply-adds, twice
-// (QP and phonon side) — not device memory: each state element is read
-// once and written once.  The host picks P per launch
-// (ops/column_walk.py, column_pixels, the rule measured with
-// tools/column_walk_levers.py, PERF.md §6): P = 2 where the tile still
-// leaves 3 blocks (24 warps) per SM, else P = 1.  Staging the columns'
-// phonon values in shared memory too, and P = 4, were measured the same
-// way and lost: both cost blocks per SM, which hid more latency than they
-// saved.
+// What bounds it on this card: not device memory (each state element is
+// read once and written once) but how fast the SMs run the walk.  The walk
+// before the blocking took, per ordered pair and P pixels, ≈ 2 shared
+// loads, one load of the column's phonon values, one table load and two
+// index loads for 2P fused multiply-adds, twice (QP and phonon side),
+// each partner loaded again for every bin that pairs with it: it was bound
+// by the shared-memory/L1 port (26.9 ms at 1024² × 100 in float32).  The
+// blocks cut that traffic about B-fold a pair term: a step of j (or m, i)
+// makes 2 shared loads, one phonon load and one index load, and B-wide
+// vector table loads, for 2B·P fused multiply-adds, and each window's
+// 1 + value is formed once, not B times.  That takes it to 17.0 ms
+// (PERF.md §6), where the FP32 pipe's 4 instructions a pair term and pixel
+// would need ≈ 4 ms at the SMs' full instruction rate: the steps' latency
+// likely sets the pace now — a row index, then its phonon values, which
+// mostly miss an L1 left small by the tiles' shared memory.  The host
+// picks P and B per launch
+// (ops/column_walk.py, column_pixels and column_bins, the rules measured
+// with tools/column_walk_levers.py, PERF.md §6): B = 8 only where the
+// tile's shared memory already holds the SM to 3 blocks, since its 80
+// registers a thread cost the fourth.
 //
 // Two launch forms of the one walk.  The staged form above holds the tile's
 // q and partner in shared memory: 2·NE·32·P·sizeof(T) bytes, up to NE 908
@@ -123,18 +144,47 @@ __device__ __forceinline__ typename Pair<T>::type ldg2(const T* p) {
   return __ldg(reinterpret_cast<const typename Pair<T>::type*>(p));
 }
 
+// N consecutive entries, a multiple of 16 bytes, in 16-byte read-only
+// loads; ``p`` is 16-byte aligned
+template <typename T, int N>
+__device__ __forceinline__ void ldv(const T* p, T (&v)[N]) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  static_assert(N % kPer == 0, "whole 16-byte loads");
+  const uint4* src = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int c = 0; c < N / kPer; ++c) {
+    union {
+      uint4 r;
+      T t[kPer];
+    } u;
+    u.r = __ldg(src + c);
+#pragma unroll
+    for (int n = 0; n < kPer; ++n) v[c * kPer + n] = u.t[n];
+  }
+}
+
 // the column form's index arrays (device pointers)
 struct Columns {
   const int* scat_k;    // (n_scat,) offset of each scattering column, ascending
   const int* scat_row;  // (n_scat,) its ω row
-  const int* k_count;   // (NE,) scattering columns of offset ≤ m
   const int* rec_s;     // (n_rec,) anti-diagonal of each recombination column, ascending
   const int* rec_row;   // (n_rec,) its ω row
-  const int* s_ptr;     // (2NE,) first recombination column of anti-diagonal s
   const int* row_ptr;   // (NW + 1,) each ω row's columns in row_code
   const int* row_code;  // column·2 + kind (0 scattering, 1 recombination)
   int n_scat;           // 0 when scattering is off
   int n_rec;            // 0 when recombination is off
+};
+
+// the blocked walk's index arrays (device pointers)
+struct Blocked {
+  const int* k_row;      // (NE,) ω row of offset k's first scattering column (k ≥ 1)
+  const int* k_out;      // (NE,) that row where offset k's task writes it, else −1
+  const int* s_row;      // (2NE − 1,) ω row of anti-diagonal s's first recombination column
+  const int* s_out;      // (2NE − 1,) that row where anti-diagonal s's task writes it, else −1
+  const int* x_scat;     // (n_xs,) scattering columns beyond the first of their offset
+  const int* x_rec;      // (n_xr,) recombination columns beyond the first of their anti-diagonal
+  const int* slow_rows;  // (n_slow,) ω rows the per-row walk writes
+  int n_xs, n_xr, n_slow;
 };
 
 // K5, K8, K9: per-gap column tables, each pixel's by its gap id
@@ -147,7 +197,11 @@ struct TableConsts {
   const T* scat_t;        // (G, n_scat, NE, 2): the same, column-major
   const T* rec;           // (G, NE, n_rec): 2dE·K^r₀[i, s−i]
   const T* rec_t;         // (G, n_rec, NE)
-  int ne, n_scat, n_rec;
+  const T* qs;            // (G, NE, ne_pad, 2): at [j][i] the pair of scat for bins i, j
+  const T* qr;            // (G, NE, ne_pad): at [j][i] rec[i] of anti-diagonal i + j
+  const T* ps;            // (G, NE, ne_pad, 2): at [m][k − 1] the pair of offset k at bin m
+  const T* pr;            // (G, NE, s_pad): at [i][s] rec[i] of anti-diagonal s
+  int ne, n_scat, n_rec, ne_pad, s_pad;
 
   __device__ bool can_mix() const { return gid != nullptr; }
   __device__ Key key(long long p) const { return gid != nullptr ? gid[p] : 0; }
@@ -206,6 +260,57 @@ struct TableConsts {
   __device__ __forceinline__ void rec_col(const Key (&g)[P], int c, int i, T (&r)[P]) const {
     one<P, kMixed>(rec_t, g, static_cast<long long>(c) * ne + i, r);
   }
+  // N consecutive entries at ``at`` of a dense (G, …) table of ``stride``
+  // entries a gap, for each pixel: one vector load a warp whose gaps agree
+  template <int N, int P, bool kMixed>
+  __device__ __forceinline__ void run(const T* tab, long long stride, const Key (&g)[P],
+                                      long long at, T (&v)[P][N]) const {
+    if constexpr (!kMixed) {
+      ldv<T, N>(tab + static_cast<long long>(g[0]) * stride + at, v[0]);
+#pragma unroll
+      for (int p = 1; p < P; ++p) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[p][n] = v[0][n];
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p) ldv<T, N>(tab + static_cast<long long>(g[p]) * stride + at, v[p]);
+    }
+  }
+  template <int B, int P, bool kMixed>
+  __device__ __forceinline__ void pairs(const T* tab, const Key (&g)[P], long long at, T (&e)[P][B],
+                                        T (&a)[P][B]) const {
+    T v[P][2 * B];
+    run<2 * B, P, kMixed>(tab, 2LL * ne * ne_pad, g, at * 2, v);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) e[p][b] = v[p][2 * b], a[p][b] = v[p][2 * b + 1];
+    }
+  }
+  // the scattering pairs (i0 + b, j) and recombination entries of bins
+  // i0 + b with partner j (QP side); the pairs of offsets k0 + b at bin m
+  // and the entries of anti-diagonals s0 + b at bin i (phonon side)
+  template <int B, int P, bool kMixed>
+  __device__ __forceinline__ void qp_scat(const Key (&g)[P], int j, int i0, T (&e)[P][B],
+                                          T (&a)[P][B]) const {
+    pairs<B, P, kMixed>(qs, g, static_cast<long long>(j) * ne_pad + i0, e, a);
+  }
+  template <int B, int P, bool kMixed>
+  __device__ __forceinline__ void qp_rec(const Key (&g)[P], int j, int i0, T (&r)[P][B]) const {
+    run<B, P, kMixed>(qr, static_cast<long long>(ne) * ne_pad, g,
+                      static_cast<long long>(j) * ne_pad + i0, r);
+  }
+  template <int B, int P, bool kMixed>
+  __device__ __forceinline__ void ph_scat(const Key (&g)[P], int m, int k0, T (&e)[P][B],
+                                          T (&a)[P][B]) const {
+    pairs<B, P, kMixed>(ps, g, static_cast<long long>(m) * ne_pad + k0 - 1, e, a);
+  }
+  template <int B, int P, bool kMixed>
+  __device__ __forceinline__ void ph_rec(const Key (&g)[P], int i, int s0, T (&r)[P][B]) const {
+    run<B, P, kMixed>(pr, static_cast<long long>(ne) * s_pad, g,
+                      static_cast<long long>(i) * s_pad + s0, r);
+  }
 };
 
 // K6: (a, b) column tables, the constants affine in the pixel's Δ²
@@ -221,8 +326,12 @@ struct AnalyticConsts {
   const T* scat_t;  // (n_scat, NE, 4): the same, column-major
   const T* rec;     // (NE, n_rec, 2): 2dE·(a_r, b_r)
   const T* rec_t;   // (n_rec, NE, 2)
+  const T* qs;      // (NE, ne_pad, 4), (NE, ne_pad, 2), (NE, ne_pad, 4), (NE, s_pad, 2):
+  const T* qr;      // TableConsts' dense copies with these entries
+  const T* ps;
+  const T* pr;
   T gamma;
-  int ne, n_scat, n_rec;
+  int ne, n_scat, n_rec, ne_pad, s_pad;
 
   __device__ bool can_mix() const { return false; }
   __device__ Key key(long long p) const { return g2[p]; }
@@ -266,16 +375,58 @@ struct AnalyticConsts {
   __device__ __forceinline__ void rec_col(const Key (&d2)[P], int c, int i, T (&r)[P]) const {
     affine2<P>(rec_t + (static_cast<long long>(c) * ne + i) * 2, d2, r);
   }
+  // B quads (a, a', b, b') from one run of 4B entries, formed per pixel
+  template <int B, int P>
+  __device__ __forceinline__ void quads(const T* at, const Key (&d2)[P], T (&e)[P][B],
+                                        T (&a)[P][B]) const {
+    T v[4 * B];
+    ldv<T, 4 * B>(at, v);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        e[p][b] = relu(v[4 * b] - v[4 * b + 2] * d2[p]);
+        a[p][b] = relu(v[4 * b + 1] - v[4 * b + 3] * d2[p]);
+      }
+    }
+  }
+  template <int B, int P>
+  __device__ __forceinline__ void affines(const T* at, const Key (&d2)[P], T (&r)[P][B]) const {
+    T v[2 * B];
+    ldv<T, 2 * B>(at, v);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) r[p][b] = v[2 * b] + v[2 * b + 1] * d2[p];
+    }
+  }
+  template <int B, int P, bool>
+  __device__ __forceinline__ void qp_scat(const Key (&d2)[P], int j, int i0, T (&e)[P][B],
+                                          T (&a)[P][B]) const {
+    quads<B, P>(qs + (static_cast<long long>(j) * ne_pad + i0) * 4, d2, e, a);
+  }
+  template <int B, int P, bool>
+  __device__ __forceinline__ void qp_rec(const Key (&d2)[P], int j, int i0, T (&r)[P][B]) const {
+    affines<B, P>(qr + (static_cast<long long>(j) * ne_pad + i0) * 2, d2, r);
+  }
+  template <int B, int P, bool>
+  __device__ __forceinline__ void ph_scat(const Key (&d2)[P], int m, int k0, T (&e)[P][B],
+                                          T (&a)[P][B]) const {
+    quads<B, P>(ps + (static_cast<long long>(m) * ne_pad + k0 - 1) * 4, d2, e, a);
+  }
+  template <int B, int P, bool>
+  __device__ __forceinline__ void ph_rec(const Key (&d2)[P], int i, int s0, T (&r)[P][B]) const {
+    affines<B, P>(pr + (static_cast<long long>(i) * s_pad + s0) * 2, d2, r);
+  }
 };
 
-// the phonon value of column c for a lane's P pixels, one P-wide load
-// through the column's ω row (the host launches P = 2 only for an even
-// pixel count; the idle pixels of a ragged tile read the last pixels'
-// values, and their results are never stored)
+// the phonon values of ω row ``row`` for a lane's P pixels, one P-wide
+// load from ``at`` (the lane's first pixel of row 0).  The host launches
+// P = 2 only for an even pixel count; the idle pixels of a ragged tile
+// read the last pixels' values, and their results are never stored.
 template <typename T, int P>
-__device__ __forceinline__ Px<T, P> column_value(const T* ph_in, const int* rows, int c,
-                                                 long long px, long long n_pix) {
-  const T* at = ph_in + static_cast<long long>(rows[c]) * n_pix + px;
+__device__ __forceinline__ Px<T, P> row_value(const T* at, int row, int stride) {
+  at += static_cast<long long>(row) * stride;
   Px<T, P> v;
   if constexpr (P == 1) {
     v.v[0] = __ldg(at);
@@ -287,144 +438,427 @@ __device__ __forceinline__ Px<T, P> column_value(const T* ph_in, const int* rows
   return v;
 }
 
-// the walk of one lane's P pixels after the staging (see the header)
-template <typename T, int P, bool kMixed, typename Consts>
-__device__ __forceinline__ void walk(const Consts& consts, const typename Consts::Key (&key)[P],
-                                     const Columns& cols, const T* sq, const T* sp,
-                                     const T* ph_in, T* q_out, T* ph_out, int ne, int nw,
-                                     long long n_pix, long long p0, int x0, int warp, T dt,
-                                     int update_phonons) {
-  static_assert(P == 1 || P == 2, "one or two pixels per lane");
-  constexpr int kTile = 32 * P;
-  const long long px = p0 < n_pix ? p0 : n_pix - P;  // this lane's column values
-  for (int i = warp; i < ne; i += kWarps) {
-    T loss[P], gain[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) loss[p] = gain[p] = T(0);
-    if (cols.n_scat > 0) {
-      // pairs (i, i−k): emission i → i−k (loss, partner[i−k]), absorption
-      // i−k → i (gain, q[i−k])
-      const int down = cols.k_count[i];
-      for (int c = 0; c < down; ++c) {
-        const int j = i - cols.scat_k[c];
-        const Px<T, P> d = column_value<T, P>(ph_in, cols.scat_row, c, px, n_pix);
-        const Px<T, P> pj = lds<T, P>(sp + j * kTile, x0);
-        const Px<T, P> qj = lds<T, P>(sq + j * kTile, x0);
-        T e[P], a[P];
-        consts.template scat_at<P, kMixed>(key, i, c, e, a);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          loss[p] += e[p] * (T(1) + d.v[p]) * pj.v[p];
-          gain[p] += a[p] * d.v[p] * qj.v[p];
-        }
-      }
-      // pairs (i+k, i): absorption i → i+k (loss, partner[i+k]), emission
-      // i+k → i (gain, q[i+k]); the column's entry at bin m = i + k
-      const int up = cols.k_count[ne - 1 - i];
-      for (int c = 0; c < up; ++c) {
-        const int m = i + cols.scat_k[c];
-        const Px<T, P> d = column_value<T, P>(ph_in, cols.scat_row, c, px, n_pix);
-        const Px<T, P> pm = lds<T, P>(sp + m * kTile, x0);
-        const Px<T, P> qm = lds<T, P>(sq + m * kTile, x0);
-        T e[P], a[P];
-        consts.template scat_at<P, kMixed>(key, m, c, e, a);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          loss[p] += a[p] * d.v[p] * pm.v[p];
-          gain[p] += e[p] * (T(1) + d.v[p]) * qm.v[p];
-        }
-      }
-    }
-    if (cols.n_rec > 0) {
-      // recombination with bin s − i and pair breaking into (i, s−i)
-      for (int c = cols.s_ptr[i]; c < cols.s_ptr[i + ne]; ++c) {
-        const int j = cols.rec_s[c] - i;
-        const Px<T, P> sv = column_value<T, P>(ph_in, cols.rec_row, c, px, n_pix);
-        const Px<T, P> qj = lds<T, P>(sq + j * kTile, x0);
-        const Px<T, P> pj = lds<T, P>(sp + j * kTile, x0);
-        T r[P];
-        consts.template rec_at<P, kMixed>(key, i, c, r);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          loss[p] += r[p] * (T(1) + sv.v[p]) * qj.v[p];
-          gain[p] += r[p] * sv.v[p] * pj.v[p];
-        }
-      }
-    }
-    const Px<T, P> qi = lds<T, P>(sq + i * kTile, x0);
-    const Px<T, P> pi = lds<T, P>(sp + i * kTile, x0);
+// the state of one lane's walk after the staging
+template <typename T, int P, typename Consts>
+struct Lane {
+  const Consts& consts;
+  const typename Consts::Key (&key)[P];
+  const Columns& cols;
+  const Blocked& bl;
+  const T* sq;
+  const T* sp;
+  const T* ph_in;
+  const T* ph_px;  // the lane's first pixel whose phonon values it reads, in row 0
+  T* q_out;
+  T* ph_out;
+  int ne;
+  long long n_pix, p0;
+  int stride;  // n_pix, below 2^31 (the launch checks)
+  int x0;
+  T dt;
+
+  __device__ __forceinline__ Px<T, P> q(int i) const { return lds<T, P>(sq + i * 32 * P, x0); }
+  __device__ __forceinline__ Px<T, P> p(int i) const { return lds<T, P>(sp + i * 32 * P, x0); }
+  __device__ __forceinline__ Px<T, P> ph(int row) const {
+    return row_value<T, P>(ph_px, row, stride);
+  }
+  // the relaxed q of bin i from its rates
+  __device__ __forceinline__ void store_q(int i, const T (&loss)[P], const T (&gain)[P]) const {
+    const Px<T, P> qi = q(i), pi = p(i);
     T* out = q_out + static_cast<long long>(i) * n_pix + p0;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (p0 + p < n_pix) out[p] = relax(qi.v[p], pi.v[p] * gain[p], loss[p], dt);
+    for (int k = 0; k < P; ++k) {
+      if (p0 + k < n_pix) out[k] = relax(qi.v[k], pi.v[k] * gain[k], loss[k], dt);
     }
   }
-
-  if (!update_phonons) return;
-  for (int r = warp; r < nw; r += kWarps) {
-    const int e0 = cols.row_ptr[r], e1 = cols.row_ptr[r + 1];
-    T a[P], b[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) a[p] = b[p] = T(0);
-    for (int e = e0; e < e1; ++e) {
-      const int code = cols.row_code[e];
-      const int c = code >> 1;
-      if ((code & 1) == 0) {  // scattering: emission creates, absorption destroys
-        const int k = cols.scat_k[c];
-        T em[P], ab[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) em[p] = ab[p] = T(0);
-        for (int m = k; m < ne; ++m) {
-          T ke[P], ka[P];
-          consts.template scat_col<P, kMixed>(key, c, m, ke, ka);
-          const Px<T, P> qm = lds<T, P>(sq + m * kTile, x0);
-          const Px<T, P> pm = lds<T, P>(sp + m * kTile, x0);
-          const Px<T, P> qj = lds<T, P>(sq + (m - k) * kTile, x0);
-          const Px<T, P> pj = lds<T, P>(sp + (m - k) * kTile, x0);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            em[p] += ke[p] * qm.v[p] * pj.v[p];  // pair (m → m−k)
-            ab[p] += ka[p] * qj.v[p] * pm.v[p];  // pair (m−k → m)
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          a[p] += em[p];
-          b[p] += em[p] - ab[p];
-        }
-      } else {  // recombination creates, pair breaking destroys
-        const int s = cols.rec_s[c];
-        const int lo = s - ne + 1 > 0 ? s - ne + 1 : 0;
-        const int hi = s < ne - 1 ? s : ne - 1;
-        T rc[P], pb[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) rc[p] = pb[p] = T(0);
-        for (int i = lo; i <= hi; ++i) {
-          T kr[P];
-          consts.template rec_col<P, kMixed>(key, c, i, kr);
-          const Px<T, P> qi = lds<T, P>(sq + i * kTile, x0);
-          const Px<T, P> pi = lds<T, P>(sp + i * kTile, x0);
-          const Px<T, P> qj = lds<T, P>(sq + (s - i) * kTile, x0);
-          const Px<T, P> pj = lds<T, P>(sp + (s - i) * kTile, x0);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            const T k = T(0.5) * kr[p];  // dE·K^r₀
-            rc[p] += k * qi.v[p] * qj.v[p];
-            pb[p] += k * pi.v[p] * pj.v[p];
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          a[p] += rc[p];
-          b[p] += rc[p] - pb[p];
-        }
-      }
-    }
+  // ω row r from its rates (y' = a + b·y)
+  __device__ __forceinline__ void store_ph(int r, const T (&a)[P], const T (&b)[P]) const {
     const T* y = ph_in + static_cast<long long>(r) * n_pix + p0;
     T* out = ph_out + static_cast<long long>(r) * n_pix + p0;
 #pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (p0 + k < n_pix) out[k] = affine(y[k], a[k], b[k], dt);
+    }
+  }
+};
+
+// ω row r, each of its columns over its bins in the row list's order, from
+// the [column][bin] tables (the per-row walk); a row no column touches is
+// copied unchanged
+template <bool kMixed, typename T, int P, typename Consts>
+__device__ __forceinline__ void row_walk(const Lane<T, P, Consts>& l, int r) {
+  const Consts& consts = l.consts;
+  const Columns& cols = l.cols;
+  const int ne = l.ne;
+  const int e0 = cols.row_ptr[r], e1 = cols.row_ptr[r + 1];
+  T a[P], b[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) a[p] = b[p] = T(0);
+  for (int e = e0; e < e1; ++e) {
+    const int code = cols.row_code[e];
+    const int c = code >> 1;
+    if ((code & 1) == 0) {  // scattering: emission creates, absorption destroys
+      const int k = cols.scat_k[c];
+      T em[P], ab[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) em[p] = ab[p] = T(0);
+      for (int m = k; m < ne; ++m) {
+        T ke[P], ka[P];
+        consts.template scat_col<P, kMixed>(l.key, c, m, ke, ka);
+        const Px<T, P> qm = l.q(m), pm = l.p(m), qj = l.q(m - k), pj = l.p(m - k);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          em[p] += ke[p] * qm.v[p] * pj.v[p];  // pair (m → m−k)
+          ab[p] += ka[p] * qj.v[p] * pm.v[p];  // pair (m−k → m)
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        a[p] += em[p];
+        b[p] += em[p] - ab[p];
+      }
+    } else {  // recombination creates, pair breaking destroys
+      const int s = cols.rec_s[c];
+      const int lo = s - ne + 1 > 0 ? s - ne + 1 : 0;
+      const int hi = s < ne - 1 ? s : ne - 1;
+      T rc[P], pb[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) rc[p] = pb[p] = T(0);
+      for (int i = lo; i <= hi; ++i) {
+        T kr[P];
+        consts.template rec_col<P, kMixed>(l.key, c, i, kr);
+        const Px<T, P> qi = l.q(i), pi = l.p(i), qj = l.q(s - i), pj = l.p(s - i);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const T k = T(0.5) * kr[p];  // dE·K^r₀
+          rc[p] += k * qi.v[p] * qj.v[p];
+          pb[p] += k * pi.v[p] * pj.v[p];
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        a[p] += rc[p];
+        b[p] += rc[p] - pb[p];
+      }
+    }
+  }
+  if (e0 == e1) {
+    const T* y = l.ph_in + static_cast<long long>(r) * l.n_pix + l.p0;
+    T* out = l.ph_out + static_cast<long long>(r) * l.n_pix + l.p0;
+#pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (p0 + p < n_pix) out[p] = e0 == e1 ? y[p] : affine(y[p], a[p], b[p], dt);
+      if (l.p0 + p < l.n_pix) out[p] = y[p];
+    }
+  } else {
+    l.store_ph(r, a, b);
+  }
+}
+
+// where the partners j of a chunk lie against the QP block [i0, i0 + B)
+enum Span { kBelow, kInside, kAbove };
+
+// a register window of B phonon values and their 1 + value, slot by slot
+template <typename T, int P, int B>
+struct Window {
+  Px<T, P> v[B], v1[B];
+
+  __device__ __forceinline__ void set(int slot, const Px<T, P>& x) {
+    v[slot] = x;
+#pragma unroll
+    for (int p = 0; p < P; ++p) v1[slot].v[p] = T(1) + x.v[p];
+  }
+};
+
+// B steps j = jc + u of the QP block [i0, i0 + B)'s scattering pass (only
+// u with jc + u < NE where kGuard): the window holds offset |δ|'s value in
+// slot δ mod B (δ = i − j), a slot fixed at compile time since i0 and jc
+// are multiples of B; the step's new value is δ = i0 − j's (b = 0)
+template <int kSpan, bool kGuard, bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void scat_chunk(const Lane<T, P, Consts>& l, int i0, int jc,
+                                           T (&loss)[B][P], T (&gain)[B][P],
+                                           Window<T, P, B>& d) {
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int j = jc + u;
+    if (kGuard && j >= l.ne) break;
+    const Px<T, P> qj = l.q(j), pj = l.p(j);
+    d.set((B - u) % B, l.ph(l.bl.k_row[kSpan == kBelow ? i0 - j : j - i0]));
+    T e[P][B], a[P][B];
+    l.consts.template qp_scat<B, P, kMixed>(l.key, j, i0, e, a);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int w = (b - u + B) % B;
+      if (kSpan == kBelow || (kSpan == kInside && b > u)) {
+        // pair (i, j), j = i − k: emission i → j (loss, partner[j]),
+        // absorption j → i (gain, q[j])
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          loss[b][p] += e[p][b] * d.v1[w].v[p] * pj.v[p];
+          gain[b][p] += a[p][b] * d.v[w].v[p] * qj.v[p];
+        }
+      } else if (kSpan == kAbove || b < u) {
+        // pair (j, i), j = i + k: absorption i → j (loss, partner[j]),
+        // emission j → i (gain, q[j]); the entry of bin j
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          loss[b][p] += a[p][b] * d.v[w].v[p] * pj.v[p];
+          gain[b][p] += e[p][b] * d.v1[w].v[p] * qj.v[p];
+        }
+      }
+    }
+  }
+}
+
+// B steps of the QP block's recombination pass: the window holds
+// anti-diagonal s's value in slot s mod B; the step's new value is
+// s = i0 + B − 1 + j's (b = B − 1).  Recombination with bin j and pair
+// breaking into (i, j)
+template <bool kGuard, bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void rec_chunk(const Lane<T, P, Consts>& l, int i0, int jc,
+                                          T (&loss)[B][P], T (&gain)[B][P],
+                                          Window<T, P, B>& v) {
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int j = jc + u;
+    if (kGuard && j >= l.ne) break;
+    const Px<T, P> qj = l.q(j), pj = l.p(j);
+    v.set((B - 1 + u) % B, l.ph(l.bl.s_row[i0 + B - 1 + j]));
+    T r[P][B];
+    l.consts.template qp_rec<B, P, kMixed>(l.key, j, i0, r);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int w = (b + u) % B;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        loss[b][p] += r[p][b] * v.v1[w].v[p] * qj.v[p];
+        gain[b][p] += r[p][b] * v.v[w].v[p] * pj.v[p];
+      }
+    }
+  }
+}
+
+// the QP side of bins [i0, i0 + B): each channel's pass over every partner
+// j once, then the columns beyond the first of their offset or
+// anti-diagonal bin by bin
+template <bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void qp_block(const Lane<T, P, Consts>& l, int i0) {
+  const Consts& consts = l.consts;
+  const Columns& cols = l.cols;
+  const Blocked& bl = l.bl;
+  const int ne = l.ne;
+  T loss[B][P], gain[B][P];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) loss[b][p] = gain[b][p] = T(0);
+  }
+  if (cols.n_scat > 0) {
+    Window<T, P, B> d;
+#pragma unroll
+    for (int b = 1; b < B; ++b) d.set(b, l.ph(bl.k_row[i0 + b]));  // offsets no step loads
+    int jc = 0;
+    for (; jc < i0; jc += B) scat_chunk<kBelow, false, kMixed>(l, i0, jc, loss, gain, d);
+    scat_chunk<kInside, true, kMixed>(l, i0, jc, loss, gain, d);
+    for (jc += B; jc + B <= ne; jc += B) scat_chunk<kAbove, false, kMixed>(l, i0, jc, loss, gain, d);
+    if (jc < ne) scat_chunk<kAbove, true, kMixed>(l, i0, jc, loss, gain, d);
+  }
+  if (cols.n_rec > 0) {
+    Window<T, P, B> v;
+#pragma unroll
+    for (int b = 0; b < B - 1; ++b) v.set(b, l.ph(bl.s_row[i0 + b]));  // sums no step loads
+    int jc = 0;
+    for (; jc + B <= ne; jc += B) rec_chunk<false, kMixed>(l, i0, jc, loss, gain, v);
+    if (jc < ne) rec_chunk<true, kMixed>(l, i0, jc, loss, gain, v);
+  }
+  const bool extra = bl.n_xs + bl.n_xr > 0;
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int i = i0 + b;
+    if (i >= ne) break;
+    for (int x = 0; extra && x < bl.n_xs; ++x) {
+      const int c = bl.x_scat[x], k = cols.scat_k[c];
+      const Px<T, P> dc = l.ph(cols.scat_row[c]);
+      T e[P], a[P];
+      if (k <= i) {  // pair (i, i−k)
+        const Px<T, P> pj = l.p(i - k), qj = l.q(i - k);
+        consts.template scat_at<P, kMixed>(l.key, i, c, e, a);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          loss[b][p] += e[p] * (T(1) + dc.v[p]) * pj.v[p];
+          gain[b][p] += a[p] * dc.v[p] * qj.v[p];
+        }
+      }
+      if (i + k < ne) {  // pair (i+k, i)
+        const Px<T, P> pm = l.p(i + k), qm = l.q(i + k);
+        consts.template scat_at<P, kMixed>(l.key, i + k, c, e, a);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          loss[b][p] += a[p] * dc.v[p] * pm.v[p];
+          gain[b][p] += e[p] * (T(1) + dc.v[p]) * qm.v[p];
+        }
+      }
+    }
+    for (int x = 0; extra && x < bl.n_xr; ++x) {
+      const int c = bl.x_rec[x], j = cols.rec_s[c] - i;
+      if (j < 0 || j >= ne) continue;
+      const Px<T, P> sv = l.ph(cols.rec_row[c]);
+      const Px<T, P> qj = l.q(j), pj = l.p(j);
+      T r[P];
+      consts.template rec_at<P, kMixed>(l.key, i, c, r);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        loss[b][p] += r[p] * (T(1) + sv.v[p]) * qj.v[p];
+        gain[b][p] += r[p] * sv.v[p] * pj.v[p];
+      }
+    }
+    l.store_q(i, loss[b], gain[b]);
+  }
+}
+
+// B steps m = mc + u of the first scattering columns of offsets
+// [k0, k0 + B): q_m, partner_m once, the partners m − k from a window
+// (slot (m − k0 − b) mod B; zeros before the first), each column's sums in
+// the per-row walk's order (the steps m < k add zero)
+template <bool kGuard, bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void scat_row_chunk(const Lane<T, P, Consts>& l, int k0, int mc,
+                                               T (&em)[B][P], T (&ab)[B][P], Px<T, P> (&wq)[B],
+                                               Px<T, P> (&wp)[B]) {
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int m = mc + u;
+    if (kGuard && m >= l.ne) break;
+    const Px<T, P> qm = l.q(m), pm = l.p(m);
+    wq[u] = l.q(m - k0);
+    wp[u] = l.p(m - k0);
+    T ke[P][B], ka[P][B];
+    l.consts.template ph_scat<B, P, kMixed>(l.key, m, k0, ke, ka);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int w = (u - b + B) % B;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        em[b][p] += ke[p][b] * qm.v[p] * wp[w].v[p];  // pair (m → m−k)
+        ab[b][p] += ka[p][b] * wq[w].v[p] * pm.v[p];  // pair (m−k → m)
+      }
+    }
+  }
+}
+
+// the first scattering columns of offsets [k0, k0 + B) over m = k0, …
+template <bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void scat_block(const Lane<T, P, Consts>& l, int k0) {
+  const int ne = l.ne;
+  T em[B][P], ab[B][P];
+  Px<T, P> wq[B], wp[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) em[b][p] = ab[b][p] = wq[b].v[p] = wp[b].v[p] = T(0);
+  }
+  int mc = k0;
+  for (; mc + B <= ne; mc += B) scat_row_chunk<false, kMixed>(l, k0, mc, em, ab, wq, wp);
+  if (mc < ne) scat_row_chunk<true, kMixed>(l, k0, mc, em, ab, wq, wp);
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int r = k0 + b < ne ? l.bl.k_out[k0 + b] : -1;
+    if (r < 0) continue;
+    T a[P], bb[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) a[p] = em[b][p], bb[p] = em[b][p] - ab[b][p];
+    l.store_ph(r, a, bb);
+  }
+}
+
+// B steps i = ic + u (i ≤ hi where kGuard) of the first recombination
+// columns of anti-diagonals [s0, s0 + B): q_i, partner_i once, the partners
+// s − i from a window (slot (s − i) mod B; zeros outside [0, NE)), each
+// column's sums in the per-row walk's order (the steps outside its bins add
+// zero); the step's new partner is s0 − i's (b = 0)
+template <bool kGuard, bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void rec_row_chunk(const Lane<T, P, Consts>& l, int s0, int ic, int hi,
+                                              T (&rc)[B][P], T (&pb)[B][P], Px<T, P> (&wq)[B],
+                                              Px<T, P> (&wp)[B]) {
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    const int i = ic + u;
+    if (kGuard && i > hi) break;
+    const int y = s0 - i, w0 = (B - u) % B;
+    const bool in = static_cast<unsigned>(y) < static_cast<unsigned>(l.ne);
+    wq[w0] = l.q(in ? y : 0);
+    wp[w0] = l.p(in ? y : 0);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      wq[w0].v[p] = in ? wq[w0].v[p] : T(0);
+      wp[w0].v[p] = in ? wp[w0].v[p] : T(0);
+    }
+    const Px<T, P> qi = l.q(i), pi = l.p(i);
+    T kr[P][B];
+    l.consts.template ph_rec<B, P, kMixed>(l.key, i, s0, kr);
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int w = (b - u + B) % B;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const T k = T(0.5) * kr[p][b];  // dE·K^r₀
+        rc[b][p] += k * qi.v[p] * wq[w].v[p];
+        pb[b][p] += k * pi.v[p] * wp[w].v[p];
+      }
+    }
+  }
+}
+
+// the first recombination columns of anti-diagonals [s0, s0 + B) over i
+template <bool kMixed, int B, typename T, int P, typename Consts>
+__device__ __forceinline__ void rec_block(const Lane<T, P, Consts>& l, int s0) {
+  const int ne = l.ne;
+  const int lo = s0 - ne + 1 > 0 ? s0 - ne + 1 : 0;
+  const int hi = s0 + B - 1 < ne - 1 ? s0 + B - 1 : ne - 1;
+  const int ic0 = lo - lo % B;
+  T rc[B][P], pb[B][P];
+  Px<T, P> wq[B], wp[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) rc[b][p] = pb[b][p] = wq[b].v[p] = wp[b].v[p] = T(0);
+    const int y = s0 + b - ic0;  // the partners of the first step's b ≥ 1
+    if (b > 0 && y < ne) {
+      wq[b] = l.q(y);
+      wp[b] = l.p(y);
+    }
+  }
+  int ic = ic0;
+  for (; ic + B - 1 <= hi; ic += B) rec_row_chunk<false, kMixed>(l, s0, ic, hi, rc, pb, wq, wp);
+  if (ic <= hi) rec_row_chunk<true, kMixed>(l, s0, ic, hi, rc, pb, wq, wp);
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int r = s0 + b < 2 * ne - 1 ? l.bl.s_out[s0 + b] : -1;
+    if (r < 0) continue;
+    T a[P], bb[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) a[p] = rc[b][p], bb[p] = rc[b][p] - pb[b][p];
+    l.store_ph(r, a, bb);
+  }
+}
+
+// the walk of one lane's P pixels after the staging: the blocked walk's
+// tasks (see the header)
+template <typename T, int P, int B, bool kMixed, typename Consts>
+__device__ __forceinline__ void walk(const Lane<T, P, Consts>& l, int warp, int update_phonons) {
+  static_assert(P == 1 || P == 2, "one or two pixels per lane");
+  const int ne = l.ne;
+  const int nq = (ne + B - 1) / B;
+  const int ns = update_phonons && l.cols.n_scat > 0 ? (ne - 1 + B - 1) / B : 0;
+  const int nr = update_phonons && l.cols.n_rec > 0 ? (2 * ne - 1 + B - 1) / B : 0;
+  const int nx = update_phonons ? l.bl.n_slow : 0;
+  for (int t = warp; t < nq + ns + nr + nx; t += kWarps) {
+    if (t < nq) {
+      qp_block<kMixed, B>(l, t * B);
+    } else if (t < nq + ns) {
+      scat_block<kMixed, B>(l, 1 + (t - nq) * B);
+    } else if (t < nq + ns + nr) {
+      rec_block<kMixed, B>(l, (t - nq - ns) * B);
+    } else {
+      row_walk<kMixed>(l, l.bl.slow_rows[t - nq - ns - nr]);
     }
   }
 }
@@ -432,11 +866,13 @@ __device__ __forceinline__ void walk(const Consts& consts, const typename Consts
 // the registers must leave 4 blocks per SM (≤ 64 a thread): the 100-bin
 // float32 tile at P = 2 leaves 4 by shared memory, and at the 100
 // registers ptxas took unbounded K5 ran 1.27x slower on 2 blocks
-// (tools/time_blocked.py, PERF.md §6); a few spilled words cost less
-template <typename T, int P, typename Consts, bool kDevice>
-__global__ void __launch_bounds__(kThreads, 4) column_walk_kernel(
+// (tools/time_blocked.py, PERF.md §6); a few spilled words cost less.  The
+// 8-bin register block holds 16 accumulators, a window of 16 and its 16
+// table entries a pixel: it takes 3 blocks (≤ 80 registers)
+template <typename T, int P, int B, typename Consts, bool kDevice>
+__global__ void __launch_bounds__(kThreads, B == 8 ? 3 : 4) column_walk_kernel(
     const T* __restrict__ q_in, const T* __restrict__ ph_in, const T* __restrict__ gen,
-    T* __restrict__ q_out, T* __restrict__ ph_out, Consts consts, Columns cols, int ne, int nw,
+    T* __restrict__ q_out, T* __restrict__ ph_out, Consts consts, Columns cols, Blocked bl, int ne,
     long long n_pix, T dt, int update_phonons, T* scratch) {
   constexpr int kTile = 32 * P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -479,21 +915,22 @@ __global__ void __launch_bounds__(kThreads, 4) column_walk_kernel(
     const typename Consts::Key lead = __shfl_sync(kFull, key[0], 0);
     mixed = !__all_sync(kFull, same && key[0] == lead);
   }
+  const Lane<T, P, Consts> l{consts, key,  cols, bl,   sq,  sp,
+                             ph_in,  ph_in + (p0 < n_pix ? p0 : n_pix - P), q_out, ph_out,
+                             ne,     n_pix, p0,  static_cast<int>(n_pix), x0, dt};
   if (mixed) {
-    walk<T, P, true>(consts, key, cols, sq, sp, ph_in, q_out, ph_out, ne, nw, n_pix, p0, x0,
-                     warp, dt, update_phonons);
+    walk<T, P, B, true>(l, warp, update_phonons);
   } else {
-    walk<T, P, false>(consts, key, cols, sq, sp, ph_in, q_out, ph_out, ne, nw, n_pix, p0, x0,
-                      warp, dt, update_phonons);
+    walk<T, P, B, false>(l, warp, update_phonons);
   }
 }
 
 // the staged form (scratch null) or the device-memory form (scratch: the
 // blocks' slices, 2·NE·32·P entries each)
-template <typename T, int P, typename Consts, bool kDevice>
+template <typename T, int P, int B, typename Consts, bool kDevice>
 int launch_form(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out,
-                const Consts& consts, const Columns& cols, int ne, int nw, long long n_pix,
-                double dt, int update_phonons, T* scratch, cudaStream_t stream) {
+                const Consts& consts, const Columns& cols, const Blocked& bl, int ne,
+                long long n_pix, double dt, int update_phonons, T* scratch, cudaStream_t stream) {
   const long long smem = kDevice ? 0 : 2LL * ne * 32 * P * static_cast<long long>(sizeof(T));
   int device = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -502,7 +939,7 @@ int launch_form(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > max_smem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = column_walk_kernel<T, P, Consts, kDevice>;
+  auto kernel = column_walk_kernel<T, P, B, Consts, kDevice>;
   if (!kDevice) {
     // above 48 KB only after the opt-in; a refused launch would never run
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -511,36 +948,38 @@ int launch_form(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out
   }
   const unsigned int blocks = static_cast<unsigned int>((n_pix + 32 * P - 1) / (32 * P));
   kernel<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
-      q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw, n_pix, static_cast<T>(dt),
+      q_in, ph_in, gen, q_out, ph_out, consts, cols, bl, ne, n_pix, static_cast<T>(dt),
       update_phonons, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// P = 2 reads a lane's column values as one pair: even pixel counts and a
-// pair-aligned phonon state only; the device-memory form (scratch given)
-// takes P = 1
+// the (P, B) forms built, those the host's rules launch (column_pixels,
+// column_bins): P = 1 with B = 4, staged and in device memory; and, in
+// float32 only, staged P = 1 with B = 8 and P = 2 with B = 4
 template <typename T, typename Consts>
 int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, const Consts& consts,
-           const Columns& cols, int ne, int nw, long long n_pix, double dt, int update_phonons,
-           int pixels, T* scratch, void* stream) {
+           const Columns& cols, const Blocked& bl, int ne, long long n_pix, double dt,
+           int update_phonons, int pixels, int bins, T* scratch, void* stream) {
+  constexpr bool kWide = sizeof(T) == 4;
+  // P = 2 reads a lane's phonon values as one pair: even pixel counts and a
+  // pair-aligned phonon state only
   const bool pairs_ok =
       n_pix % 2 == 0 && reinterpret_cast<unsigned long long>(ph_in) % (2 * sizeof(T)) == 0;
-  if (ne < 2 || pixels < 1 || pixels > 2 || (pixels == 2 && !pairs_ok) ||
-      (scratch != nullptr && pixels != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool form_ok = bins == 4 ? pixels == 1 || (pixels == 2 && kWide && pairs_ok && !scratch)
+                                 : bins == 8 && pixels == 1 && kWide && !scratch;
+  if (ne < 2 || !form_ok || n_pix > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pix <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (scratch != nullptr) {
-    return launch_form<T, 1, Consts, true>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
-                                           n_pix, dt, update_phonons, scratch, s);
+#define QP_FORM(PP, BB, DEV)                                                                   \
+  return launch_form<T, PP, BB, Consts, DEV>(q_in, ph_in, gen, q_out, ph_out, consts, cols, bl, \
+                                             ne, n_pix, dt, update_phonons, scratch, s)
+  if (scratch != nullptr) QP_FORM(1, 4, true);
+  if constexpr (kWide) {
+    if (pixels == 2) QP_FORM(2, 4, false);
+    if (bins == 8) QP_FORM(1, 8, false);
   }
-  if (pixels == 2) {
-    return launch_form<T, 2, Consts, false>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
-                                            n_pix, dt, update_phonons, nullptr, s);
-  }
-  return launch_form<T, 1, Consts, false>(q_in, ph_in, gen, q_out, ph_out, consts, cols, ne, nw,
-                                          n_pix, dt, update_phonons, nullptr, s);
+  QP_FORM(1, 4, false);
+#undef QP_FORM
 }
 
 }  // namespace
@@ -548,38 +987,50 @@ int launch(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out, con
 // Plain C interface (loaded with ctypes), one entry per dtype for all four
 // kernels.  Table form (g2 null): rho (G, NE), scat (G, NE, n_scat, 2) and
 // its column-major copy scat_t (G, n_scat, NE, 2), rec (G, NE, n_rec) and
-// rec_t (G, n_rec, NE), gid null (uniform gap) or (n_pix,) int32 ids.
-// Analytic form (g2 non-null): scat (NE, n_scat, 4), scat_t (n_scat, NE,
-// 4), rec (NE, n_rec, 2), rec_t (n_rec, NE, 2), the Δ² plane and the
-// Dynes constants.  A channel's tables (with their
-// index arrays) may be null (channel off), gen null (no generation), ph_out
-// null when update_phonons is 0.  pixels (1 or 2) picks the lane's width.
-// scratch null launches the staged form; else the device-memory form, at
-// pixels 1, with scratch holding 2·NE·32 entries per 32-pixel tile.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a width the inputs do not allow or a staged tile that does not fit the
-// block's shared memory.
+// rec_t (G, n_rec, NE), and the blocked walk's dense copies qs (G, NE,
+// ne_pad, 2), qr (G, NE, ne_pad), ps (G, NE, ne_pad, 2), pr (G, NE, s_pad);
+// gid null (uniform gap) or (n_pix,) int32 ids.  Analytic form (g2
+// non-null): scat (NE, n_scat, 4), scat_t (n_scat, NE, 4), rec (NE, n_rec,
+// 2), rec_t (n_rec, NE, 2), qs (NE, ne_pad, 4), qr (NE, ne_pad, 2), ps (NE,
+// ne_pad, 4), pr (NE, s_pad, 2), the Δ² plane and the Dynes constants.
+// ne_pad and s_pad are NE and 2NE − 1 rounded up to 8.  A channel's tables
+// (with their index arrays) may be null (channel off), gen null (no
+// generation), ph_out null when update_phonons is 0.  pixels (1 or 2)
+// picks the lane's width, bins the register block (4; 8 only in float32
+// at pixels 1, staged); k_row and s_row hold valid ω rows up to NE + 7
+// and 2NE + 6.  scratch null launches the staged form; else the
+// device-memory form, at pixels 1 and bins 4, with scratch holding 2·NE·32
+// entries per 32-pixel tile.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a width the inputs do not allow or a staged
+// tile that does not fit the block's shared memory.
 #define QP_COLUMN_WALK_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(const T* q_in, const T* ph_in, const T* gen, T* q_out, T* ph_out,       \
-                      const int* gid, const T* rho, const T* scat,                             \
-                      const T* scat_t, const T* rec, const T* rec_t, const T* g2,              \
-                      const T* e_bins, const T* inv_e, const T* e2, const T* zim, double gamma, \
-                      const int* scat_k, const int* scat_row, const int* k_count, int n_scat,  \
-                      const int* rec_s, const int* rec_row, const int* s_ptr, int n_rec,       \
-                      const int* row_ptr, const int* row_code, int ne, int nw, long long n_pix, \
-                      double dt, int update_phonons, int pixels, T* scratch, void* stream) {   \
+                      const int* gid, const T* rho, const T* scat, const T* scat_t,            \
+                      const T* rec, const T* rec_t, const T* qs, const T* qr, const T* ps,     \
+                      const T* pr, int ne_pad, int s_pad, const T* g2, const T* e_bins,        \
+                      const T* inv_e, const T* e2, const T* zim, double gamma,                 \
+                      const int* scat_k, const int* scat_row, int n_scat, const int* rec_s,    \
+                      const int* rec_row, int n_rec,                                           \
+                      const int* row_ptr, const int* row_code, const int* k_row,               \
+                      const int* k_out, const int* s_row, const int* s_out,                    \
+                      const int* x_scat, int n_xs, const int* x_rec, int n_xr,                 \
+                      const int* slow_rows, int n_slow, int ne, long long n_pix,               \
+                      double dt, int update_phonons, int pixels, int bins, T* scratch,         \
+                      void* stream) {                                                          \
     const int ns = scat != nullptr ? n_scat : 0, nr = rec != nullptr ? n_rec : 0;              \
-    const Columns cols{scat_k, scat_row, k_count, rec_s, rec_row, s_ptr, row_ptr, row_code,    \
-                       ns, nr};                                                                \
+    const Columns cols{scat_k, scat_row, rec_s, rec_row, row_ptr, row_code, ns, nr};           \
+    const Blocked bl{k_row, k_out, s_row, s_out, x_scat, x_rec, slow_rows, n_xs, n_xr, n_slow}; \
     if (g2 != nullptr) {                                                                       \
-      const AnalyticConsts<T> c{g2,     e_bins, inv_e, e2, zim, scat, scat_t, rec,             \
-                                rec_t,  static_cast<T>(gamma), ne, ns, nr};                    \
-      return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, ne, nw, n_pix, dt,            \
-                       update_phonons, pixels, scratch, stream);                               \
+      const AnalyticConsts<T> c{g2,     e_bins, inv_e, e2, zim, scat,  scat_t, rec,             \
+                                rec_t,  qs,     qr,    ps, pr,  static_cast<T>(gamma),         \
+                                ne,     ns,     nr,    ne_pad, s_pad};                         \
+      return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, bl, ne, n_pix, dt,            \
+                       update_phonons, pixels, bins, scratch, stream);                         \
     }                                                                                          \
-    const TableConsts<T> c{gid, rho, scat, scat_t, rec, rec_t, ne, ns, nr};                   \
-    return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, ne, nw, n_pix, dt,              \
-                     update_phonons, pixels, scratch, stream);                                 \
+    const TableConsts<T> c{gid, rho, scat, scat_t, rec, rec_t, qs, qr, ps, pr,                \
+                           ne,  ns,  nr,   ne_pad, s_pad};                                     \
+    return launch<T>(q_in, ph_in, gen, q_out, ph_out, c, cols, bl, ne, n_pix, dt,              \
+                     update_phonons, pixels, bins, scratch, stream);                           \
   }
 
 QP_COLUMN_WALK_ENTRY(qp_column_walk_f32, float)

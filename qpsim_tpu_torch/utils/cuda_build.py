@@ -177,11 +177,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = I
         fn = getattr(lib, f"qp_column_walk_{suffix}")
         # q_in, ph_in, gen, q_out, ph_out, gid, rho, scat, scat_t, rec,
-        # rec_t, g2, e_bins, inv_e, e2, zim, gamma, scat_k, scat_row,
-        # k_count, n_scat, rec_s, rec_row, s_ptr, n_rec, row_ptr, row_code,
-        # ne, nw, n_pix, dt, update_phonons, pixels, scratch, stream
-        fn.argtypes = ([P] * 16 + [D] + [P] * 3 + [I] + [P] * 3 + [I] + [P] * 2
-                       + [I, I, LL, D, I, I, P, P])
+        # rec_t, qs, qr, ps, pr, ne_pad, s_pad, g2, e_bins, inv_e, e2, zim,
+        # gamma, scat_k, scat_row, n_scat, rec_s, rec_row, n_rec, row_ptr,
+        # row_code, k_row, k_out, s_row, s_out, x_scat, n_xs, x_rec, n_xr,
+        # slow_rows, n_slow, ne, n_pix, dt, update_phonons, pixels, bins,
+        # scratch, stream
+        fn.argtypes = ([P] * 15 + [I, I] + [P] * 5 + [D] + [P] * 2 + [I] + [P] * 2 + [I]
+                       + [P] * 7 + [I, P, I, P, I] + [I, LL, D, I, I, I, P, P])
         fn.restype = I
         fn = getattr(lib, f"qp_adi_lines_{suffix}")
         # rhs, lo, di, hi, scale, out, nb, nbp, n, batch, k, alpha, stream

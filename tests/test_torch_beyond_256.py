@@ -54,6 +54,7 @@ from qpsim_tpu_torch.ops.collisions_blocked_cuda import (  # noqa: E402
 from qpsim_tpu_torch.ops.column_walk import (  # noqa: E402
     MAX_SHARED_BYTES,
     blocks_per_sm,
+    column_bins,
     column_form,
     column_pixels,
 )
@@ -82,9 +83,16 @@ def test_dispatch_and_launch_form_beyond_256(ne):
         assert column_form(dtype, ne) == form
         size = 4 if dtype == torch.float32 else 8
         assert (2 * ne * 32 * size <= MAX_SHARED_BYTES) == (form == "staged")
-        # the staged form's pixels per lane keep their rule; past 3 blocks
-        # per SM (≈ 330 float32 bins at P = 2) one pixel per lane
-        assert column_pixels(dtype, ne, 1024 * 1024) == (2 if blocks_per_sm(2 * ne * 64 * size) >= 3 else 1)
+        # beyond 112 float32 bins (4 blocks per SM at P = 2), with gap ids or a
+        # Δ² plane beyond 16 bins, or in float64 one pixel per lane
+        two = dtype == torch.float32 and blocks_per_sm(2 * ne * 64 * size) >= 4
+        assert column_pixels(dtype, ne, 1024 * 1024) == (2 if two else 1)
+        assert column_pixels(dtype, ne, 1024 * 1024, uniform=False) == 1
+        # bins per register block: 8 where the float32 staged tile leaves at
+        # most 3 blocks per SM, else 4
+        eight = dtype == torch.float32 and form == "staged" and blocks_per_sm(2 * ne * 32 * size) <= 3
+        assert column_bins(dtype, ne, 1, form) == (8 if eight else 4)
+        assert column_bins(dtype, ne, 2, form) == 4
 
 
 # ---------------------------------------------------------------- the substep

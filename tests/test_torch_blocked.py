@@ -10,11 +10,14 @@ K4's, the same function over more bins):
 * at NE = 65, where a pair diagonal splits two ω bins and the JAX blocked
   builder declines, against the JAX XLA integrator it runs instead;
 * the CUDA kernel's tables and walk (``csrc/offset_walk.cu``: K9's
-  columns per gap, tiles of 32·P pixels staged [NE][32·P], bins and ω rows
-  strided over the warps, the warp-uniform gap-id test) through the NumPy
+  columns per gap, tiles of 32·P pixels staged [NE][32·P], the
+  register-blocked walk's dense tables and order, the warp-uniform gap-id
+  test) through the NumPy
   transcription of ``tests/column_walk_transcription.py``, at NE = 72,
-  whose ω rows carry differences and sums together, and at NE = 65; the
-  column grouping equal to K9's per gap;
+  whose ω rows carry differences and sums together, at NE = 17, 65 and 66
+  (split diagonals) and at 100, with coherent and mixed gap ids, K6 BCS
+  and Dynes, generation on and off and frozen phonons; the column grouping
+  equal to K9's per gap;
 * ``run_2d_crank_nicolson`` at NE = 72 on a 12-cell strip, uniform gap,
   a trap and a gradient, against the JAX engine on its blocked kernels
   (mass 1e-9, frames 1e-8, as ``tests/test_engine.py`` holds them);
@@ -216,35 +219,46 @@ def _pixels(tables, n_pix):
 
 
 @pytest.mark.parametrize(
-    "ne,gaps,gen",
-    [(72, (180.0,), True), (65, (180.0,), False), (72, (150.0, 165.0, 180.0), True)],
-    ids=["shared_rows_gen", "split_diagonals", "gap_ids_gen"],
+    "ne,gaps,gen,phonons",
+    [(72, (180.0,), True, True), (65, (180.0,), False, True), (72, (150.0, 165.0, 180.0), True, True),
+     (17, (180.0,), True, True), (66, (180.0,), True, True), (100, (180.0,), True, True),
+     (100, (150.0, 165.0, 180.0), False, True), (65, (150.0, 180.0), True, False),
+     (72, (180.0,), False, False)],
+    ids=["shared_rows_gen", "split_diagonals", "gap_ids_gen", "17-split_gen", "66-split_gen",
+         "100-gen", "100-gap_ids", "split_gap_ids_frozen_phonons", "shared_rows_frozen_phonons"],
 )
-def test_blocked_kernel_walk_reproduces_plain_version(ne, gaps, gen):
+def test_blocked_kernel_walk_reproduces_plain_version(ne, gaps, gen, phonons):
     tile = 32 * column_pixels(torch.float32, ne, 2)
     # two tiles, the second ragged; with gap ids the first tile's ids agree
     # (one table base) and the second's are mixed (a per-pixel gather)
-    s = _setup(ne, gaps=gaps, seed=ne, ny=1, nx=tile + 38)
+    s = _setup(ne, gaps=gaps, phonons=phonons, seed=ne, ny=1, nx=tile + 38)
     plan = s["plan"]
     if len(gaps) > 1:
         gid = plan.gap_id.numpy()
         gid[:tile] = 1
-        assert len(np.unique(gid[tile:])) == 3
+        assert len(np.unique(gid[tile:])) == len(gaps)
     if ne == 72:  # ω rows that carry both a difference and a sum
         assert plan.num_omega < 3 * ne - 1
         assert np.intersect1d(s["pm"].idx_diff[s["pm"].diff_sign != 0], s["pm"].idx_sum).size > 0
     g = np.random.default_rng(4).uniform(0, 1e-6, s["q"].shape[1:]) if gen else None
     tables = build_column_tables(plan)
-    if ne == 65:  # a split diagonal: more columns than offsets / anti-diagonals
+    if ne in (17, 65, 66):  # a split diagonal: more columns than offsets / anti-diagonals
         assert tables.n_scat > ne - 1 or tables.n_rec > 2 * ne - 1
+        # walked as extra terms and per-row sums
+        assert tables.x_scat.numel() + tables.x_rec.numel() > 0 and tables.slow_rows.numel() > 1
+    if ne == 100:  # one column per offset and anti-diagonal: every touched row on a block task
+        assert tables.x_scat.numel() == tables.x_rec.numel() == 0 and tables.slow_rows.numel() == 1
     want = _port(collision_step_plain, plan, q=s["q"], ph=s["ph"], gen=g)
     got = transcribe(tables, s["q"], s["ph"], g, DT, plan.update_phonons, _pixels(tables, tile + 38))
     _close(got, want, 1e-12, 1e-12)
+    if not phonons:
+        np.testing.assert_array_equal(got[1], s["ph"])
 
 
-@pytest.mark.parametrize("gamma", [0.0, 0.12], ids=["bcs", "dynes"])
-def test_blocked_analytic_kernel_walk_reproduces_plain_version(gamma):
-    s = _analytic_setup(72, gamma, seed=9, ny=1, nx=38)  # one ragged tile
+@pytest.mark.parametrize("ne,gamma", [(72, 0.0), (72, 0.12), (100, 0.0), (65, 0.12)],
+                         ids=["bcs", "dynes", "100-bcs", "65-dynes"])
+def test_blocked_analytic_kernel_walk_reproduces_plain_version(ne, gamma):
+    s = _analytic_setup(ne, gamma, seed=9, ny=1, nx=38)  # one ragged tile
     tables = build_column_tables(s["plan"], s["tab"])
     g = np.random.default_rng(6).uniform(0, 1e-6, (1, 38))
     want = _port(collision_step_analytic_plain, s["plan"], s["tab"], q=s["q"], ph=s["ph"], gen=g)

@@ -200,6 +200,20 @@ def test_more_than_eight_gap_tables_walk_the_columns_with_int32_ids():
         _close(np.asarray(a).reshape(b.shape), b.numpy())
 
 
+def test_thirty_two_member_tables_walk_the_columns_with_int32_ids():
+    """32 per-member tables (a film ensemble's member τ), the tile's ids mixed."""
+    _, tplan, q, ph, gid = _plans(32, seed=5)
+    tables = build_column_tables(tplan)
+    assert tables.rho.shape[0] == 32
+    # member ids at up to 16 bins launch two pixels a lane, as a uniform gap does
+    pixels = column_pixels(torch.float32, NE, q[0].size, uniform=False)
+    assert pixels == 2 == column_pixels(torch.float32, NE, q[0].size)
+    want = tc.collision_step_plain(tplan, torch.as_tensor(q), torch.as_tensor(ph), 0.05)
+    got = transcribe(tables, q, ph, None, 0.05, True, pixels)
+    for a, b in zip(got, want):
+        _close(np.asarray(a).reshape(b.shape), b.numpy())
+
+
 def test_builders_and_make_collision_step_run_plain_on_the_cpu_and_launch_nothing():
     from qpsim_tpu_torch.ops import collisions_cuda
 

@@ -15,8 +15,8 @@ column walk ``collision_step_loop_plain``:
 * each walk against K3's plain version (``collision_step_plain``), the same
   function, at NE 100 and at split diagonals;
 * the CUDA kernel's walk (``csrc/offset_walk.cu``: tiles of 32·P pixels
-  staged [NE][32·P], bins and ω rows strided over 8 warps, per-row column
-  lists) through the NumPy transcription of
+  staged [NE][32·P], the register-blocked walk's dense tables and order,
+  per-row column lists) through the NumPy transcription of
   ``tests/column_walk_transcription.py``;
 * the wrappers on the CPU launch nothing, and the modules import no JAX.
 """
@@ -287,7 +287,8 @@ def test_walk_equals_k3_plain_version(ne, gaps, builder):
 def _walk_transcription(walk, tables, q, ph):
     """``csrc/offset_walk.cu`` in NumPy (``tests/column_walk_transcription.py``)
     at the float32 launch's pixels per lane, without a generation plane."""
-    pixels = column_pixels(torch.float32, walk.num_energy_bins, np.size(q) // walk.num_energy_bins)
+    pixels = column_pixels(torch.float32, walk.num_energy_bins, np.size(q) // walk.num_energy_bins,
+                           uniform=walk.gap_id is None)
     return transcribe(tables, q, ph, None, walk.dt, walk.update_phonons, pixels)
 
 
@@ -295,9 +296,13 @@ def _walk_transcription(walk, tables, q, ph):
     "ne,gaps,builder,scattering,recombination,phonons",
     [(16, (180.0,), "loop", True, True, True), (16, (150.0, 165.0, 180.0), "loop", True, True, True),
      (16, (180.0,), "loop", False, True, True), (11, (180.0,), "rows", True, True, True),
-     (11, (180.0,), "rows", True, False, False), (72, (180.0,), "loop", True, True, True)],
+     (11, (180.0,), "rows", True, False, False), (72, (180.0,), "loop", True, True, True),
+     (100, (180.0,), "loop", True, True, True), (100, (150.0, 165.0, 180.0), "loop", True, True, True),
+     (66, (180.0,), "rows", True, True, True), (72, (180.0,), "rows", True, True, False),
+     (24, (180.0,), "loop", False, True, True)],
     ids=["loop", "loop-gap_ids", "loop-recombination", "rows-split", "rows-scattering-frozen",
-         "loop-72-shared_rows"],
+         "loop-72-shared_rows", "loop-100", "loop-100-gap_ids", "rows-66-split",
+         "rows-72-frozen", "loop-24-recombination"],
 )
 def test_kernel_walk_reproduces_the_plain_version(ne, gaps, builder, scattering, recombination, phonons):
     # a full tile of 32·P pixels and a ragged one
@@ -315,6 +320,8 @@ def test_kernel_walk_reproduces_the_plain_version(ne, gaps, builder, scattering,
     tables = step.tables(torch.float64)
     got = _walk_transcription(step.walk, tables, s["q"], s["ph"])
     _close(got, _run(step, s), 1e-12, 1e-12)
+    if not phonons:
+        np.testing.assert_array_equal(got[1], s["ph"])
 
 
 # ---------------------------------------------------------------- devices, launches, imports

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the collision kernels beyond 64 bins of one or more checkouts, in turns, on one NVIDIA GPU.
+"""Time the column walk's kernels of one or more checkouts, in turns, on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 tools/time_blocked.py TREE [TREE ...]
 
@@ -7,12 +7,20 @@ Each TREE is the root of a checkout (its ``chip_smoke.py`` and
 ``qpsim_tpu_torch``).  The trees are timed one after the other, each in a
 process of its own that builds that tree's kernels, so two versions are
 compared on one card in one call (give them as parent, change, change,
-parent).  Each process takes ``chip_smoke.collision_setup``'s inputs
-(float32, with the dt·g plane): K5, K5 with random G = 3 gap ids and K6 at
-1024² × 100 (NW 299), and K5 at 1024² × 256 (NW 767), checks each against
-its plain version at 1024² × 100 and times it with CUDA events after a
-warm-up.  It prints one line per tree and kernel and a closing table with
-the card's name and power limit.
+parent).  Each process times every kernel row of PERF.md §6 that
+``csrc/offset_walk.cu`` serves, at the row's shape, on ``chip_smoke``'s
+inputs (``collision_setup`` with the dt·g plane, ``walk_step`` without),
+with CUDA events after a warm-up: K5, K5 with random G = 3 gap ids, with
+the trap disc's ids and K6 at 1024² × 100 (NW 299), K5 there in float64
+too, K5 at 1024² × 256 (float32 and float64) and × 512 (staged), the
+device-memory form at 128² × 512 in float64 and 128² × 1024, K5 with the
+trap's ids and K6 at 512² × 300, K6 on one shard's 128 × 512 × 100, K8
+(uniform, gap ids) at 1024² × 100 and × 256, K9 at 1024² × 72 and × 16,
+K3's column walk on the 1 × 16 strip at 24 bins and the 1 × 4096 film at
+64, and K5 with the 32 member ids of a film ensemble (32 × 64² × 8).  K5
+at 1024² × 100 is checked against its plain version first.  It prints one
+line per tree and kernel and a closing table with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -22,8 +30,65 @@ import subprocess
 import sys
 from pathlib import Path
 
-KERNELS = (("K5", 100, "uniform", 5), ("K5 gap ids", 100, "gid", 5), ("K6", 100, "analytic", 5),
-           ("K5", 256, "uniform", 3))
+import numpy as np
+
+
+def rows(cs, torch):
+    """(label, reps, make): ``make()`` returns a no-argument call of the kernel."""
+    F32, F64 = torch.float32, torch.float64
+
+    def blocked(ne, n, dtype, kind="uniform"):
+        def make():
+            kern, *_, q, ph, gen = cs.collision_setup(ne, n, dtype, kind=kind, blocked=True)
+            return lambda: kern(q, ph, 0.05, gen)
+        return make
+
+    def k3(ne, n):
+        def make():
+            kern, *_, q, ph, _ = cs.collision_setup(ne, n, F32)
+            return lambda: kern(q, ph, 0.05, None)
+        return make
+
+    def walk(form, ne, kind="uniform"):
+        def make():
+            *_, q, ph, _ = cs.collision_setup(ne, 1024, F32, kind=kind if kind != "gid9" else "uniform")
+            step = cs.walk_step(form, ne, 1024, kind=kind)
+            return lambda: step(q, ph)
+        return make
+
+    def ensemble():
+        from qpsim_tpu_torch.parallel import build_film_ensemble
+
+        ens = build_film_ensemble(n_members=32, member_shape=(64, 64), num_energy_bins=8,
+                                  tau_r=np.linspace(200.0, 700.0, 32), tau_s=np.linspace(300.0, 600.0, 32))
+        q, ph = ens.to_device(*cs.ensemble_state(ens))
+        step = ens.collision_half
+        return lambda: step(q, ph)
+
+    return [
+        ("K5 1024²×100", 5, blocked(100, 1024, F32)),
+        ("K5 gap ids 1024²×100", 5, blocked(100, 1024, F32, "gid")),
+        ("K5 gap ids trap 1024²×100", 5, blocked(100, 1024, F32, "trap")),
+        ("K6 1024²×100", 5, blocked(100, 1024, F32, "analytic")),
+        ("K5 f64 1024²×100", 3, blocked(100, 1024, F64)),
+        ("K6 f64 1024²×100", 3, blocked(100, 1024, F64, "analytic")),
+        ("K5 1024²×256", 2, blocked(256, 1024, F32)),
+        ("K5 f64 1024²×256", 1, blocked(256, 1024, F64)),
+        ("K5 1024²×512 staged", 1, blocked(512, 1024, F32)),
+        ("K5 device f64 128²×512", 2, blocked(512, 128, F64)),
+        ("K5 device 128²×1024", 2, blocked(1024, 128, F32)),
+        ("K5 gap ids trap 512²×300", 2, blocked(300, 512, F32, "trap")),
+        ("K6 512²×300", 2, blocked(300, 512, F32, "analytic")),
+        ("K6 shard 128×512×100", 10, blocked(100, (128, 512), F32, "analytic")),
+        ("K8 1024²×100", 5, walk("loop", 100)),
+        ("K8 gap ids 1024²×100", 5, walk("loop", 100, "gid")),
+        ("K8 1024²×256", 2, walk("loop", 256)),
+        ("K9 1024²×72", 5, walk("rows", 72)),
+        ("K9 1024²×16", 10, walk("rows", 16)),
+        ("K3 column walk 1×16×24", 50, k3(24, (1, 16))),
+        ("K3 column walk 1×4096×64", 50, k3(64, (1, 4096))),
+        ("K5 gap ids ensemble 32 ids", 20, ensemble),
+    ]
 
 
 def child(tree: str) -> None:
@@ -34,21 +99,19 @@ def child(tree: str) -> None:
 
     assert Path(cs.__file__).resolve().parent == Path(tree).resolve(), cs.__file__
     cs.phase_build()
+    kern, plain, _, _, q, ph, gen = cs.collision_setup(100, 1024, torch.float32, blocked=True)
+    got, ref = kern(q, ph, 0.05, gen), plain(q, ph, 0.05, gen)
+    torch.cuda.synchronize()
+    cs.check("K5 NE=100 1024² float32 against its plain version",
+             max(cs.scaled_err(got[0], ref[0]), cs.scaled_err(got[1], ref[1])),
+             cs.blocked_tol(torch.float32, 100))
+    del kern, plain, q, ph, gen, got, ref
     out = {}
-    for name, ne, kind, reps in KERNELS:
-        kern, plain, _, _, q, ph, gen = cs.collision_setup(ne, 1024, torch.float32, kind=kind,
-                                                            blocked=True)
-        got = kern(q, ph, 0.05, gen)
-        if ne == 100:
-            ref = plain(q, ph, 0.05, gen)
-            torch.cuda.synchronize()
-            cs.check(f"{name} NE={ne} 1024² float32", max(cs.scaled_err(got[0], ref[0]),
-                                                           cs.scaled_err(got[1], ref[1])),
-                     cs.blocked_tol(torch.float32, ne))
-            del ref
-        out[f"{name} NE={ne}"] = cs.time_ms(lambda: kern(q, ph, 0.05, gen), reps)
-        print(f"  {tree}: {name} NE={ne} 1024² float32 {out[f'{name} NE={ne}']:.4f} ms", flush=True)
-        del kern, plain, q, ph, gen, got
+    for label, reps, make in rows(cs, torch):
+        call = make()
+        out[label] = cs.time_ms(call, reps)
+        print(f"  {tree}: {label} {out[label]:.4f} ms", flush=True)
+        del call
         torch.cuda.empty_cache()
     print("RESULT " + json.dumps(out), flush=True)
 
@@ -59,8 +122,8 @@ def main(trees: list[str]) -> int:
     results = []
     for tree in trees:
         proc = subprocess.run([sys.executable, __file__, "--child", tree], capture_output=True,
-                              text=True, timeout=900)
-        sys.stdout.write(proc.stdout[-4000:])
+                              text=True, timeout=1500)
+        sys.stdout.write(proc.stdout[-6000:])
         if proc.returncode != 0:
             sys.stdout.write(proc.stderr[-4000:])
             raise SystemExit(f"{tree}: exit {proc.returncode}")
@@ -69,6 +132,7 @@ def main(trees: list[str]) -> int:
     print(f"== kernel ms, in the order run — {card}")
     for tree, res in results:
         print(f"  {tree:>20}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()))
+    print("RESULTS " + json.dumps(dict(card=card, results=results)))
     return 0
 
 
