@@ -34,7 +34,7 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   added on its own first, as in the JAX program); custom traced: q +
   dt·g(t) evaluated on the device, its flags stacked with the Pauli
   statistics; custom host: the runner adds the host-evaluated dt·g and
-  calls :attr:`EngineProgram.single_step` once per step.
+  runs one segment of one step per step.
 * photon drive (Fischer 2024) — each step, after the generation injection
   and before the leading collision half (at every seam of the merged
   composition), each tone's exponential substep in order, inside its own
@@ -43,9 +43,12 @@ Dispatch (mirrors ``program_build.py:67-231`` and
   torch (``ops.photon_drive``); a step outside a tone's window is the
   identity on a non-negative state, computed as its ``max(q, 0)``.
 * mesh — the mesh branch (``program_build.py:492-690`` of the JAX
-  package, :func:`_mesh_program`): one rows-sharded step of
+  package, :func:`_mesh_step_ops`): one rows-sharded step of
   ``parallel.sharded`` per segment dt, which builds its own collision
   tables and local solves; the runner's state is a list of shards.
+* the segment loop (:func:`_segment_runners`) is written once, over the
+  step operations of one segment dt (:class:`_StepOps`) that the single
+  device and the mesh each build from their own pieces.
 """
 
 from __future__ import annotations
@@ -97,15 +100,12 @@ class EngineProgram:
     #: of the uniform modes' host flags
     segment_runner: Callable
     pauli_stats: Callable[[torch.Tensor], torch.Tensor]
-    #: seg_dt -> one(q, ph, t) -> (q, ph, stats): one step after a host-mode
-    #: generation add (photon substep, then the Strang step), ``t`` the host time
-    single_step: Callable
     #: the generation is evaluated on the host every step
     host_gen: bool
     #: a whole state → the runner's state (this process's shards on a mesh)
-    shard: Callable = lambda x: x
+    shard: Callable
     #: the runner's state → the whole state (every shard, gathered)
-    gather: Callable = lambda x: x
+    gather: Callable
 
 
 def build_engine_program(
@@ -168,6 +168,10 @@ def build_engine_program(
     # continuous gap maps (more gaps than the gap-id tables take): exact
     # per-pixel constants from Δ² (K4, K6), no per-gap stacks
     analytic = use_kernel and int(unique_gaps.size) > MAX_GAP_IDS
+    if analytic or mesh is not None:
+        # the dense Δ plane of the per-pixel kernels and of a mesh's gap map
+        gap_plane = np.full((ny, nx), gap, dtype=np.float64)
+        gap_plane[mask] = gap_values
     kernel = (collision_kernel_for(num_energy_bins, int(unique_gaps.size))
               if use_kernel and mesh is None else None)
 
@@ -196,7 +200,7 @@ def build_engine_program(
     # --- collision data ------------------------------------------------------
     with span("qpsim.build.collisions"):
         pmap = build_phonon_frequency_map(E_bins)
-        plan = atab = rho_by_gap = None
+        plan = atab = rho_by_gap = mesh_collisions = None
         if not collisions_on or (mesh is not None and unique_gaps.size > MAX_GAP_IDS):
             # only the Pauli ρ plane, vectorised over pixels (a mesh's sharded
             # step builds its own collision tables)
@@ -206,8 +210,6 @@ def build_engine_program(
                 [dynes_density_of_states(E_bins, float(g), dynes_gamma) for g in unique_gaps]
             )
         elif analytic:
-            gap_plane = np.full((ny, nx), gap, dtype=np.float64)
-            gap_plane[mask] = gap_values
             plan, atab = build_analytic_plan(
                 E_bins=E_bins, dE=dE, gap_plane=gap_plane, pmap=pmap,
                 tau_s=tau_s_eff if enable_scattering else None,
@@ -247,6 +249,24 @@ def build_engine_program(
                 pixel_chunk=pixel_chunk,
                 gap_id=gap_id,
             )
+        if mesh is not None and collisions_on:
+            # what the sharded step builds its tables from: the kernels of the
+            # one gap, or the dense gap plane
+            mesh_collisions = dict(
+                E_bins=E_bins, dE=dE, pmap=pmap, enable_recombination=enable_recombination,
+                enable_scattering=enable_scattering, update_phonons=not freeze_phonon_dynamics,
+                pixel_chunk=pixel_chunk,
+            )
+            if unique_gaps.size == 1:
+                g0 = float(unique_gaps[0])
+                mesh_collisions.update(
+                    rho=rho_by_gap[0],
+                    K_r0=recombination_kernel_base(E_bins, g0, tau_r_eff, T_c) if enable_recombination else None,
+                    K_s0=scattering_kernel_base(E_bins, g0, tau_s_eff, T_c) if enable_scattering else None,
+                )
+            else:
+                mesh_collisions.update(gap_plane=gap_plane, tau_s=tau_s_eff, tau_r=tau_r_eff, T_c=T_c,
+                                       dynes_gamma=dynes_gamma)
         step = tables = None
         if kernel is not None:
             step, build_tables = KERNEL_STEPS[kernel]
@@ -283,7 +303,6 @@ def build_engine_program(
             "host boundary to evaluate it at.  Use strang_mode='exact' (or a "
             "traceable expression)."
         )
-    np_t = numpy_dtype(dtype)
 
     # --- photon drive (Fischer 2024 pair-breaking photons) ---------------------
     # One exponential substep per tone, applied in order after the
@@ -350,6 +369,8 @@ def build_engine_program(
     # the uniform modes' dt·g plane rides the collision call that opens a
     # step, unless the photon substep has to sit between the two
     fuse_gen = gen.scalar_amp and collisions_on and not photon_on
+    # the merged composition needs both halves of the Strang step
+    merges = strang_mode == "merged" and collisions_on and enable_diffusion
 
     def make_col(dt_col: float):
         if not collisions_on:
@@ -363,43 +384,95 @@ def build_engine_program(
             )
         return lambda q, ph, grow=None: collision_step_plain(plan, q, ph, dt_col, grow)
 
-    def strang_step(q, ph, col_half, col_full, diff_step, grow=None):
-        """One step after its injections: C(dt/2) D(dt) C(dt/2), or the parts that are on."""
-        if collisions_on and diff_step is not None:
-            q, ph = col_half(q, ph, grow)
-            q = diff_step(q)
-            q, ph = col_half(q, ph)
-        elif collisions_on:
-            q, ph = col_full(q, ph, grow)
-        elif diff_step is not None:
-            q = diff_step(q)
-        return q, ph
+    def step_ops(seg_dt: float) -> _StepOps:
+        col_half, col_full = make_col(0.5 * seg_dt), make_col(seg_dt)
+        diffuse = backend.make_step(seg_dt) if backend is not None else None
 
-    seg_cache: dict[tuple[float, int], Callable] = {}
+        def exact(q, ph, grow=None):
+            """C(dt/2) D(dt) C(dt/2), or the parts that are on."""
+            if collisions_on and diffuse is not None:
+                q, ph = col_half(q, ph, grow)
+                q = diffuse(q)
+                return col_half(q, ph)
+            if collisions_on:
+                return col_full(q, ph, grow)
+            return (q if diffuse is None else diffuse(q)), ph
 
-    if mesh is not None:
-        return _mesh_program(
-            mesh=mesh, mesh_y_solve=mesh_y_solve, op=op if enable_diffusion else None, dx=dx,
-            dtype=dtype, device=device, pmap=pmap, E_bins=E_bins, dE=dE, gap=gap, mask=mask,
-            unique_gaps=unique_gaps, gap_values=gap_values, rho_by_gap=rho_by_gap,
-            rho_state=rho_state, pauli_stats=pauli_stats, pauli_density_floor=pauli_density_floor,
-            enable_recombination=enable_recombination, enable_scattering=enable_scattering,
-            dynes_gamma=dynes_gamma, tau_s_eff=tau_s_eff, tau_r_eff=tau_r_eff, T_c=T_c,
-            freeze_phonon_dynamics=freeze_phonon_dynamics, pixel_chunk=pixel_chunk, gen=gen, strang_mode=strang_mode, np_t=np_t,
-            photon_on=photon_on, make_photon_apply=make_photon_apply, mask_plane=mask_plane,
-            photon_aux=photon_aux,
+        return _StepOps(
+            col_half=col_half, col_full=col_full, diffuse=diffuse, exact=exact,
+            plane=gen.plane, add_plane=lambda q, plane: q + plane[None], add_traced=gen.add,
+            photon=make_photon_apply(seg_dt) if photon_on else None, stats=pauli_stats,
         )
+
+    shard = gather = lambda x: x
+    if mesh is not None:
+        from ..parallel.sharded import build_sharded_step
+
+        sharded_step = lambda seg_dt: build_sharded_step(
+            mesh, op, seg_dt, dx=dx, collisions=mesh_collisions, dtype=dtype,
+            gen_input=fuse_gen, pieces=merges, y_solve=mesh_y_solve,
+        )
+        step_ops, shard, gather = _mesh_step_ops(
+            mesh, sharded_step, gen=gen, make_photon=make_photon_apply if photon_on else None,
+            mask_plane=mask_plane, photon_aux=photon_aux, rho_state=rho_state,
+            pauli_density_floor=pauli_density_floor,
+        )
+    return EngineProgram(
+        pmap=pmap,
+        segment_runner=_segment_runners(step_ops, gen, fuse_gen, merges, dtype, device),
+        pauli_stats=pauli_stats,
+        host_gen=gen.host_mode,
+        shard=shard,
+        gather=gather,
+    )
+
+
+@dataclass
+class _StepOps:
+    """One segment dt's step operations on the runner's state: the whole state, or a mesh's
+    list of shards.  ``grow`` is the dt·g plane a collision call fuses (its shards on a mesh)."""
+
+    col_half: Callable  # (q, ph, grow=None) -> (q, ph): C(dt/2)
+    col_full: Callable  # (q, ph, grow=None) -> (q, ph): C(dt)
+    diffuse: Callable | None  # q -> q: D(dt)
+    exact: Callable  # (q, ph, grow=None) -> (q, ph): the Strang step after its injections
+    plane: Callable  # (seg_dt, t) -> (dt·g plane, nonfinite, negative): the uniform modes
+    add_plane: Callable  # (q, plane) -> q + plane
+    add_traced: Callable  # (q, seg_dt, t_dev) -> (q + dt·g(t), nonfinite, negative) on the device
+    photon: Callable | None  # (q, t) -> q: every tone's substep at host time t
+    stats: Callable  # q -> (4,) Pauli statistics
+
+
+def _segment_runners(step_ops: Callable[[float], _StepOps], gen, fuse_gen: bool, merges: bool,
+                     dtype, device) -> Callable:
+    """``segment_runner(seg_dt, length)`` (see :class:`EngineProgram`): the segment loop over
+    ``step_ops(seg_dt)``, built once per ``(seg_dt, length)``.
+
+    Each step first injects its generation (the uniform modes' dt·g plane, fused into the
+    collision call that follows where ``fuse_gen``, else added; a traced expression's
+    q + dt·g(t) with its device flags) and then its photon substeps.  Exact: the Strang step
+    after them.  Merged (``merges``, segments longer than one step): C(dt/2) [D C(dt)]^(L-1) D C(dt/2), the trailing half-step of each
+    Strang step fused with the next step's leading half; step k's injections ride its seam,
+    just before the fused C(dt) the exact composition would split around, and its flags fold
+    into slot k - 1 (step 0's and step 1's into slot 0).
+    """
+    np_t = numpy_dtype(dtype)
+    ops_by_dt: dict[float, _StepOps] = {}
+    runners: dict[tuple[float, int], Callable] = {}
+    scalar_amp, traced = gen.scalar_amp, gen.traced_fn is not None
 
     def segment_runner(seg_dt: float, length: int):
         key = (seg_dt, length)
-        if key in seg_cache:
-            return seg_cache[key]
-        col_half = make_col(0.5 * seg_dt)
-        col_full = make_col(seg_dt)
-        diff_step = backend.make_step(seg_dt) if backend is not None else None
-        photon_apply = make_photon_apply(seg_dt) if photon_on else None
-        merged = strang_mode == "merged" and collisions_on and diff_step is not None and length > 1
-        traced = gen.traced_fn is not None
+        if key in runners:
+            return runners[key]
+        if seg_dt not in ops_by_dt:
+            ops_by_dt[seg_dt] = step_ops(seg_dt)
+        ops = ops_by_dt[seg_dt]
+        # locals, not attributes: the loop reads them every step
+        col_half, col_full, diffuse, exact = ops.col_half, ops.col_full, ops.diffuse, ops.exact
+        plane_of, add_plane, add_traced, photon, stats_of = (
+            ops.plane, ops.add_plane, ops.add_traced, ops.photon, ops.stats)
+        merged = merges and length > 1
 
         def run(q, ph, t_start: float):
             # in-segment times in the state dtype: t_k = t0 + k·dt, on the
@@ -414,48 +487,38 @@ def build_engine_program(
             )
             flags = np.zeros((length, 2), dtype=bool)
             dev_flags: list = [None] * length
-
-            def inject(q, k, slot):
-                """Step k's generation and photon substeps; its flags go to ``slot``.
-                Returns q and the plane the collision call fuses (or None)."""
+            stats: list[torch.Tensor] = []
+            for k in range(length):
+                seam = merged and k > 0
+                if seam:
+                    q = diffuse(q)
+                slot = k - 1 if seam else k
                 grow = None
-                if gen.scalar_amp:
-                    plane, nf, ng = gen.plane(seg_dt, times[k])
+                if scalar_amp:
+                    plane, nf, ng = plane_of(seg_dt, times[k])
                     flags[slot] |= (nf, ng)
                     if fuse_gen:
                         grow = plane
                     else:
-                        q = q + plane[None]
+                        q = add_plane(q, plane)
                 elif traced:
-                    q, nf, ng = gen.add(q, seg_dt, t_dev[k])
+                    q, nf, ng = add_traced(q, seg_dt, t_dev[k])
                     row = torch.stack([nf, ng])
                     dev_flags[slot] = row if dev_flags[slot] is None else dev_flags[slot] | row
-                if photon_apply is not None:
-                    q = photon_apply(q, times[k])
-                return q, grow
-
-            stats: list[torch.Tensor] = []
-            if merged:
-                # C(dt/2) [D C(dt)]^(L-1) D C(dt/2): the trailing half-step of
-                # each Strang step is fused with the next step's leading half.
-                # Step k's injections (generation, photons) ride its seam, just
-                # before the fused C(dt) the exact composition would split
-                # around; step 1's flags fold into slot 0.
-                q, grow = inject(q, 0, 0)
-                q, ph = col_half(q, ph, grow)
-                for k in range(length - 1):
-                    q = diff_step(q)
-                    q, grow = inject(q, k + 1, k)
+                if photon is not None:
+                    q = photon(q, times[k])
+                if not merged:
+                    q, ph = exact(q, ph, grow)
+                    stats.append(stats_of(q))
+                elif seam:
                     q, ph = col_full(q, ph, grow)
-                    stats.append(pauli_stats(q))
-                q = diff_step(q)
+                    stats.append(stats_of(q))
+                else:
+                    q, ph = col_half(q, ph, grow)
+            if merged:
+                q = diffuse(q)
                 q, ph = col_half(q, ph)
-                stats.append(pauli_stats(q))
-            else:
-                for k in range(length):
-                    q, grow = inject(q, k, k)
-                    q, ph = strang_step(q, ph, col_half, col_full, diff_step, grow)
-                    stats.append(pauli_stats(q))
+                stats.append(stats_of(q))
             stats_t = torch.stack(stats)
             if traced:
                 zero = torch.zeros(2, dtype=torch.bool, device=device)
@@ -463,36 +526,10 @@ def build_engine_program(
                 stats_t = torch.cat([stats_t, rows.to(stats_t.dtype)], dim=1)
             return q, ph, stats_t, flags
 
-        seg_cache[key] = run
+        runners[key] = run
         return run
 
-    single_cache: dict[float, Callable] = {}
-
-    def single_step(seg_dt: float):
-        """One step after the runner's host-mode generation add: the photon
-        substep at host time ``t``, then the Strang step."""
-        if seg_dt not in single_cache:
-            col_half = make_col(0.5 * seg_dt)
-            col_full = make_col(seg_dt)
-            diff_step = backend.make_step(seg_dt) if backend is not None else None
-            photon_apply = make_photon_apply(seg_dt) if photon_on else None
-
-            def one(q, ph, t: float):
-                if photon_apply is not None:
-                    q = photon_apply(q, np_t(t))
-                q, ph = strang_step(q, ph, col_half, col_full, diff_step)
-                return q, ph, pauli_stats(q)
-
-            single_cache[seg_dt] = one
-        return single_cache[seg_dt]
-
-    return EngineProgram(
-        pmap=pmap,
-        segment_runner=segment_runner,
-        pauli_stats=pauli_stats,
-        single_step=single_step,
-        host_gen=gen.host_mode,
-    )
+    return segment_runner
 
 
 def _combine_pauli(rows: torch.Tensor) -> torch.Tensor:
@@ -507,61 +544,21 @@ def _combine_pauli(rows: torch.Tensor) -> torch.Tensor:
     return torch.stack([mx, first, fany, torch.where(fany > 0, fidx, torch.zeros_like(fidx))])
 
 
-def _mesh_program(*, mesh, mesh_y_solve, op, dx, dtype, device, pmap, E_bins, dE, gap, mask,
-                  unique_gaps, gap_values, rho_by_gap, rho_state, pauli_stats, pauli_density_floor,
-                  enable_recombination, enable_scattering, dynes_gamma, tau_s_eff, tau_r_eff, T_c,
-                  freeze_phonon_dynamics, pixel_chunk, gen, strang_mode, np_t,
-                  photon_on, make_photon_apply, mask_plane, photon_aux) -> EngineProgram:
-    """The engine program over a mesh: the hot loop on :mod:`..parallel.sharded` steps.
+def _mesh_step_ops(mesh, sharded_step, *, gen, make_photon, mask_plane, photon_aux, rho_state,
+                   pauli_density_floor) -> tuple[Callable, Callable, Callable]:
+    """The step operations over a mesh: ``(step_ops, shard, gather)``.
 
-    The same C(dt/2) D(dt) C(dt/2) composition (and, merged, the sharded
-    step's pieces), with one ``ShardedStep`` per segment ``dt``, whose
-    collision kernels are the ``'auto'`` backend's (the JAX package's mesh
-    branch takes no ``collision_backend`` either).  The
-    generation plane and the photon substep act on each shard's rows; the
-    Pauli statistics are taken per shard and reduced over the shards
-    (largest occupation, first index), and the mass over the grid, as
-    ``psum`` does.  The runner's state is this process's list of shards.
+    ``sharded_step(seg_dt)`` is one rows-sharded step of :mod:`..parallel.sharded`, whose
+    collision kernels are the ``'auto'`` backend's (the JAX package's mesh branch takes no
+    ``collision_backend`` either); its pieces make up the merged composition.  The
+    generation plane and the photon substep (``make_photon(seg_dt)``, the single device's)
+    act on each shard's rows; the Pauli statistics are taken per shard and reduced over
+    the shards (largest occupation, first index).  The runner's state is this process's
+    list of shards.
     """
     from ..parallel.mesh import SPACE_AXIS, StateSharding
-    from ..parallel.sharded import build_sharded_step
 
-    ny, nx = mask.shape
-    collisions_on = bool(enable_recombination or enable_scattering)
-    mesh_collisions = None
-    if collisions_on and int(unique_gaps.size) == 1:
-        g0 = float(unique_gaps[0])
-        mesh_collisions = dict(
-            E_bins=E_bins, dE=dE, rho=rho_by_gap[0], pmap=pmap,
-            K_r0=recombination_kernel_base(E_bins, g0, tau_r_eff, T_c) if enable_recombination else None,
-            K_s0=scattering_kernel_base(E_bins, g0, tau_s_eff, T_c) if enable_scattering else None,
-            enable_recombination=enable_recombination, enable_scattering=enable_scattering,
-            update_phonons=not freeze_phonon_dynamics, pixel_chunk=pixel_chunk,
-        )
-    elif collisions_on:
-        gap_plane = np.full((ny, nx), gap, dtype=np.float64)
-        gap_plane[mask] = gap_values
-        mesh_collisions = dict(
-            E_bins=E_bins, dE=dE, pmap=pmap, gap_plane=gap_plane, tau_s=tau_s_eff, tau_r=tau_r_eff,
-            T_c=T_c, dynes_gamma=dynes_gamma, enable_recombination=enable_recombination,
-            enable_scattering=enable_scattering, update_phonons=not freeze_phonon_dynamics,
-            pixel_chunk=pixel_chunk,
-        )
-
-    # the uniform modes' dt·g plane rides the sharded step (fused into the
-    # collision kernel, or pre-added there), unless a photon drive is on
-    fuse_gen = gen.scalar_amp and not photon_on
-    merged_mesh = strang_mode == "merged" and collisions_on
-    sharded_cache: dict = {}
-
-    def get_sharded(seg_dt: float):
-        if seg_dt not in sharded_cache:
-            sharded_cache[seg_dt] = build_sharded_step(
-                mesh, op, seg_dt, dx=dx, collisions=mesh_collisions, dtype=dtype,
-                gen_input=fuse_gen, pieces=merged_mesh, y_solve=mesh_y_solve,
-            )
-        return sharded_cache[seg_dt]
-
+    _, ny, nx = rho_state.shape
     rows = StateSharding(mesh)
     ex = mesh.exchange
     m = ny // mesh.shape[SPACE_AXIS]
@@ -575,111 +572,41 @@ def _mesh_program(*, mesh, mesh_y_solve, op, dx, dtype, device, pmap, E_bins, dE
             glob = lambda idx: (torch.div(idx, m * nx, rounding_mode="floor") * (ny * nx)
                                 + s * m * nx + torch.remainder(idx, m * nx))
             local.append(torch.stack([st[0], glob(st[1]), st[2], glob(st[3])]))
-        return _combine_pauli(ex.all_gather(local)[0]).to(device)
+        return _combine_pauli(ex.all_gather(local)[0]).to(rho_state.device)
 
     plane_shards: dict[int, list] = {}
 
-    def shard_plane(plane: torch.Tensor) -> list:
+    def shard_plane(seg_dt: float, t):
         # the generation program keeps one plane per dt·amp, so each is split once
+        plane, nf, ng = gen.plane(seg_dt, t)
         if id(plane) not in plane_shards:
             plane_shards[id(plane)] = rows.shard(plane)
-        return plane_shards[id(plane)]
+        return plane_shards[id(plane)], nf, ng
+
+    def add_traced(q: list, seg_dt: float, t_dev: torch.Tensor):
+        g = gen.traced_fn(t_dev)
+        return ([qi + seg_dt * gi for qi, gi in zip(q, rows.shard(g))], *gen.flags(g))
 
     mask_sh = rows.shard(mask_plane)
     aux_sh = list(zip(*(rows.shard(a) for a in photon_aux))) if photon_aux else [()] * len(mask_sh)
-    seg_cache: dict = {}
 
-    def segment_runner(seg_dt: float, length: int):
-        key = (seg_dt, length)
-        if key in seg_cache:
-            return seg_cache[key]
-        sh = get_sharded(seg_dt)
+    def step_ops(seg_dt: float) -> _StepOps:
+        sh = sharded_step(seg_dt)
         raw, src = sh.aux
-        merged = merged_mesh and length > 1 and sh.apply_diffuse is not None
-        photon_apply = make_photon_apply(seg_dt) if photon_on else None
-        traced = gen.traced_fn is not None
+        on_shards = None
+        if make_photon is not None:
+            apply = make_photon(seg_dt)
+            on_shards = lambda q, t: [apply(qi, t, w, a) for qi, w, a in zip(q, mask_sh, aux_sh)]
+        return _StepOps(
+            col_half=lambda q, ph, grow=None: (sh.apply_col_half(q, ph, raw) if grow is None
+                                               else sh.apply_col_half_gen(q, ph, grow, raw)),
+            col_full=lambda q, ph, grow=None: (sh.apply_col_full(q, ph, raw) if grow is None
+                                               else sh.apply_col_full_gen(q, ph, grow, raw)),
+            diffuse=lambda q: sh.apply_diffuse(q, raw, src),
+            exact=lambda q, ph, grow=None: (sh.apply(q, ph, raw, src) if grow is None
+                                            else sh.apply(q, ph, grow, raw, src))[:2],
+            plane=shard_plane, add_plane=lambda q, plane: [qi + p[None] for qi, p in zip(q, plane)],
+            add_traced=add_traced, photon=on_shards, stats=pauli_mesh,
+        )
 
-        def run(q, ph, t_start: float):
-            t0 = np_t(t_start)
-            times = [t0 + np_t(k) * np_t(seg_dt) for k in range(length)]
-            t_dev = (
-                torch.arange(length, dtype=dtype, device=device) * seg_dt
-                + torch.full((), float(t0), dtype=dtype, device=device)
-                if traced else None
-            )
-            flags = np.zeros((length, 2), dtype=bool)
-            dev_flags: list = [None] * length
-
-            def inject(q, k, slot):
-                """Step k's generation and photon substeps on every shard; the
-                shards' dt·g planes the sharded step fuses (or None)."""
-                grow = None
-                if gen.scalar_amp:
-                    plane, nf, ng = gen.plane(seg_dt, times[k])
-                    flags[slot] |= (nf, ng)
-                    if fuse_gen:
-                        grow = shard_plane(plane)
-                    else:
-                        q = [qi + p[None] for qi, p in zip(q, shard_plane(plane))]
-                elif traced:
-                    g = gen.traced_fn(t_dev[k])
-                    row = torch.stack(gen.flags(g))
-                    dev_flags[slot] = row if dev_flags[slot] is None else dev_flags[slot] | row
-                    q = [qi + seg_dt * gi for qi, gi in zip(q, rows.shard(g))]
-                if photon_apply is not None:
-                    q = [photon_apply(qi, times[k], w, a) for qi, w, a in zip(q, mask_sh, aux_sh)]
-                return q, grow
-
-            stats: list[torch.Tensor] = []
-            if merged:
-                # C(dt/2) [D C(dt)]^(L-1) D C(dt/2), injections at the seams
-                # as in the single-device runner
-                q, grow = inject(q, 0, 0)
-                q, ph = (sh.apply_col_half(q, ph, raw) if grow is None
-                         else sh.apply_col_half_gen(q, ph, grow, raw))
-                for k in range(length - 1):
-                    q = sh.apply_diffuse(q, raw, src)
-                    q, grow = inject(q, k + 1, k)
-                    q, ph = (sh.apply_col_full(q, ph, raw) if grow is None
-                             else sh.apply_col_full_gen(q, ph, grow, raw))
-                    stats.append(pauli_mesh(q))
-                q = sh.apply_diffuse(q, raw, src)
-                q, ph = sh.apply_col_half(q, ph, raw)
-                stats.append(pauli_mesh(q))
-            else:
-                for k in range(length):
-                    q, grow = inject(q, k, k)
-                    q, ph, _ = (sh.apply(q, ph, grow, raw, src) if fuse_gen
-                                else sh.apply(q, ph, raw, src))
-                    stats.append(pauli_mesh(q))
-            stats_t = torch.stack(stats)
-            if traced:
-                zero = torch.zeros(2, dtype=torch.bool, device=device)
-                flag_rows = torch.stack([zero if f is None else f for f in dev_flags])
-                stats_t = torch.cat([stats_t, flag_rows.to(stats_t.dtype)], dim=1)
-            return q, ph, stats_t, flags
-
-        seg_cache[key] = run
-        return run
-
-    single_cache: dict = {}
-
-    def single_step(seg_dt: float):
-        """One step after the runner's host-mode generation add."""
-        if seg_dt not in single_cache:
-            sh = get_sharded(seg_dt)
-            photon_apply = make_photon_apply(seg_dt) if photon_on else None
-
-            def one(q, ph, t: float):
-                if photon_apply is not None:
-                    q = [photon_apply(qi, np_t(t), w, a) for qi, w, a in zip(q, mask_sh, aux_sh)]
-                q, ph, _ = sh.apply(q, ph, *sh.aux)
-                return q, ph, pauli_mesh(q)
-
-            single_cache[seg_dt] = one
-        return single_cache[seg_dt]
-
-    return EngineProgram(
-        pmap=pmap, segment_runner=segment_runner, pauli_stats=pauli_stats, single_step=single_step,
-        host_gen=gen.host_mode, shard=rows.shard, gather=rows.gather,
-    )
+    return step_ops, rows.shard, rows.gather

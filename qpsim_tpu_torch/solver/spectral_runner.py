@@ -3,7 +3,7 @@
 Carried over from ``qpsim_tpu.solver.spectral_runner``: initial state
 assembly, Pauli policy enforcement, the snapshot pipeline (``full`` and
 on-device ``integrated`` detail), host-mode generation (one host
-evaluation, one add and one single step per step) and the depth-1 segment
+evaluation, one add and one one-step segment per step) and the depth-1 segment
 pipeline — each segment's statistics and stored state start their copy to
 the host right after the segment is enqueued, and are drained after the
 NEXT segment is enqueued, so the host's snapshot work overlaps the
@@ -19,6 +19,9 @@ state and reduced in float64 as the JAX package reduces its host state: on
 the host (:func:`light_on_host`), or, for an integrated-detail state on a
 card, by the snapshot kernel (``ops.snapshot_reduce_cuda``), which gives
 the same frames bit for bit and copies only its results to the host.
+Every stored frame — the first, a replayed one, a later one — goes the same
+way: the runner's ``start_frame`` chooses how it is reduced and starts its
+copy, and ``record`` keeps or streams the host result.
 
 With a ``checkpointer`` every stored snapshot's full state is saved (in
 light mode too: it is the resume data), and a rerun replays the aligned
@@ -80,6 +83,16 @@ def light_on_host(q_host, ph_host, mask, dE, phonon_widths) -> list:
         out[2] = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
         out[3] = np.sum(ph_interior, axis=1)
     return out
+
+
+class _OnHost(list):
+    """Host arrays already in hand (a replayed checkpoint's), read as a :class:`_HostCopy` is."""
+
+    def __init__(self, *arrays: np.ndarray | None):
+        super().__init__(arrays)
+
+    def get(self) -> list[np.ndarray | None]:
+        return self
 
 
 class _HostCopy:
@@ -313,8 +326,91 @@ def _run_energy_resolved(
     mass: list[float] = []
     running_limits = [float("inf"), float("-inf")]  # streaming-mode color limits
 
-    def keep_or_stream(t: float, frame: np.ndarray, m: float, **extra) -> None:
-        """Record one stored snapshot: stream it to the sink or keep it, never both."""
+    # light ("integrated") snapshots: the stored observables are reduced and
+    # only the reductions reach the host — the integrated 2D frame (already
+    # ×dE), per-bin pixel sums and, when recorded, the width-weighted phonon
+    # occupation frame and per-ω pixel sums
+    light = snapshot_detail == "integrated"
+    if light:
+        mask_f = torch.as_tensor(mask, dtype=dtype, device=device)
+        phw_d = (torch.as_tensor(phonon_widths, dtype=dtype, device=device)[:, None, None]
+                 if record_phonons else None)
+    # a light run's first frame is reduced in float64 where the state lies
+    first_on_card = light and q.is_cuda
+
+    def start_frame(q, ph, first: bool = False):
+        """Start one stored frame: choose how it is reduced, and start its copy to the host.
+
+        ``q``/``ph`` are the device state (a mesh's shards after the first frame) or a
+        replayed checkpoint's host arrays.  Returns ``(copy, finish)``, ``finish(copy.get())``
+        being ``(sums, state)``: the four light reductions (None in full detail) and the
+        host state a checkpoint saves.  A frame is reduced
+
+        * in full detail: on the host in float64 (``record``), from q and, where phonons are
+          recorded or the state checkpointed, ph;
+        * integrated, the first frame on a card: by the snapshot kernel, which gives the
+          frames of :func:`light_on_host` bit for bit;
+        * integrated, the first frame elsewhere: on the host by :func:`light_on_host`, as the
+          JAX package reduces its host state;
+        * integrated, a later frame: on the device in the state dtype.
+
+        A replayed frame is reduced as the run reduced it: from its host arrays where the
+        run reduced it on the host, else uploaded to the device.
+        """
+        if first:
+            FIRST_FRAMES["first_frames_on_card" if first_on_card else "first_frames_on_host"] += 1
+        replayed = isinstance(q, np.ndarray)
+        keep = checkpointer is not None and not replayed  # the full state IS the resume data
+        if not (first or replayed):
+            q, ph = prog.gather(q), prog.gather(ph)  # a mesh's shards, put together
+        if not light or (first and not first_on_card):
+            copy = _OnHost(q, ph) if replayed else _HostCopy(q, ph if record_phonons or keep else None)
+            if not light:
+                return copy, lambda host: (None, host)
+            return copy, lambda host: (
+                light_on_host(host[0], host[1] if record_phonons else None, mask, dE, phonon_widths), host)
+        if replayed:
+            q, ph = (None if a is None else torch.as_tensor(a, dtype=dtype, device=device) for a in (q, ph))
+        if first:
+            widths = torch.as_tensor(phonon_widths, device=q.device) if record_phonons else None
+            sums = snapshot_reduce(q.contiguous(), ph.contiguous() if record_phonons else None,
+                                   mask_d.contiguous(), widths, dE)
+        else:
+            # the sums run over a contiguous copy: their order then does not
+            # depend on the layout a step left the state in, so a state restored
+            # from a checkpoint reduces to the same bits
+            qm = q.contiguous() * mask_f  # anything outside the mask must not leak in
+            sums = [qm.sum(dim=0) * dE, qm.sum(dim=(1, 2)), None, None]
+            if record_phonons:
+                phm = ph.contiguous() * mask_f
+                sums[2:] = [(phm * phw_d).sum(dim=0), phm.sum(dim=(1, 2))]
+        return _HostCopy(*sums, *((q, ph) if keep else ())), lambda host: (host[:4], host[4:])
+
+    def record(t: float, sums, state: list) -> np.ndarray:
+        """Keep or stream one stored snapshot from its host result (``start_frame``'s
+        ``finish``): the light reductions, or in full detail the state, reduced here in
+        float64.  Returns its frame."""
+        if sums is not None:
+            integrated, bin_sums, ph_int, ph_bin_sums = (
+                None if a is None else np.asarray(a, dtype=np.float64) for a in sums)
+            frame = np.where(mask, integrated, np.nan)
+            m = float(np.sum(bin_sums) * dE * dx * dx)
+            extra = dict(
+                phonon_frame=None if ph_int is None else np.where(mask, ph_int, np.nan),
+                energy_bin_sums=bin_sums, phonon_bin_sums=ph_bin_sums,
+            )
+        else:
+            interior = state[0].astype(np.float64)[:, mask]
+            integrated = np.sum(interior, axis=0) * dE
+            frame = reconstruct_field(mask, integrated)
+            m = float(np.sum(integrated) * dx * dx)
+            extra = dict(energy_frames=[reconstruct_field(mask, interior[i]) for i in range(num_energy_bins)],
+                         phonon_frame=None, phonon_energy_frames=None)
+            if record_phonons and state[1] is not None:
+                ph_interior = state[1].astype(np.float64)[:, mask]
+                extra["phonon_frame"] = reconstruct_field(
+                    mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
+                extra["phonon_energy_frames"] = [reconstruct_field(mask, ph_interior[i]) for i in range(nw)]
         idx = len(times)
         times.append(float(t))
         mass.append(m)
@@ -322,107 +418,26 @@ def _run_energy_resolved(
             running_limits[0] = min(running_limits[0], float(np.nanmin(frame)))
             running_limits[1] = max(running_limits[1], float(np.nanmax(frame)))
             frame_sink.write(idx, float(t), frame=frame, mass=m, **extra)
-            return
+            return frame
         frames.append(frame)
-        if extra.get("energy_frames") is not None:
-            energy_frames.append(extra["energy_frames"])
-        if extra.get("phonon_frame") is not None:
-            phonon_frames_hist.append(extra["phonon_frame"])
-        if extra.get("phonon_energy_frames") is not None:
-            phonon_energy_frames_hist.append(extra["phonon_energy_frames"])
-
-    def emit(t: float, q_host: np.ndarray, ph_host: np.ndarray | None) -> np.ndarray:
-        """One stored snapshot from the full host state (float64)."""
-        interior = q_host[:, mask]
-        integrated = np.sum(interior, axis=0) * dE
-        frame = reconstruct_field(mask, integrated)
-        ph_frame = ph_eframes = None
-        if record_phonons and ph_host is not None:
-            ph_interior = ph_host[:, mask]
-            ph_frame = reconstruct_field(mask, np.sum(ph_interior * phonon_widths[:, None], axis=0))
-            ph_eframes = [reconstruct_field(mask, ph_interior[i]) for i in range(nw)]
-        keep_or_stream(
-            t, frame, float(np.sum(integrated) * dx * dx),
-            energy_frames=[reconstruct_field(mask, interior[i]) for i in range(num_energy_bins)],
-            phonon_frame=ph_frame, phonon_energy_frames=ph_eframes,
-        )
+        for hist, key in ((energy_frames, "energy_frames"), (phonon_frames_hist, "phonon_frame"),
+                          (phonon_energy_frames_hist, "phonon_energy_frames")):
+            if extra.get(key) is not None:
+                hist.append(extra[key])
         return frame
 
-    # light ("integrated") snapshots: the stored observables are reduced ON
-    # DEVICE and only the reductions cross to the host — the integrated 2D
-    # frame (already ×dE), per-bin pixel sums and, when recorded, the
-    # width-weighted phonon occupation frame and per-ω pixel sums
-    light = snapshot_detail == "integrated"
-    if light:
-        mask_f = torch.as_tensor(mask, dtype=dtype, device=device)
-        phw_d = (
-            torch.as_tensor(phonon_widths, dtype=dtype, device=device)[:, None, None]
-            if record_phonons
-            else None
-        )
+    stored_idx = -1  # the index of the last stored frame
 
-    def light_reduce(q_dev: torch.Tensor, ph_dev: torch.Tensor) -> list[torch.Tensor | None]:
-        # the sums run over a contiguous copy: their order then does not
-        # depend on the layout a step left the state in, so a state restored
-        # from a checkpoint reduces to the same bits
-        qm = q_dev.contiguous() * mask_f  # anything outside the mask must not leak in
-        out = [qm.sum(dim=0) * dE, qm.sum(dim=(1, 2)), None, None]
-        if phw_d is not None:
-            phm = ph_dev.contiguous() * mask_f
-            out[2] = (phm * phw_d).sum(dim=0)
-            out[3] = phm.sum(dim=(1, 2))
-        return out
-
-    def card_light(q_dev: torch.Tensor, ph_dev: torch.Tensor | None) -> list[torch.Tensor | None]:
-        """A first frame's light reductions on the card, by the snapshot kernel: the frames
-        of :func:`light_on_host` bit for bit, the sums to about 1e-16."""
-        widths = torch.as_tensor(phonon_widths, device=q_dev.device) if record_phonons else None
-        ph_dev = ph_dev.contiguous() if record_phonons else None
-        return snapshot_reduce(q_dev.contiguous(), ph_dev, mask_d.contiguous(), widths, dE)
-
-    def host_light(q_host: np.ndarray, ph_host: np.ndarray | None) -> list:
-        return light_on_host(q_host, ph_host if record_phonons else None, mask, dE, phonon_widths)
-
-    def emit_light(t: float, integrated, bin_sums, ph_int, ph_bin_sums) -> np.ndarray:
-        frame = np.where(mask, np.asarray(integrated, dtype=np.float64), np.nan)
-        bin_sums = np.asarray(bin_sums, dtype=np.float64)
-        keep_or_stream(
-            t, frame, float(np.sum(bin_sums) * dE * dx * dx),
-            phonon_frame=(
-                None if ph_int is None else np.where(mask, np.asarray(ph_int, dtype=np.float64), np.nan)
-            ),
-            energy_bin_sums=bin_sums,
-            phonon_bin_sums=None if ph_bin_sums is None else np.asarray(ph_bin_sums, dtype=np.float64),
-        )
-        return frame
-
-    def start_copy(q_dev, ph_dev) -> _HostCopy:
-        # the full state IS the resume data: light mode saves the snapshot
-        # traffic, not the checkpoint traffic
-        q_dev, ph_dev = prog.gather(q_dev), prog.gather(ph_dev)  # a mesh's shards, put together
-        if light:
-            full = [q_dev, ph_dev] if checkpointer is not None else []
-            return _HostCopy(*light_reduce(q_dev, ph_dev), *full)
-        keep_ph = record_phonons or checkpointer is not None
-        return _HostCopy(q_dev, ph_dev if keep_ph else None)
-
-    def as_f64(h: np.ndarray | None) -> np.ndarray | None:
-        return None if h is None else h.astype(np.float64)
-
-    stored_idx = 0
-
-    def store(t: float, step: int, copy: _HostCopy) -> None:
+    def store(t: float, step: int, pending) -> None:
+        """One stored frame's host work: wait for its copy, record it, call back, checkpoint."""
         nonlocal stored_idx
         stored_idx += 1
+        copy, finish = pending
         with span("qpsim.store"):
             host = copy.get()
             with span("qpsim.reduce"):
-                if light:
-                    frame = emit_light(t, *host[:4])
-                    state = host[4:]
-                else:
-                    frame = emit(t, as_f64(host[0]), as_f64(host[1]) if record_phonons else None)
-                    state = host
+                sums, state = finish(host)
+                frame = record(t, sums, state)
             _notify(progress_callback, t, frame)
             if checkpointer is not None:
                 checkpointer.save_step(stored_idx, step=step, time_ns=float(t), q=state[0], ph=state[1])
@@ -430,30 +445,13 @@ def _run_energy_resolved(
     current_time = 0.0
     step_counter = 0
     completed_steps = 0
-    # a light run's first frame is reduced in float64 where the state lies: on
-    # a card by the snapshot kernel, elsewhere on the host as the JAX package
-    # reduces its host state (the same frames); a full one always on the host
-    first_on_card = light and q.is_cuda
     replay = _usable_resume_prefix(checkpointer, segments) if checkpointer is not None else []
     if replay:
         # rebuild the stored history from the checkpoints and continue from
-        # the last aligned one — results match an uninterrupted run exactly:
-        # each snapshot is reduced where the run reduced it (the first as
-        # above, a light one's later ones on the device)
+        # the last aligned one — results match an uninterrupted run exactly
         for payload in replay:
-            t = payload["time_ns"]
-            q_r, ph_r = payload["q"], payload.get("ph")
-            first = payload["stored_idx"] == 0
-            if first:
-                FIRST_FRAMES["first_frames_on_card" if first_on_card else "first_frames_on_host"] += 1
-            if not light:
-                emit(t, as_f64(q_r), as_f64(ph_r) if record_phonons else None)
-            elif first and not first_on_card:
-                emit_light(t, *host_light(q_r, ph_r))
-            else:
-                on_device = [None if a is None else torch.as_tensor(a, dtype=dtype, device=device)
-                             for a in (q_r, ph_r)]
-                emit_light(t, *_HostCopy(*(card_light if first else light_reduce)(*on_device)).get())
+            copy, finish = start_frame(payload["q"], payload.get("ph"), first=payload["stored_idx"] == 0)
+            record(payload["time_ns"], *finish(copy.get()))
         resume = replay[-1]
         q = torch.as_tensor(resume["q"], dtype=dtype, device=device).clone()
         if "ph" in resume:
@@ -462,27 +460,12 @@ def _run_energy_resolved(
         current_time = resume["time_ns"]
         # stored_idx advances through the skipped segments below, reaching
         # resume["stored_idx"] exactly when the replay is complete
+        stored_idx = 0
     else:
         # the first frame is read from the device state; on the card only the
         # kernel's results cross, and the state too where a checkpoint saves it
-        keep = checkpointer is not None
-        FIRST_FRAMES["first_frames_on_card" if first_on_card else "first_frames_on_host"] += 1
-        with span("qpsim.first_frame"), span("qpsim.store"):
-            if first_on_card:
-                host = _HostCopy(*card_light(q, ph), *((q, ph) if keep else ())).get()
-                q0, ph0 = host[4:] if keep else (None, None)
-            else:
-                q0, ph0 = _HostCopy(q, ph if (record_phonons or keep) else None).get()
-            with span("qpsim.reduce"):
-                if first_on_card:
-                    frame0 = emit_light(0.0, *host[:4])
-                elif light:
-                    frame0 = emit_light(0.0, *host_light(q0, ph0))
-                else:
-                    frame0 = emit(0.0, as_f64(q0), as_f64(ph0) if record_phonons else None)
-            _notify(progress_callback, 0.0, frame0)
-            if keep:
-                checkpointer.save_step(0, step=0, time_ns=0.0, q=q0, ph=ph0)
+        with span("qpsim.first_frame"):
+            store(0.0, 0, start_frame(q, ph, first=True))
 
     COPIES["initial_copy_bytes"] += COPIES["host_copy_bytes"] - copied_before
 
@@ -523,7 +506,7 @@ def _run_energy_resolved(
             # host-evaluated generation needs the host between every step —
             # inherently sequential, no pipelining
             with span("qpsim.segment"):
-                one = prog.single_step(seg.dt)
+                one = prog.segment_runner(seg.dt, 1)
                 for _ in range(seg.length):
                     g_host = evaluate_generation_host(
                         external_generation, E_bins, n_spatial, current_time, mask
@@ -532,12 +515,12 @@ def _run_energy_resolved(
                         g_dense = torch.zeros((num_energy_bins, ny, nx), dtype=dtype, device=device)
                         g_dense[:, mask_d] = torch.as_tensor(g_host, dtype=dtype, device=device)
                         q = prog.shard(prog.gather(q) + seg.dt * g_dense)
-                    q, ph, stats = one(q, ph, current_time)
+                    q, ph, stats, _ = one(q, ph, current_time)
                     step_counter += 1
                     current_time += seg.dt
-                    enforcer.check_row(step_counter, current_time, _counted(stats).cpu().numpy())
+                    enforcer.check_row(step_counter, current_time, _counted(stats[0]).cpu().numpy())
             if seg.stored:
-                store(current_time, step_counter, start_copy(q, ph))
+                store(current_time, step_counter, start_frame(q, ph))
             continue
         with span("qpsim.segment"):
             q, ph, stats, flags = prog.segment_runner(seg.dt, seg.length)(q, ph, current_time)
@@ -545,7 +528,7 @@ def _run_energy_resolved(
                 "seg": seg,
                 "stats": _HostCopy(stats),
                 "flags": flags,
-                "snapshot": start_copy(q, ph) if seg.stored else None,
+                "snapshot": start_frame(q, ph) if seg.stored else None,
                 "step_start": step_counter,
                 "t_start": current_time,
             }

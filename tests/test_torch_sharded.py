@@ -29,6 +29,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from qpsim_tpu.geometry.mask import extract_edge_segments  # noqa: E402
+from qpsim_tpu.models import params as jp  # noqa: E402
 from qpsim_tpu.models.params import BoundaryCondition, ExternalGenerationSpec  # noqa: E402
 from qpsim_tpu.ops.diffusion import build_directional_stencils, fold_diffusion  # noqa: E402
 from qpsim_tpu.ops.dos import dynes_density_of_states, thermal_phonon_occupation  # noqa: E402
@@ -543,7 +544,8 @@ def test_pulse_chunk_requires_start_time():
 # ---------------------------------------------------------------- the engine's mesh=
 
 
-def _engine_kwargs(total_time, store_every, gen=False, gap_expression=""):
+def _engine_kwargs(total_time, store_every, gen=False, gap_expression="", drive=None):
+    """The JAX and the port's keywords; ``drive(params_module)`` adds keywords built per package."""
     ny = nx = 16
     mask, edges, bcs = _geometry(ny, nx)
     init = np.zeros(mask.shape)
@@ -561,6 +563,9 @@ def _engine_kwargs(total_time, store_every, gen=False, gap_expression=""):
         spec = dict(mode="pulse", pulse_start=0.05, pulse_duration=0.2, pulse_rate=2e-4)
         jkw["external_generation"] = ExternalGenerationSpec(**spec)
         tkw["external_generation"] = tp.ExternalGenerationSpec(**spec)
+    if drive is not None:
+        jkw.update(drive(jp))
+        tkw.update(drive(tp))
     return jkw, tkw
 
 
@@ -586,6 +591,21 @@ ENGINE_CASES = {
     # test_engine_mesh_gap_map_and_generation_match_single_chip ('auto' → merged)
     "gap_map_generation": dict(total_time=0.25, store_every=1, gen=True,
                                gap_expression="return 160.0 + 30.0 * (x > 8)", strang_mode="auto"),
+    # a traced custom expression with a one-tone photon drive ('auto' → merged: both at every seam)
+    "custom_traced_with_photons": dict(
+        total_time=0.325, store_every=2, strang_mode="auto",
+        drive=lambda p: dict(
+            external_generation=p.ExternalGenerationSpec(
+                mode="custom", custom_body="params.get('a', 1.0) * 2e-6 * (1.0 + x)", custom_params={"a": 3.0}),
+            photon_drive=p.PhotonDriveSpec(mode="photon", photon_energy=2.6 * GAP, occupancy=2.0, coupling=2e-4))),
+    # a host-evaluated expression with a windowed tone: one step per host evaluation ('auto' → exact)
+    "custom_host": dict(
+        total_time=0.4, store_every=3, strang_mode="auto",
+        drive=lambda p: dict(
+            external_generation=p.ExternalGenerationSpec(
+                mode="custom", custom_body="2e-6 * (1.0 + x) if t >= 0.1 else 0.0"),
+            photon_drive=p.PhotonDriveSpec(mode="photon", photon_energy=2.6 * GAP, occupancy=2.0, coupling=2e-4,
+                                           window_start=0.1, window_duration=0.25))),
 }
 
 
